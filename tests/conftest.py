@@ -12,6 +12,11 @@ import jax.numpy as jnp
 from repro.core.dyngraph import BingoConfig, from_edges
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches():
     """Drop compiled-program caches between test modules — the suite
