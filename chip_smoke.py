@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``update_fused`` over insert/delete/mixed × five
-   config rows, plus a batch wider than 2·C.
+   config rows, plus a batch wider than 2·C; ``walk_sample`` and
+   ``walk_sample_uniform`` over base 2/4 × fp on/off × gathered rows /
+   in-place ``rows``, on batches holding degree-0 rows.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -19,11 +21,23 @@ Phases (any failure exits non-zero and prints no result line):
    round, then one ppr batch (max 400, stop 1/80) and one simple batch.
    Launch counters are zeroed just before and read just after.  Round 1's
    state is held against ``batched_update`` on a copy.
+3b. The per-step paths on the main path's final state, each with the
+   counters zeroed just before and read just after: a node2vec batch
+   (``WalkParams("node2vec", 80, p=0.5, q=2.0)``), a per-step deepwalk and
+   a per-step simple batch (``whole_walk=False``), all through
+   ``DynamicWalkEngine.walk`` from the same 262,144 starts; then 2,000
+   mixed single-edge updates through ``stream_updates``, held against a
+   host simulation of the same sequence and against a rebuild of the
+   touched vertices.  Each batch is checked as the main path's are, and
+   the per-step deepwalk and node2vec batches against their exact
+   next-vertex distributions (TV bound derived from the sample count).
 4. Times on the card (CUDA events): each kernel at the main path's shapes
    and its plain version, whose outputs are held against the main path's
    whole batches (deepwalk, ppr and simple paths; the state after round
-   10); each kernel's bound from the work this run's data needs.  Prints a
-   ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+   10; a per-step sample of all 262,144 walkers); each kernel's bound
+   from the work this run's data needs; the wall time of each walk batch
+   and of each streaming update.  Prints a ``{"kernels": [...]}`` line
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Needs one card, the CUDA toolkit (nvcc) and nothing from the network.
 ``--scale`` cuts the graph for a quicker run; ``--report`` writes every
@@ -33,6 +47,7 @@ number measured to a JSON file; ``--profile DIR`` adds one profiled round
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,7 +63,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12                  # H100 SXM float32 outside the tensor cores
 WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
+N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
+STREAM_UPDATES = 2000
 
 
 class SmokeFailure(RuntimeError):
@@ -173,6 +190,57 @@ def check_walk_kernel(rng):
     return n
 
 
+def check_sample_kernels(rng):
+    """Both per-step kernels == their plain versions, bit for bit, over
+    base 2/4 × fp on/off × gathered / in-place rows (and 3 or 5 uniform
+    columns on the base-2 integer path); every batch holds degree-0 rows."""
+    import torch
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.walk_sample import (walk_sample_ref,
+                                                walk_sample_uniform_ref)
+    V, C, bits, B = 4096, 128, 12, 8192
+    src, dst, w = random_graph(rng, V, C, bits)
+    keep = (rng.random(V) >= 0.05)[src]                # degree-0 rows
+    src, dst, w = src[keep], dst[keep], w[keep]
+    n = 0
+    for base_log2 in (1, 2):
+        for fp in (False, True):
+            wv = w.astype(np.float32) + rng.random(w.size).astype(np.float32) \
+                if fp else w
+            cfg = dg.BingoConfig(num_vertices=V, capacity=C, bias_bits=bits,
+                                 base_log2=base_log2, fp_bias=fp, lam=4.0)
+            st = dg.from_edges(cfg, src, dst, wv, device="cuda")
+            tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+            rows = torch.from_numpy(rng.integers(0, V, B).astype(np.int32)).cuda()
+            need(bool((st.deg[rows.long()] == 0).any()), "no degree-0 rows")
+            for in_place in (True, False):
+                if in_place:
+                    args, frac, kw = tabs, st.frac if fp else None, {"rows": rows}
+                else:
+                    r = rows.long()
+                    args = tuple(x[r].contiguous() for x in tabs)
+                    frac, kw = (st.frac[r].contiguous() if fp else None), {}
+                for ncols in ((3, 5) if base_log2 == 1 and not fp else (5,)):
+                    u = torch.from_numpy(rng.random((B, ncols)).astype(
+                        np.float32)).cuda()
+                    got = ops.walk_sample(*args, u, frac, base_log2=base_log2,
+                                          **kw)
+                    want = walk_sample_ref(*args, u, frac, base_log2=base_log2,
+                                           **kw)
+                    got_u = ops.walk_sample_uniform(args[3], args[4], u, **kw)
+                    want_u = walk_sample_uniform_ref(args[3], args[4], u, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"base 2^{base_log2}, fp={fp}, in_place={in_place}, "
+                            f"u (B, {ncols})")
+                    for name, g, x in (("walk_sample", got, want),
+                                       ("walk_sample_uniform", got_u, want_u)):
+                        need(all(torch.equal(a, b) for a, b in zip(g, x)),
+                             f"{name} != plain ({what})")
+                    n += 1
+    return n
+
+
 def check_update_kernel(rng):
     import torch
     from repro_torch.core import dyngraph as dg
@@ -233,6 +301,50 @@ def check_update_kernel(rng):
 
 
 # ---------------------------------------------------------------- phase 3
+def check_paths(name, p, st, starts, cfg):
+    """A walk batch is real: column 0 equals the starts, vertices in range,
+    no walker revives after -1, and every hop of the first
+    ``CHECK_WALKERS`` walkers is an edge of ``st``."""
+    import torch
+    V = cfg.num_vertices
+    need(tuple(p.shape) == (len(starts), p.shape[1]), f"{name}: path shape")
+    need(torch.equal(p[:, 0], starts), f"{name}: column 0 != starts")
+    need(bool(((p >= -1) & (p < V)).all()), f"{name}: vertex out of range")
+    dead = p[:, :-1] < 0
+    need(not bool((dead & (p[:, 1:] >= 0)).any()), f"{name}: revived walker")
+    a, b = p[:CHECK_WALKERS, :-1].long(), p[:CHECK_WALKERS, 1:].long()
+    hop = (a >= 0) & (b >= 0)
+    rows = st.nbr[a[hop]]
+    ok = ((rows == b[hop][:, None])
+          & (torch.arange(cfg.capacity, device=p.device)[None, :]
+             < st.deg[a[hop]][:, None])).any(1)
+    need(bool(ok.all()), f"{name}: a hop that is not an edge")
+
+
+def tv_bound(probs, n, delta=1e-6):
+    """A TV distance a correct sampler exceeds with probability < delta at
+    ``n`` samples: E[TV] <= ½ Σ sqrt(p(1-p)/n), plus McDiarmid's
+    sqrt(ln(1/delta) / 2n) (one sample moves TV by at most 1/n)."""
+    import torch
+    p = probs[probs > 0].double()
+    return (0.5 * float(torch.sqrt(p * (1 - p) / n).sum())
+            + math.sqrt(math.log(1 / delta) / (2 * n)))
+
+
+def check_distribution(name, nxt, want, V):
+    """TV of the empirical next-vertex distribution of ``nxt`` against
+    ``want`` (V,), within ``tv_bound``; returns ``(tv, bound, n)``."""
+    import torch
+    n = nxt.numel()
+    need(n > 0, f"{name}: no samples")
+    emp = torch.bincount(nxt, minlength=V).double() / n
+    tv = 0.5 * float((emp - want.double()).abs().sum())
+    b = tv_bound(want, n)
+    print(f"{name}: TV {tv:.4f} over {n} samples, bound {b:.4f}", flush=True)
+    need(tv < b, f"{name}: TV {tv:.4f} >= bound {b:.4f}")
+    return {"tv": tv, "tv_bound": b, "samples": n}
+
+
 def bound(nbytes, nops):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
     and 32-bit operations over the float32 rate outside the tensor cores
@@ -407,17 +519,7 @@ def main_path(args, report):
     st = engine.state
     for name, p in (("deepwalk", last_paths), ("ppr", ppr_paths),
                     ("simple", simple_paths)):
-        need(torch.equal(p[:, 0], starts), f"{name}: column 0 != starts")
-        need(bool(((p >= -1) & (p < V)).all()), f"{name}: vertex out of range")
-        dead = p[:, :-1] < 0
-        need(not bool((dead & (p[:, 1:] >= 0)).any()), f"{name}: revived walker")
-        a, b = p[:CHECK_WALKERS, :-1].long(), p[:CHECK_WALKERS, 1:].long()
-        hop = (a >= 0) & (b >= 0)
-        rows = st.nbr[a[hop]]
-        ok = ((rows == b[hop][:, None])
-              & (torch.arange(cfg.capacity, device="cuda")[None, :]
-                 < st.deg[a[hop]][:, None])).any(1)
-        need(bool(ok.all()), f"{name}: a hop that is not an edge")
+        check_paths(name, p, st, starts, cfg)
     ppr_len = float((ppr_paths[:, 1:] >= 0).sum(1).float().mean())
     report.update(round_ms=round_ms,
                   round_median_ms=statistics.median(round_ms),
@@ -507,33 +609,340 @@ def main_path(args, report):
             traceback.print_exc()
             print(f"profiled round: failed ({e!r})", flush=True)
             report["profile"] = {"error": repr(e)}
-    return kernels
+    return kernels, engine, cfg, starts
 
 
-def profile_round(state, cfg, lanes, starts, out_dir):
-    """One serving round (``ingest`` of the last round's lanes, then a
-    deepwalk batch) under ``torch.profiler``, after a warm-up walk: its
-    host wall time, the device's busy time (union of kernel, copy and set
-    intervals) and the device time by kernel name.  Writes the Chrome
-    trace to ``out_dir/round_trace.json``."""
+# --------------------------------------------------------------- phase 3b
+def sample_work(rows, nxt, deg, ucols, uniform):
+    """The work one per-step sample of every walker needs, each word read
+    once, counted as ``walk_work`` counts a step: per distinct row its deg
+    word and, for the biased sample of a row with edges, one prob and one
+    alias entry and its bias row (deg words, two operations each); one
+    nbr word per distinct (row, next) hop; the rows and ``ucols`` uniform
+    columns read and the (nxt, slot) pair written per walker."""
+    import torch
+    r = rows.long()
+    B, V = r.numel(), deg.shape[0]
+    live = nxt >= 0
+    words = (torch.unique(r).numel()
+             + torch.unique(r[live] * V + nxt[live].long()).numel()
+             + B * (1 + ucols + 2))
+    ops = 0
+    if not uniform:
+        d = deg[r].long()
+        xm = torch.unique(r[d > 0])
+        words += 2 * xm.numel() + int(deg[xm].long().sum())
+        ops = 2 * int(d.sum())
+    return {"bytes": 4 * words, "ops": ops, "walkers": B}
+
+
+def n2v_probs(st, cfg, prev, cur, p, q):
+    """Exact node2vec P(v | prev, cur) ∝ w(cur, v)·f(prev, v) by vertex:
+    f = 1/p for v == prev, 1 for v ∈ N(prev), 1/q otherwise (Eq. 1)."""
+    import torch
+    d, dp = int(st.deg[cur]), int(st.deg[prev])
+    nb = st.nbr[cur, :d].long()
+    w = st.bias[cur, :d].float() + st.frac[cur, :d]
+    f = torch.where(nb == prev, 1.0 / p,
+                    torch.where(torch.isin(nb, st.nbr[prev, :dp].long()),
+                                1.0, 1.0 / q))
+    probs = torch.zeros(cfg.num_vertices, dtype=torch.float64,
+                        device=nb.device).index_add_(0, nb, (w * f).double())
+    return probs / probs.sum()
+
+
+def first_order_probs(st, cfg, v):
+    """Eq. 2 next-vertex distribution out of ``v`` (``transition_probs``)."""
+    import torch
+    from repro_torch.core.sampler import transition_probs
+    d = int(st.deg[v])
+    p = transition_probs(st, cfg, torch.tensor([v], device=st.deg.device))[0]
+    return torch.zeros(cfg.num_vertices, dtype=torch.float64,
+                       device=p.device).index_add_(
+        0, st.nbr[v, :d].long(), p[:d].double())
+
+
+def per_step_paths(engine, cfg, starts, report, profile_dir=None):
+    """node2vec, per-step deepwalk and per-step simple batches through
+    ``DynamicWalkEngine.walk`` on the final state, each with the launch
+    counters zeroed just before and read just after; the whole-walk
+    deepwalk batch's wall time beside them.  With ``profile_dir`` each
+    batch runs once more under ``torch.profiler``.  Returns the kernels'
+    lines."""
+    import torch
+    from repro_torch.core import walks
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.walk_sample import (walk_sample_ref,
+                                                walk_sample_uniform_ref)
+    from repro_torch.serve import DynamicWalkEngine
+    st = engine.state
+    V = cfg.num_vertices
+    out = {}
+    cases = (
+        ("whole deepwalk", WalkParams("deepwalk", WALK_LEN), None),
+        ("node2vec", WalkParams("node2vec", WALK_LEN, p=N2V_P, q=N2V_Q), None),
+        ("per-step deepwalk", WalkParams("deepwalk", WALK_LEN), False),
+        ("per-step simple", WalkParams("simple", WALK_LEN), False))
+    for i, (name, params, whole) in enumerate(cases):
+        eng = DynamicWalkEngine(st, cfg, params, whole_walk=whole, seed=10 + i)
+        for k in walks.N2V_COUNTS:
+            walks.N2V_COUNTS[k] = 0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        p = eng.walk(starts)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        check_paths(name, p, st, starts, cfg)
+        alive = int((p[:, 1:] >= 0).sum())
+        out[name] = {"wall_ms": wall, "launches": counts,
+                     "alive_steps": alive, "seed": eng.last_seed,
+                     "n2v": dict(walks.N2V_COUNTS)}
+        print(f"{name}: {wall:.2f} ms wall, {alive} alive steps, launches "
+              f"{counts}" + (f", node2vec {walks.N2V_COUNTS}"
+                             if name == "node2vec" else ""), flush=True)
+        if name == "whole deepwalk":
+            need(counts["walk_fused"] == 1, f"{name}: walk_fused launches")
+        elif name == "node2vec":
+            need(counts["walk_sample"] == walks.N2V_COUNTS["trials"] > 0,
+                 f"{name}: walk_sample launches != proposal trials")
+            need(counts["walk_fused"] == counts["walk_sample_uniform"] == 0,
+                 f"{name}: launches of other kernels")
+            a, b, c = (p[:, :-2].long(), p[:, 1:-1].long(), p[:, 2:].long())
+            ok = (a >= 0) & (b >= 0) & (c >= 0)
+            keys, cnt = torch.unique(a[ok] * V + b[ok], return_counts=True)
+            key = int(keys[torch.argmax(cnt)])
+            prev, cur = key // V, key % V
+            sel = ok & (a == prev) & (b == cur)
+            out[name]["dist"] = dict(
+                check_distribution(f"{name} from (prev {prev}, cur {cur})",
+                                   c[sel], n2v_probs(st, cfg, prev, cur,
+                                                     N2V_P, N2V_Q), V),
+                prev=prev, cur=cur)
+        elif name == "per-step deepwalk":
+            need(counts["walk_sample"] == WALK_LEN, f"{name}: walk_sample "
+                 f"launches {counts['walk_sample']} != {WALK_LEN}")
+            need(counts["walk_fused"] == 0, f"{name}: walk_fused launched")
+            a, b = p[:, :-1].long(), p[:, 1:].long()
+            hop = (a >= 0) & (b >= 0)
+            v0 = int(torch.argmax(torch.bincount(a[hop], minlength=V)))
+            out[name]["dist"] = dict(
+                check_distribution(f"{name} out of vertex {v0}",
+                                   b[hop & (a == v0)],
+                                   first_order_probs(st, cfg, v0), V),
+                vertex=v0)
+        else:
+            need(counts["walk_sample_uniform"] == WALK_LEN,
+                 f"{name}: walk_sample_uniform launches "
+                 f"{counts['walk_sample_uniform']} != {WALK_LEN}")
+            need(counts["walk_fused"] == counts["walk_sample"] == 0,
+                 f"{name}: launches of other kernels")
+        del p
+        if profile_dir is not None:
+            try:    # a diagnostic: a profiler fault does not fail the smoke
+                out[name]["profile"] = profiled(
+                    lambda: eng.walk(starts),
+                    profile_dir / f"{name.replace(' ', '_')}_trace.json", name,
+                    keep=False)
+            except Exception as e:          # noqa: BLE001
+                traceback.print_exc()
+                out[name]["profile"] = {"error": repr(e)}
+    report["per_step"] = out
+
+    # one per-step sample of every walker at the starts, kernel vs plain,
+    # with the uniforms fed
+    g = torch.Generator(device="cuda").manual_seed(5)
+    u = torch.rand((len(starts), 3), generator=g, device="cuda")
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+    lines = []
+    for name, uniform, fn, ref in (
+            ("walk_sample", False,
+             lambda: ops.walk_sample(*tabs, u, rows=starts),
+             lambda: walk_sample_ref(*tabs, u, rows=starts)),
+            ("walk_sample_uniform", True,
+             lambda: ops.walk_sample_uniform(st.nbr, st.deg, u, rows=starts),
+             lambda: walk_sample_uniform_ref(st.nbr, st.deg, u, rows=starts))):
+        ms, got = cuda_ms(fn, reps=5)
+        plain_ms, want = cuda_ms(ref, reps=1)
+        err = max(path_diff(x, y, f"{name} on all walkers")
+                  for x, y in zip(got, want))
+        work = sample_work(starts, got[0], st.deg, u.shape[1] if not uniform
+                           else 1, uniform)
+        b_ms, b_by = bound(work["bytes"], work["ops"])
+        launches = sum(out[k]["launches"][name] for k in out)
+        print(f"{name}: {ms:.4f} ms for {len(starts)} walkers in place; plain "
+              f"{plain_ms:.2f} ms, equal on all walkers; needs "
+              f"{work['bytes'] / 1e6:.3f} MB and {work['ops'] / 1e6:.3f} M ops "
+              f"-> bound {b_ms:.5f} ms ({b_by}); launches on the per-step "
+              f"paths {launches}", flush=True)
+        report[name] = dict(work, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, launches=launches)
+        lines.append({"name": name, "route": "cuda",
+                      "source": "src/repro_torch/csrc/walk_sample.cu",
+                      "replaces": "src/repro/kernels/walk_sample.py:"
+                                  + ("249" if uniform else "218"),
+                      "launches": launches, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None})
+    return lines
+
+
+def host_counts(fn):
+    """Host-side work of one call of ``fn()`` under ``torch.profiler``:
+    aten operator calls, kernel launches and stream synchronizations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.walks import WalkParams
-    from repro_torch.serve import DynamicWalkEngine
-    eng = DynamicWalkEngine(state, cfg, WalkParams("deepwalk", WALK_LEN), seed=1)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    trace = out_dir / "round_trace.json"
-    eng.walk(starts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {"aten_calls": 0, "launches": 0, "syncs": 0}
+    for e in prof.key_averages():
+        if e.key.startswith("aten::"):
+            counts["aten_calls"] += e.count
+        elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            counts["launches"] += e.count
+        elif e.key == "cudaStreamSynchronize":
+            counts["syncs"] += e.count
+    return counts
+
+
+def host_insert(row, v, w, C):
+    if len(row) >= C:
+        return False
+    row.append((v, w))
+    return True
+
+
+def host_delete(row, v):
+    """The earliest slot holding ``v`` goes; the tail slot fills it."""
+    for i, (x, _) in enumerate(row):
+        if x == v:
+            row[i] = row[-1]
+            row.pop()
+            return True
+    return False
+
+
+def streaming(engine, cfg, report, rng):
+    """``STREAM_UPDATES`` mixed single-edge updates through
+    ``stream_updates``, one call per update with a sync after each (its
+    latency on the host clock): deletes of edges present at the time,
+    inserts of new edges with degree biases.  The touched vertices' rows
+    are held against a host simulation of the same sequence, and their
+    counters, group types and alias rows against a rebuild from the rows."""
+    import torch
+    from repro_torch.core.dyngraph import build_itable_rows, build_vertex_groups
+    from repro_torch.core.updates import stream_updates
+    from repro_torch.kernels import ops
+    st = engine.state
+    V, C = cfg.num_vertices, cfg.capacity
+    deg = st.deg.cpu().numpy()
+    indeg = torch.bincount(st.nbr[st.nbr >= 0].long(), minlength=V).cpu().numpy()
+    live = np.flatnonzero(deg > 0)
+    del_verts = rng.choice(live, 400, replace=False)
+    ins_verts = rng.integers(0, V, 400)
+    touched = np.unique(np.concatenate([del_verts, ins_verts]))
+    tt = torch.from_numpy(touched).cuda()
+    nbr_h, bias_h = st.nbr[tt].cpu().numpy(), st.bias[tt].cpu().numpy()
+    sim = {int(u): list(zip(nbr_h[i, :deg[u]].tolist(),
+                            bias_h[i, :deg[u]].tolist()))
+           for i, u in enumerate(touched)}
+    seq, want_ok = [], []
+    for _ in range(STREAM_UPDATES):
+        if rng.random() < 0.5:
+            u = int(rng.choice(del_verts))
+            if sim[u]:
+                v = sim[u][rng.integers(len(sim[u]))][0]
+                seq.append((False, u, v, 0))
+                want_ok.append(host_delete(sim[u], v))
+                continue
+        u, v = int(rng.choice(ins_verts)), int(rng.integers(V))
+        w = int(np.clip(indeg[v], 1, (1 << cfg.bias_bits) - 1))
+        seq.append((True, u, v, w))
+        want_ok.append(host_insert(sim[u], v, w, C))
+    ins, uu, vv, ww = (np.array(x) for x in zip(*seq))
+    lat, oks = [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for i in range(len(seq)):
+        t0 = time.perf_counter()
+        _, ok = stream_updates(st, cfg, ins[i:i + 1], uu[i:i + 1],
+                               vv[i:i + 1], ww[i:i + 1])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        oks.append(ok)
+    total = time.perf_counter() - t_all
+    need(all(v == 0 for v in ops.launch_counts().values()),
+         "streaming updates launched a kernel")
+    got_ok = torch.cat(oks).cpu().numpy().tolist()
+    need(got_ok == want_ok, "stream_updates ok flags != host simulation")
+    deg2 = st.deg[tt].cpu().numpy()
+    nbr2, bias2 = st.nbr[tt].cpu().numpy(), st.bias[tt].cpu().numpy()
+    for i, u in enumerate(touched):
+        row = sorted(zip(nbr2[i, :deg2[i]].tolist(), bias2[i, :deg2[i]].tolist()))
+        need(row == sorted(sim[int(u)]), f"vertex {u}: row != host simulation")
+        need((nbr2[i, deg2[i]:] == -1).all(), f"vertex {u}: padding")
+    ttl = tt.long()
+    _, _, gsize, digitsum, gtype, wdec = build_vertex_groups(
+        cfg, st.bias[ttl], st.frac[ttl], st.deg[ttl])
+    itab = build_itable_rows(cfg, digitsum, wdec)
+    for name, a, b in (("gsize", gsize, st.gsize[ttl]),
+                       ("digitsum", digitsum, st.digitsum[ttl]),
+                       ("gtype", gtype, st.gtype[ttl]),
+                       ("itable.prob", itab.prob, st.itable.prob[ttl]),
+                       ("itable.alias", itab.alias, st.itable.alias[ttl])):
+        need(torch.equal(a, b), f"streaming: {name} != rebuild from the rows")
+    try:    # a diagnostic: a profiler fault does not fail the smoke
+        u0 = int(touched[0])
+        v0 = int(st.nbr[u0, 0]) if int(st.deg[u0]) else 0
+        ops_ins = host_counts(lambda: stream_updates(st, cfg, [True], [u0],
+                                                     [v0], [1]))
+        ops_del = host_counts(lambda: stream_updates(st, cfg, [False], [u0],
+                                                     [v0], [0]))
+        print(f"streaming host work per update: insert {ops_ins}, delete "
+              f"{ops_del}", flush=True)
+    except Exception as e:                  # noqa: BLE001
+        traceback.print_exc()
+        ops_ins = ops_del = {"error": repr(e)}
+    lat_s = sorted(lat)
+    res = {"updates": len(seq), "insert_host_work": ops_ins,
+           "delete_host_work": ops_del, "inserts": int(ins.sum()),
+           "applied": int(sum(got_ok)), "touched_vertices": len(touched),
+           "median_ms": statistics.median(lat),
+           "p99_ms": lat_s[min(len(lat_s) - 1, int(0.99 * len(lat_s)))],
+           "mean_ms": statistics.mean(lat), "total_s": total}
+    report["streaming"] = res
+    print(f"streaming: {res['updates']} updates ({res['inserts']} inserts, "
+          f"{res['applied']} applied) on {len(touched)} vertices in "
+          f"{total:.2f} s; per update median {res['median_ms']:.3f} ms, p99 "
+          f"{res['p99_ms']:.3f} ms; rows equal to the host simulation, "
+          f"counters and alias rows equal to a rebuild", flush=True)
+
+
+def profiled(fn, trace, what, keep=True):
+    """Run ``fn()`` once under ``torch.profiler``: its host wall time, the
+    device's busy time (union of kernel, copy and set intervals) and the
+    device time by kernel name.  Writes the Chrome trace to ``trace`` and
+    keeps it if ``keep``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    trace.parent.mkdir(parents=True, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.ingest(*lanes)
-        eng.walk(starts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text()).get("traceEvents", [])
+    if not keep:
+        trace.unlink()
     dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
                   e.get("name", "?")) for e in events
                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
@@ -549,14 +958,28 @@ def profile_round(state, cfg, lanes, starts, out_dir):
            "busy_share": busy / 1e3 / wall_ms if dev else None,
            "device_ms_by_name": dict(top)}
     if dev:
-        print(f"profiled round: {wall_ms:.2f} ms wall, device busy "
+        print(f"profiled {what}: {wall_ms:.2f} ms wall, device busy "
               f"{busy / 1e3:.2f} ms ({100 * busy / 1e3 / wall_ms:.1f} %) in "
               f"{len(dev)} device events; by name (ms): "
               f"{', '.join(f'{k} {v:.3f}' for k, v in top)}", flush=True)
     else:
-        print(f"profiled round: {wall_ms:.2f} ms wall; the profiler saw no "
+        print(f"profiled {what}: {wall_ms:.2f} ms wall; the profiler saw no "
               f"device events (device time not measured)", flush=True)
     return out
+
+
+def profile_round(state, cfg, lanes, starts, out_dir):
+    """One serving round (``ingest`` of the last round's lanes, then a
+    deepwalk batch) under ``torch.profiler``, after a warm-up walk."""
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.serve import DynamicWalkEngine
+    eng = DynamicWalkEngine(state, cfg, WalkParams("deepwalk", WALK_LEN), seed=1)
+    eng.walk(starts)
+
+    def round_():
+        eng.ingest(*lanes)
+        eng.walk(starts)
+    return profiled(round_, out_dir / "round_trace.json", "round")
 
 
 def main():
@@ -594,12 +1017,17 @@ def main():
     t0 = time.perf_counter()
     nw = check_walk_kernel(rng)
     nu = check_update_kernel(rng)
+    ns = check_sample_kernels(rng)
     report["check_s"] = time.perf_counter() - t0
     print(f"kernel == plain, bit-exact: walk_fused {nw} cases, update_fused "
-          f"{nu} rounds ({report['check_s']:.1f} s)", flush=True)
+          f"{nu} rounds, walk_sample and walk_sample_uniform {ns} cases each "
+          f"({report['check_s']:.1f} s)", flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
-    kernels = main_path(args, report)
+    kernels, engine, cfg, starts = main_path(args, report)
+    # ---- phase 3b: the per-step paths and streaming updates
+    kernels += per_step_paths(engine, cfg, starts, report, args.profile)
+    streaming(engine, cfg, report, rng)
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

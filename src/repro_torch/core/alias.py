@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["AliasTable", "build_alias", "alias_probs"]
+__all__ = ["AliasTable", "build_alias", "sample_alias", "alias_probs"]
 
 
 class AliasTable(NamedTuple):
@@ -66,6 +66,18 @@ def build_alias(w: torch.Tensor) -> AliasTable:
         scaled[rs, l_] = scaled[rs, l_] + (sval - one)
         done[rs, s_] = True
     return AliasTable(prob.reshape(shape), alias.reshape(shape))
+
+
+def sample_alias(table: AliasTable, u0: torch.Tensor,
+                 u1: torch.Tensor) -> torch.Tensor:
+    """O(1) alias sampling with two uniforms in [0, 1): bucket
+    ``i = min(⌊u0·n⌋, n-1)``, kept if ``u1 < prob[i]``, else ``alias[i]``.
+    ``table`` rows (B, n) pair with ``u0``/``u1`` (B,); returns (B,) int64."""
+    n = table.prob.shape[-1]
+    i = torch.clamp((u0 * n).to(torch.int64), max=n - 1)
+    p = table.prob.gather(-1, i[..., None])[..., 0]
+    a = table.alias.gather(-1, i[..., None])[..., 0].to(torch.int64)
+    return torch.where(u1 < p, i, a)
 
 
 def alias_probs(table: AliasTable) -> torch.Tensor:

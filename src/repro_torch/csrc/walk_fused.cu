@@ -7,14 +7,12 @@
 // bit for bit.
 //
 // Design: one warp per walker, the L-step loop inside the kernel.  Per step
-// the warp reads deg[cur], does the alias pick over the Kin inter-group
-// lanes, computes the chosen group's digits of bias[cur, 0:deg] in 32-lane
-// chunks, counts members with __ballot_sync/__popc, and picks the
-// ceil(u2*|G|)-th member from the popc prefix counts.  Bases > 2 add the
-// digit acceptance coin and an exact integer-prefix ITS; the fp decimal
-// group runs the ITS over frac sequentially in one lane (left to right, the
-// order the plain version spells out; the decimal group carries mass < 1/lambda
-// and is off the hot path).  The PPR coin is u5.  Path column t+1 is written
+// the warp reads deg[cur] and draws from row cur with the shared per-step
+// sampler of walk_sample.cuh (alias pick over the Kin inter-group lanes,
+// then the ballot/popc member pick over the chosen group's digits of
+// bias[cur, 0:deg]; bases > 2 add the digit acceptance coin and an exact
+// integer-prefix ITS; the fp decimal group, mass < 1/lambda, runs its ITS
+// in one lane, left to right).  The PPR coin is u5.  Path column t+1 is written
 // straight to the (B, L+1) output.  Uniforms are the counter hash
 // uniforms_at(seed, b, t) in uint32 arithmetic, or fed (L, B, ucols) floats.
 //
@@ -30,17 +28,17 @@
 // walker) to cover the latency.  Row prefetch (cp.async/TMA) and
 // cohort-style overlap are later work.
 //
-// Exactness: every float is an exact integer or a single IEEE rounding
-// (u0*Kin, u2*gsize, u*deg, x01*total, u3*(B-1)); the integer ITS compares
-// exact integer prefix sums; the fp ITS adds in lane order.  Built with
+// Exactness: see walk_sample.cuh; the hash is uint32 arithmetic.  Built with
 // -fmad=false so no multiply-add is contracted.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "walk_sample.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using walk_sample::kWarp;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -56,25 +54,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
 __device__ __forceinline__ float hash_uniform(uint32_t h_wt, int c) {
   uint32_t h = fmix32(h_wt ^ (static_cast<uint32_t>(c) * 0x846CA68Bu));
   return static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ unsigned lanemask_le(int lane) {
-  return 0xFFFFFFFFu >> (31 - lane);
-}
-
-// Inclusive warp prefix sum.
-__device__ __forceinline__ int warp_scan(int x, int lane) {
-#pragma unroll
-  for (int o = 1; o < kWarp; o <<= 1) {
-    int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
-}
-
-__device__ __forceinline__ int digit_of(const int* brow, int s, int d,
-                                        int shift, int dmask) {
-  return s < d ? (brow[s] >> shift) & dmask : 0;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -94,8 +73,6 @@ walk_fused_kernel(const float* __restrict__ prob, const int* __restrict__ alias,
   const int start = starts[b];
   if (lane == 0) out[0] = start;
 
-  const int dmask = (1 << base_log2) - 1;
-  const int num_radix = has_frac ? Kin - 1 : Kin;
   const uint32_t h_w = fmix32(seed ^ (static_cast<uint32_t>(b) * 0x9E3779B1u));
   int cur = start;
   bool alive = true;
@@ -118,100 +95,15 @@ walk_fused_kernel(const float* __restrict__ prob, const int* __restrict__ alias,
     const int safe = min(max(cur, 0), V - 1);
     const size_t row = static_cast<size_t>(safe) * C;
     const int d = deg[safe];
-    int nxt = -1;
-
-    if (uniform) {
-      if (d > 0) {
-        const int slot = min(static_cast<int>(uu[2] * static_cast<float>(d)), d - 1);
-        nxt = nbr[row + slot];
-      }
-    } else {
-      // stage (i): alias pick over the Kin lanes
-      const int i = min(static_cast<int>(uu[0] * static_cast<float>(Kin)), Kin - 1);
-      const size_t krow = static_cast<size_t>(safe) * Kin;
-      const float p = prob[krow + i];
-      const int a = alias[krow + i];
-      const int k = uu[1] < p ? i : a;
-      const int kc = min(k, num_radix - 1);
-      const bool is_dec = has_frac && k == num_radix;
-      bool ok;
-      int slot = 0;
-      const int* brow = bias + row;
-      if (!is_dec) {
-        // stage (ii): members of group kc, counted by ballot/popc
-        const int shift = kc * base_log2;
-        int gsize = 0;
-        for (int base = 0; base < d; base += kWarp) {
-          const int dig = digit_of(brow, base + lane, d, shift, dmask);
-          gsize += __popc(__ballot_sync(0xFFFFFFFFu, dig != 0));
-        }
-        ok = gsize > 0;
-        if (ok) {
-          const int target =
-              min(static_cast<int>(uu[2] * static_cast<float>(gsize)), gsize - 1) + 1;
-          int seen = 0;
-          for (int base = 0; base < d; base += kWarp) {
-            const int dig = digit_of(brow, base + lane, d, shift, dmask);
-            const unsigned m = __ballot_sync(0xFFFFFFFFu, dig != 0);
-            const int c = __popc(m);
-            if (seen + c >= target) {
-              const int want = target - seen;
-              const unsigned f = __ballot_sync(
-                  0xFFFFFFFFu, dig != 0 && __popc(m & lanemask_le(lane)) == want);
-              slot = base + __ffs(f) - 1;
-              break;
-            }
-            seen += c;
-          }
-          if (base_log2 > 1) {
-            // digit-proportional acceptance, exact integer-prefix ITS fallback
-            const int dig_c = digit_of(brow, slot, d, shift, dmask);
-            const bool accept = uu[3] * static_cast<float>(dmask) <
-                                static_cast<float>(dig_c);
-            if (!accept) {
-              int total = 0;
-              for (int base = 0; base < d; base += kWarp) {
-                int dig = digit_of(brow, base + lane, d, shift, dmask);
-                total += __reduce_add_sync(0xFFFFFFFFu, static_cast<unsigned>(dig));
-              }
-              const float x = uu[4] * static_cast<float>(total);
-              int count = (static_cast<float>(total) <= x) ? C - d : 0;
-              int off = 0;
-              for (int base = 0; base < d; base += kWarp) {
-                const int dig = digit_of(brow, base + lane, d, shift, dmask);
-                const int c = off + warp_scan(dig, lane);
-                count += __popc(__ballot_sync(
-                    0xFFFFFFFFu, base + lane < d && static_cast<float>(c) <= x));
-                off = __shfl_sync(0xFFFFFFFFu, c, kWarp - 1);
-              }
-              slot = min(count, C - 1);
-            }
-          }
-        }
-      } else {
-        // decimal group: ITS over the frac row, left to right in lane 0
-        int sl = 0, okd = 0;
-        if (lane == 0) {
-          const float* frow = frac + row;
-          float total = d > 0 ? frow[0] : 0.0f;
-          for (int j = 1; j < d; ++j) total = total + frow[j];
-          const float x = uu[4] * total;
-          float c = 0.0f;
-          int count = 0;
-          for (int j = 0; j < d; ++j) {
-            c = j == 0 ? frow[0] : c + frow[j];
-            count += c <= x;
-          }
-          if (d == 0) count += (0.0f <= x) ? C : 0;   // c stays 0 on every lane
-          else if (total <= x) count += C - d;        // lanes past deg add 0
-          sl = min(count, C - 1);
-          okd = total > 0.0f;
-        }
-        slot = __shfl_sync(0xFFFFFFFFu, sl, 0);
-        ok = __shfl_sync(0xFFFFFFFFu, okd, 0) != 0;
-      }
-      if (ok) nxt = nbr[row + slot];
-    }
+    const walk_sample::Pick pk =
+        uniform ? walk_sample::uniform_row(nbr + row, d, uu[2])
+                : walk_sample::sample_row(
+                      prob + static_cast<size_t>(safe) * Kin,
+                      alias + static_cast<size_t>(safe) * Kin, bias + row,
+                      nbr + row, has_frac ? frac + row : nullptr, d, C, Kin,
+                      base_log2, has_frac != 0, uu[0], uu[1], uu[2], uu[3],
+                      uu[4], lane);
+    const int nxt = pk.nxt;
 
     alive = d > 0;
     if (stop_prob > 0.0f) alive = alive && uu[5] >= stop_prob;

@@ -22,11 +22,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "error_string", "ptr"]
+__all__ = ["SOURCES", "build_all", "library", "error_string", "ptr",
+           "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("walk_fused", "update_fused")
+SOURCES = ("walk_fused", "update_fused", "walk_sample")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +39,10 @@ _SIGNATURES = {
     },
     "update_fused": {
         "update_fused_launch": ([_P] * 23 + [_I] * 8 + [_F, _F] + [_P], _I),
+    },
+    "walk_sample": {
+        "walk_sample_launch": ([_P] * 10 + [_I] * 6 + [_P], _I),
+        "walk_sample_uniform_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
     },
 }
 
@@ -114,6 +119,16 @@ def library(name: str) -> ctypes.CDLL:
 def ptr(x) -> ctypes.c_void_p:
     """A tensor's device pointer for a C argument (NULL for None)."""
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def check(name: str, x, dtype, shape) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what a kernel's C interface takes."""
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not x.is_cuda or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous CUDA tensor")
 
 
 def error_string(code: int) -> str:

@@ -1,6 +1,6 @@
 """Public entries of the kernels, dispatched by tensor device.
 
-Port of ``repro/kernels/ops.py`` for this slice's two kernels.  CPU
+Port of ``repro/kernels/ops.py`` for the kernels ported so far.  CPU
 tensors go to the plain PyTorch version — the caller asked for the CPU,
 as the tests do.  CUDA tensors go to the kernel, or the call raises:
 there is no fallback, and a failed build raises.
@@ -10,11 +10,14 @@ from __future__ import annotations
 
 from repro_torch.kernels.update_fused import update_fused
 from repro_torch.kernels.walk_fused import walk_fused
+from repro_torch.kernels.walk_sample import walk_sample, walk_sample_uniform
 
-__all__ = ["walk_fused", "update_fused", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["walk_fused", "update_fused", "walk_sample", "walk_sample_uniform",
+           "launch_counts", "reset_launch_counts"]
 
-_WRAPPERS = {"walk_fused": walk_fused, "update_fused": update_fused}
+_WRAPPERS = {"walk_fused": walk_fused, "update_fused": update_fused,
+             "walk_sample": walk_sample,
+             "walk_sample_uniform": walk_sample_uniform}
 
 
 def launch_counts() -> dict:

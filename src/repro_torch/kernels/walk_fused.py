@@ -115,14 +115,6 @@ def walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u=None, *,
     return torch.stack(cols, dim=1)
 
 
-def _check(name, x, dtype, shape):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    if not x.is_cuda or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous CUDA tensor")
-
-
 def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
                length: int, base_log2: int = 1, stop_prob: float = 0.0,
                uniform: bool = False):
@@ -142,17 +134,17 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
     from repro_torch.kernels import _build
     V, C = nbr.shape
     B = starts.shape[0]
-    _check("nbr", nbr, torch.int32, (V, C))
-    _check("deg", deg, torch.int32, (V,))
-    _check("starts", starts, torch.int32, (B,))
+    _build.check("nbr", nbr, torch.int32, (V, C))
+    _build.check("deg", deg, torch.int32, (V,))
+    _build.check("starts", starts, torch.int32, (B,))
     Kin = 1
     if not uniform:
         Kin = prob.shape[1]
-        _check("prob", prob, torch.float32, (V, Kin))
-        _check("alias", alias, torch.int32, (V, Kin))
-        _check("bias", bias, torch.int32, (V, C))
+        _build.check("prob", prob, torch.float32, (V, Kin))
+        _build.check("alias", alias, torch.int32, (V, Kin))
+        _build.check("bias", bias, torch.int32, (V, C))
         if frac is not None:
-            _check("frac", frac, torch.float32, (V, C))
+            _build.check("frac", frac, torch.float32, (V, C))
     else:
         prob = alias = bias = frac = None
     ucols = 0
@@ -160,7 +152,7 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
         ucols = u.shape[-1]
         if ucols < NUM_UNIFORMS:
             raise ValueError(f"fed uniforms must be (L, B, 6); got {tuple(u.shape)}")
-        _check("u", u, torch.float32, (length, B, ucols))
+        _build.check("u", u, torch.float32, (length, B, ucols))
     if not -(1 << 31) <= int(seed) < (1 << 31):
         raise ValueError(f"seed {seed} is outside int32")
     path = torch.empty((B, length + 1), dtype=torch.int32, device=nbr.device)

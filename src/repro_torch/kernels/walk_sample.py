@@ -1,21 +1,34 @@
-"""The two-stage Bingo sample on ``(B, ·)`` walker rows, in plain form.
+"""The two-stage Bingo sample on walker rows: per-step kernels and plain form.
 
-Port of ``repro/kernels/walk_sample.py:sample_rows``/``uniform_pick``
-(and ``kernels/ref.py:walk_sample_ref``): stage (i) is the alias pick
-over the Kin inter-group lanes, stage (ii) the exact pick of the
+Port of ``repro/kernels/walk_sample.py``: ``sample_rows``/``uniform_pick``
+(and ``kernels/ref.py:walk_sample_ref``) in plain PyTorch, and the entries
+of the two per-step kernels, ``walk_sample`` (``walk_sample_pallas``) and
+``walk_sample_uniform`` (``walk_sample_uniform_pallas``).  Stage (i) is the
+alias pick over the Kin inter-group lanes, stage (ii) the exact pick of the
 ⌈u2·|G_k|⌉-th member of group k by a masked prefix count over the bias
 row.  Bases > 2 add one digit-proportional acceptance coin with an exact
 inverse-transform (ITS) fallback; the fp decimal group samples by ITS over
-the ``frac`` row.  This is the sampler that ``csrc/walk_fused.cu`` runs
-per step, written out for the CPU and as the kernel's plain version.  The
-per-step CUDA kernel comes in a later slice.
+the ``frac`` row.  ``csrc/walk_sample.cuh`` runs the same sampler per warp,
+inside the whole-walk kernel and the per-step kernel ``csrc/walk_sample.cu``.
+
+The entries take the reference's gathered ``(B, ·)`` rows, or, with
+``rows`` (B,) int32, the full ``(V, ·)`` state tables, of which walker b
+reads row ``rows[b]`` in place (no ``(B, C)`` gather on the card).  CPU
+tensors run the plain version (the gather, then ``sample_rows`` /
+``uniform_pick``); CUDA tensors launch the kernel, counted in
+``walk_sample.launches`` / ``walk_sample_uniform.launches``, or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-__all__ = ["its_pick", "sample_rows", "uniform_pick"]
+from repro_torch.kernels import _build
+
+__all__ = ["its_pick", "sample_rows", "uniform_pick", "walk_sample_ref",
+           "walk_sample_uniform_ref", "walk_sample", "walk_sample_uniform"]
 
 
 def its_pick(w: torch.Tensor, x01: torch.Tensor):
@@ -115,3 +128,126 @@ def uniform_pick(nbr, deg, u2):
     nxt = nbr.gather(1, torch.clamp(slot, min=0).to(torch.int64)[:, None])[:, 0]
     ok = deg > 0
     return torch.where(ok, nxt, -1), torch.where(ok, slot, -1), ok
+
+
+def _gather(rows, *tables):
+    if rows is None:
+        return tables
+    r = rows.to(torch.int64)
+    return tuple(None if x is None else x[r] for x in tables)
+
+
+def _check_u(u, base_log2, frac):
+    if (base_log2 > 1 or frac is not None) and u.shape[-1] < 5:
+        raise ValueError(
+            f"extended sampling paths need u (B, 5); got (B, {u.shape[-1]})")
+
+
+def walk_sample_ref(prob, alias, bias, nbr, deg, u, frac=None, *,
+                    base_log2: int = 1, rows=None):
+    """Plain ``walk_sample``: gather ``rows`` (when given), then
+    ``sample_rows``.  Returns ``(nxt (B,), slot (B,))`` int32, -1 on
+    empty rows."""
+    _check_u(u, base_log2, frac)
+    prob, alias, bias, nbr, deg, frac = _gather(rows, prob, alias, bias, nbr,
+                                                deg, frac)
+    nxt, slot, _ = sample_rows(prob, alias, bias, nbr, deg, u, frac,
+                               base_log2=base_log2)
+    return nxt, slot
+
+
+def walk_sample_uniform_ref(nbr, deg, u, *, rows=None):
+    """Plain ``walk_sample_uniform``: gather ``rows`` (when given), then
+    ``uniform_pick`` on ``u[:, 0]``.  Returns ``(nxt, slot)`` int32."""
+    nbr, deg = _gather(rows, nbr, deg)
+    nxt, slot, _ = uniform_pick(nbr, deg, u[:, 0])
+    return nxt, slot
+
+
+def _batch(nbr, u, rows):
+    """Walker count B and table height R (R == B without ``rows``)."""
+    B = u.shape[0]
+    if rows is not None:
+        _build.check("rows", rows, torch.int32, (B,))
+    elif nbr.shape[0] != B:
+        raise ValueError(f"gathered rows: nbr has {nbr.shape[0]} rows, u {B}")
+    return B, nbr.shape[0]
+
+
+def walk_sample(prob, alias, bias, nbr, deg, u, frac=None, *,
+                base_log2: int = 1, rows=None):
+    """One two-stage Bingo sample per walker, dispatched by the device of
+    ``nbr``.
+
+    prob/alias (R, Kin) f32/i32 — Kin = K radix groups (+1 decimal group
+    in fp mode, with ``frac`` (R, C) f32); bias/nbr (R, C) i32; deg (R,)
+    i32; u (B, 3) uniforms, (B, 5) when ``base_log2 > 1`` or ``frac`` is
+    given (alias bucket, alias coin, member pick, acceptance coin, ITS
+    position).  R == B (gathered rows) unless ``rows`` (B,) int32 names
+    each walker's row of the (V, ·) tables; every entry must lie in
+    [0, V), which the kernel does not check.  Returns ``(nxt (B,), slot
+    (B,))`` int32; -1 on empty rows.
+    """
+    _check_u(u, base_log2, frac)
+    if nbr.device.type == "cpu":
+        return walk_sample_ref(prob, alias, bias, nbr, deg, u, frac,
+                               base_log2=base_log2, rows=rows)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"walk_sample: no kernel for device {nbr.device}")
+    B, R = _batch(nbr, u, rows)
+    C, Kin = nbr.shape[1], prob.shape[1]
+    _build.check("prob", prob, torch.float32, (R, Kin))
+    _build.check("alias", alias, torch.int32, (R, Kin))
+    _build.check("bias", bias, torch.int32, (R, C))
+    _build.check("nbr", nbr, torch.int32, (R, C))
+    _build.check("deg", deg, torch.int32, (R,))
+    if frac is not None:
+        _build.check("frac", frac, torch.float32, (R, C))
+    ucols = u.shape[1]
+    _build.check("u", u, torch.float32, (B, ucols))
+    nxt = torch.empty(B, dtype=torch.int32, device=nbr.device)
+    slot = torch.empty(B, dtype=torch.int32, device=nbr.device)
+    lib = _build.library("walk_sample")
+    err = lib.walk_sample_launch(
+        *[_build.ptr(x) for x in (prob, alias, bias, nbr, deg, frac, u, rows,
+                                  nxt, slot)],
+        B, C, Kin, base_log2, int(frac is not None), ucols,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"walk_sample launch failed: {_build.error_string(err)}")
+    walk_sample.launches += 1
+    return nxt, slot
+
+
+def walk_sample_uniform(nbr, deg, u, *, rows=None):
+    """Unbiased degree pick per walker, dispatched by the device of ``nbr``.
+
+    nbr (R, C) i32, deg (R,) i32, u (B, ≥1) uniforms (column 0 is used);
+    R == B unless ``rows`` (B,) int32 names each walker's row.  Returns
+    ``(nxt (B,), slot (B,))`` int32; -1 where the degree is 0.
+    """
+    if nbr.device.type == "cpu":
+        return walk_sample_uniform_ref(nbr, deg, u, rows=rows)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"walk_sample_uniform: no kernel for device {nbr.device}")
+    B, R = _batch(nbr, u, rows)
+    C = nbr.shape[1]
+    _build.check("nbr", nbr, torch.int32, (R, C))
+    _build.check("deg", deg, torch.int32, (R,))
+    ucols = u.shape[1]
+    _build.check("u", u, torch.float32, (B, ucols))
+    nxt = torch.empty(B, dtype=torch.int32, device=nbr.device)
+    slot = torch.empty(B, dtype=torch.int32, device=nbr.device)
+    lib = _build.library("walk_sample")
+    err = lib.walk_sample_uniform_launch(
+        *[_build.ptr(x) for x in (nbr, deg, u, rows, nxt, slot)], B, C, ucols,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(
+            f"walk_sample_uniform launch failed: {_build.error_string(err)}")
+    walk_sample_uniform.launches += 1
+    return nxt, slot
+
+
+walk_sample.launches = 0
+walk_sample_uniform.launches = 0

@@ -3,8 +3,10 @@
 Port of the single-device path of ``repro/serve/dynwalk.py``.  A
 ``DynamicWalkEngine`` owns one ``BingoState`` and threads it through
 alternating batched-update rounds (``ingest``, one update-kernel launch
-each on the card) and whole-walk batches (``walk``, one walk-kernel
-launch each).  Update rounds mutate the state's tensors in place — the
+each on the card) and walk batches (``walk``): whole walks, one
+walk-kernel launch each, or with node2vec or ``whole_walk=False`` the
+per-step path, one per-step kernel launch per step (per proposal trial
+for node2vec).  Update rounds mutate the state's tensors in place — the
 counterpart of the reference's donated buffers — so the caller must not
 keep using the state it passed in; read ``engine.state``.
 
@@ -68,17 +70,20 @@ class DynamicWalkEngine:
     """One dynamic graph on one device, serving update rounds and walks.
 
     ``seed`` seeds the engine's own ``torch.Generator``, from which
-    ``walk`` draws a walk seed when the caller gives none.
+    ``walk`` draws a walk seed when the caller gives none.  ``whole_walk``
+    is passed to ``random_walk`` (False pins the per-step path).
     """
 
     def __init__(self, state: BingoState, cfg: BingoConfig,
                  params: WalkParams = WalkParams(), *,
-                 backend: Optional[str] = None, seed: int = 0):
+                 backend: Optional[str] = None,
+                 whole_walk: Optional[bool] = None, seed: int = 0):
         self.cfg = cfg
         self.params = params
         self._state = state
         self._update = make_updater(cfg, backend=backend)
-        self._walk = make_walker(state, cfg, params, backend=backend)
+        self._walk = make_walker(state, cfg, params, backend=backend,
+                                 whole_walk=whole_walk)
         self._gen = torch.Generator().manual_seed(seed)
         self.rounds_ingested = 0
         self.updates_applied = 0
@@ -124,11 +129,12 @@ class DynamicWalkEngine:
         return self._state.deg.max() / self.cfg.capacity
 
     def walk(self, starts, seed: Optional[int] = None) -> torch.Tensor:
-        """Serve one whole-walk batch; returns ``(B, length+1)`` paths.
+        """Serve one walk batch; returns ``(B, length+1)`` paths.
 
-        ``seed`` keys the counter-hash PRNG; when None it is drawn from
-        the engine's generator.  ``last_seed`` keeps it, so a batch can be
-        replayed.
+        ``seed`` keys the walk's randomness (the counter-hash stream of a
+        whole walk, the generator of the per-step path); when None it is
+        drawn from the engine's generator.  ``last_seed`` keeps it, so a
+        batch can be replayed.
         """
         starts = self._as(starts, torch.int32).contiguous()
         if seed is None:
@@ -144,7 +150,7 @@ class DynamicWalkEngine:
         """Drive a full update stream, walking between rounds.
 
         Yields ``(round_index, UpdateStats, paths)`` per coalesced round;
-        ``paths`` stacks ``walks_per_round`` whole-walk batches from
+        ``paths`` stacks ``walks_per_round`` walk batches from
         ``starts``.  Rounds are uploaded ahead of use, so the copies
         overlap the previous round's device work.
         """

@@ -5,7 +5,14 @@ a JAX ``DynamicWalkEngine(backend="reference")`` and the port's engine on
 the CPU.  After every ``ingest`` the states are equal leaf by leaf and the
 stats equal; every port walk equals ``ref.walk_fused_ref`` on the JAX
 engine's state under the same JAX-derived seed.
+
+The per-step engines (node2vec, and deepwalk with ``whole_walk=False``)
+drive ``run_stream`` on the same stream: their update state stays equal
+to the JAX engine's leaf by leaf, every hop they walk is an edge of the
+current state, and ``last_seed`` replays a batch exactly.
 """
+
+import pytest
 
 import numpy as np
 
@@ -26,6 +33,7 @@ from repro_torch.graph import rmat as trmat
 from repro_torch.graph import streams as tstreams
 from repro_torch.serve import DynamicWalkEngine
 from tests.test_torch_state import assert_state_matches, configs
+from tests.test_torch_updates import _jax_state
 
 SCALE, BATCH, ROUNDS, L = 8, 64, 3, 12
 
@@ -98,3 +106,33 @@ def test_run_stream_and_engine_seed():
         assert all(float(s.max_fill) <= 1.0 for _, s, _ in out)
         runs.append(torch.stack([p for _, _, p in out]))
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("kind,whole_walk", [("node2vec", None),
+                                             ("deepwalk", False)])
+def test_per_step_engines_run_stream(kind, whole_walk):
+    V = 1 << SCALE
+    _, _, _, stream = _stream(trmat, tstreams)
+    jcfg, tcfg = configs(num_vertices=V, capacity=32, bias_bits=16)
+    init = (stream.init_src, stream.init_dst, stream.init_w)
+    teng = DynamicWalkEngine(tdg.from_edges(tcfg, *init, device="cpu"), tcfg,
+                             WalkParams(kind, 6), whole_walk=whole_walk,
+                             seed=1)
+    jeng = JEngine(_jax_state(teng.state), jcfg, JWalkParams(kind, 6),
+                   backend="reference", whole_walk=whole_walk)
+    starts = torch.arange(0, V, 8, dtype=torch.int32)
+    for r, tstats, paths in teng.run_stream(stream, starts):
+        batch = (stream.is_insert[r], stream.u[r], stream.v[r], stream.w[r])
+        jstats = jeng.ingest(*map(jnp.asarray, batch))
+        assert_state_matches(jeng.state, teng.state, fp=False)
+        np.testing.assert_array_equal(np.asarray(jstats.rejected),
+                                      tstats.rejected.numpy())
+        st = teng.state
+        a, b = paths[:, :-1].long(), paths[:, 1:].long()
+        hop = (a >= 0) & (b >= 0)
+        assert hop.any()
+        assert ((st.nbr[a[hop]] == b[hop][:, None])
+                & (torch.arange(32)[None, :] < st.deg[a[hop]][:, None])
+                ).any(1).all()
+        assert torch.equal(teng.walk(starts, seed=teng.last_seed), paths)
+    assert teng.rounds_ingested == ROUNDS

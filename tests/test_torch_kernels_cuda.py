@@ -1,10 +1,12 @@
 """Each CUDA kernel against its plain PyTorch version, bit for bit, on the card.
 
-The sweeps of ``tests/test_torch_walks.py`` and
-``tests/test_torch_updates.py``: whole walks (deepwalk/ppr/simple × base
-2/4 × fp on/off × fed/hashed uniforms, a ragged batch) and update rounds
-(insert/delete/mixed × the five config rows, chained, plus a batch wider
-than 2·C).  A CUDA kernel has no CPU mode, so these tests carry the
+The sweeps of ``tests/test_torch_walks.py``,
+``tests/test_torch_walk_sample.py`` and ``tests/test_torch_updates.py``:
+whole walks (deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed
+uniforms, a ragged batch), per-step samples (base 2/4 × fp on/off ×
+gathered rows / in-place ``rows``, degree-0 rows in the batch) and update
+rounds (insert/delete/mixed × the five config rows, chained, plus a batch
+wider than 2·C).  A CUDA kernel has no CPU mode, so these tests carry the
 ``cuda`` marker and skip where there is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
@@ -20,6 +22,8 @@ from repro_torch.core import dyngraph as tdg
 from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
 from repro_torch.kernels.walk_fused import walk_fused_ref
+from repro_torch.kernels.walk_sample import (walk_sample_ref,
+                                            walk_sample_uniform_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +107,54 @@ def test_walk_kernel_equals_plain(kind, base_log2, fp, fed):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("base_log2,fp", [(1, False), (2, False), (1, True),
+                                          (2, True)])
+def test_walk_sample_kernels_equal_plain(base_log2, fp, in_place):
+    """Per-step samples from every vertex (degree-0 rows included), with
+    the rows read in place or gathered first."""
+    st, cfg = _state(40, 64, fp, base_log2)
+    st.deg[::7] = 0                                # empty rows in the batch
+    B = 997
+    g = torch.Generator(device="cuda").manual_seed(base_log2 + 2 * fp)
+    rows = torch.randint(0, cfg.num_vertices, (B,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    u = torch.rand((B, 5), generator=g, device="cuda")
+    frac = st.frac if fp else None
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+    if in_place:
+        args, kw = tabs, dict(rows=rows)
+    else:
+        r = rows.long()
+        args, kw = tuple(x[r].contiguous() for x in tabs), {}
+        frac = None if frac is None else frac[r].contiguous()
+    before = dict(ops.launch_counts())
+    got = ops.walk_sample(*args, u, frac, base_log2=base_log2, **kw)
+    want = walk_sample_ref(*args, u, frac, base_log2=base_log2, **kw)
+    got_u = ops.walk_sample_uniform(args[3], args[4], u[:, 2:3].contiguous(),
+                                    **kw)
+    want_u = walk_sample_uniform_ref(args[3], args[4], u[:, 2:3], **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["walk_sample"] == before["walk_sample"] + 1
+    assert after["walk_sample_uniform"] == before["walk_sample_uniform"] + 1
+    for a, b in zip(got + got_u, want + want_u):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert (got[0][st.deg[rows.long()] == 0] == -1).all()
+
+
+def test_walk_sample_base2_takes_three_uniforms():
+    st, cfg = _state(16, 32, False, 1)
+    rows = torch.arange(16, dtype=torch.int32, device="cuda")
+    u = torch.rand((16, 3), device="cuda")
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+    got = ops.walk_sample(*tabs, u, rows=rows)
+    want = walk_sample_ref(*tabs, u, rows=rows)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
 @pytest.mark.parametrize("mode", ["insert", "delete", "mixed"])
 @pytest.mark.parametrize("adaptive,fp,base_log2",
                          [(True, False, 1), (False, False, 1), (True, True, 1),
@@ -156,4 +208,11 @@ def test_cuda_tensors_never_take_the_plain_path():
     ops.walk_fused(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
                    None, torch.zeros(4, dtype=torch.int32, device="cuda"), 1,
                    length=4)
-    assert ops.launch_counts() == {"walk_fused": 1, "update_fused": 1}
+    ops.walk_sample(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
+                    torch.rand((4, 3), device="cuda"),
+                    rows=torch.zeros(4, dtype=torch.int32, device="cuda"))
+    ops.walk_sample_uniform(st.nbr, st.deg, torch.rand((4, 1), device="cuda"),
+                            rows=torch.zeros(4, dtype=torch.int32,
+                                             device="cuda"))
+    assert ops.launch_counts() == {"walk_fused": 1, "update_fused": 1,
+                                   "walk_sample": 1, "walk_sample_uniform": 1}

@@ -7,6 +7,12 @@ integer handed to the port.  Integer mode (bases 2 and 4) is bit-equal;
 in fp mode the decimal group's ITS sums floats in an order JAX leaves to
 XLA, so single draws may differ there and fp walks are held in
 distribution against ``transition_probs`` instead.
+
+The per-step path (``whole_walk=False``, and node2vec in
+``tests/test_torch_node2vec.py``) draws from a ``torch.Generator``, so it
+is held in distribution: chi-square of the bounce graph's per-step hub
+transitions against Eq. 2, and the ppr length's geometric mean.  The
+dispatch follows the reference's ``ValueError`` contract.
 """
 
 import numpy as np
@@ -21,13 +27,18 @@ from repro.core.alias import build_alias
 from repro.kernels import ref
 from repro.kernels.ops import seed_from_key
 from repro.kernels.walk_fused import uniforms_at as j_uniforms_at
+from repro.core.sampler import transition_probs as j_transition_probs
 from repro_torch.core import dyngraph as tdg
+from repro_torch.core.backend import _REGISTRY as backend_registry
+from repro_torch.core.backend import get_backend, register_backend
 from repro_torch.core.sampler import transition_probs
 from repro_torch.core.walks import WalkParams, random_walk
 from repro_torch.kernels.walk_fused import (hash_uniforms, uniforms_at,
                                            walk_fused_ref)
 from repro_torch.kernels.walk_sample import sample_rows
 from tests.conftest import empirical_dist, random_graph, tv_distance
+from tests.test_backend_equiv import _bounce_graph, _chi_square
+from tests.test_torch_updates import _jax_state
 from tests.test_torch_state import configs
 
 
@@ -198,10 +209,101 @@ def test_walk_fused_ref_direct_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_node2vec_and_per_step_raise():
+class _StepOnly:
+    """A backend with the per-step half only (no ``sample_walk``)."""
+    name = "step-only"
+
+    def sample_step(self, state, cfg, u, gen):
+        return get_backend("reference").sample_step(state, cfg, u, gen)
+
+    def sample_uniform(self, state, cfg, u, gen):
+        return get_backend("reference").sample_uniform(state, cfg, u, gen)
+
+    def apply_updates(self, *a, **kw):
+        raise NotImplementedError
+
+
+def test_whole_walk_true_needs_sample_walk():
+    """``whole_walk=True`` on a backend without ``sample_walk`` raises
+    ``ValueError``, as the reference does; the default falls back to the
+    per-step path."""
     _, ts, tcfg = _walk_case()
     starts = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        random_walk(ts, tcfg, starts, 0, WalkParams(kind="node2vec"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        random_walk(ts, tcfg, starts, 0, WalkParams(), whole_walk=False)
+    register_backend(_StepOnly)
+    try:
+        with pytest.raises(ValueError, match="no sample_walk"):
+            random_walk(ts, tcfg, starts, 0, WalkParams(), backend="step-only",
+                        whole_walk=True)
+        p = random_walk(ts, tcfg, starts, 0, WalkParams(length=3),
+                        backend="step-only")
+        assert p.shape == (4, 4)
+        with pytest.raises(ValueError, match="fed uniforms"):
+            random_walk(ts, tcfg, starts, 0, WalkParams(length=3),
+                        backend="step-only",
+                        uniforms=torch.zeros(3, 4, 6))
+    finally:
+        del backend_registry[_StepOnly.name]
+
+
+@pytest.mark.parametrize("case", ["node2vec", "per-step"])
+def test_fed_uniforms_need_the_whole_walk_path(case):
+    """Fed uniforms pin the whole-walk stream only: node2vec and
+    ``whole_walk=False`` refuse them with ``ValueError``."""
+    _, ts, tcfg = _walk_case()
+    starts = torch.zeros(4, dtype=torch.int32)
+    u = torch.zeros(5, 4, 6)
+    kind, ww = ("node2vec", None) if case == "node2vec" else ("deepwalk", False)
+    with pytest.raises(ValueError, match="fed uniforms"):
+        random_walk(ts, tcfg, starts, 0, WalkParams(kind, 5), whole_walk=ww,
+                    uniforms=u)
+
+
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+@pytest.mark.parametrize("base_log2,fp", [(1, False), (2, False), (1, True),
+                                          (2, True)])
+def test_per_step_walk_transitions(backend, base_log2, fp):
+    """``whole_walk=False``: on the bounce graph every walker returns to the
+    hub every other step, so the per-step path's hub transitions, pooled
+    over steps, must pass chi-square against Eq. 2 (JAX's
+    ``transition_probs`` on the same tables) across all four group types,
+    fp mode and bases 2/4.  Bound as ``tests/test_backend_equiv.py``:
+    about 23 degrees of freedom, chi2_0.999(23) ≈ 49.7, bound 80."""
+    src, dst, w, V = _bounce_graph(fp=fp)
+    tcfg = tdg.BingoConfig(num_vertices=V, capacity=32, bias_bits=6,
+                           base_log2=base_log2, fp_bias=fp, lam=4.0)
+    jcfg = jdg.BingoConfig(num_vertices=V, capacity=32, bias_bits=6,
+                           base_log2=base_log2, fp_bias=fp, lam=4.0)
+    ts = tdg.from_edges(tcfg, src, dst, w, device="cpu")
+    B, L = 4000, 6
+    path = random_walk(ts, tcfg, torch.zeros(B, dtype=torch.int32), 7,
+                       WalkParams(length=L), backend=backend,
+                       whole_walk=False).numpy()
+    assert (path >= 0).all()
+    nxt = path[:, 1:][path[:, :-1] == 0]
+    assert nxt.size >= B * (L // 2)
+    counts = np.bincount(nxt, minlength=V).astype(np.float64)
+    js = _jax_state(ts)
+    probs = np.asarray(j_transition_probs(js, jcfg, jnp.array([0])))[0]
+    want = np.zeros(V)
+    for slot, p in enumerate(probs):
+        if p > 0:
+            want[int(js.nbr[0, slot])] += p
+    assert _chi_square(counts, want) < 80.0
+
+
+@pytest.mark.parametrize("backend", ["fused", "reference"])
+def test_per_step_ppr_length_is_geometric(backend):
+    """Per-step ppr on the bounce graph (no dead ends): the hop count is
+    geometric, mean (1-s)/s = 19 at s = 1/20; 4000 walkers put the sample
+    mean within about ±1 (3σ) of it, and every walker holds -1 after its
+    stop."""
+    src, dst, w, V = _bounce_graph()
+    tcfg = tdg.BingoConfig(num_vertices=V, capacity=32, bias_bits=6)
+    ts = tdg.from_edges(tcfg, src, dst, w, device="cpu")
+    p = random_walk(ts, tcfg, torch.zeros(4000, dtype=torch.int32), 5,
+                    WalkParams("ppr", 400, stop_prob=1 / 20),
+                    backend=backend, whole_walk=False).numpy()
+    lengths = (p >= 0).sum(1) - 1
+    assert 18 < lengths.mean() < 20
+    dead = p[:, :-1] < 0
+    assert not (dead & (p[:, 1:] >= 0)).any()
