@@ -10,10 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
    power limit.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
-   × fed/hashed uniforms; ``update_fused`` over insert/delete/mixed × five
-   config rows, plus a batch wider than 2·C; ``walk_sample`` and
-   ``walk_sample_uniform`` over base 2/4 × fp on/off × gathered rows /
-   in-place ``rows``, on batches holding degree-0 rows.
+   × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
+   over the same sweep, with start steps spread over [0, L+1], free slots,
+   remote neighbours encoded -(g+2) and a permuted slot → walker id map;
+   ``update_fused`` over insert/delete/mixed × five config rows, plus a
+   batch wider than 2·C; ``walk_sample`` and ``walk_sample_uniform`` over
+   base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
+   holding degree-0 rows.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -31,6 +34,19 @@ Phases (any failure exits non-zero and prints no result line):
    touched vertices.  Each batch is checked as the main path's are, and
    the per-step deepwalk and node2vec batches against their exact
    next-vertex distributions (TV bound derived from the sample count).
+3c. The sharded path, before the streaming updates: the parent writes the
+   graph, the 10-round stream, SHA-256 digests of the 4 vertex slices of
+   the main path's final state, its per-round ``UpdateStats`` and digests
+   of single-device whole walks (deepwalk 262,144 × 80, ppr, simple) to a
+   temporary directory, then spawns 4 ranks on the one card over gloo.
+   Each builds the state, keeps its slice, replays the 10 rounds through
+   ``DynamicWalkEngine(group=...)`` (slice and summed stats must equal the
+   single-device ones) and walks the three batches through the relay
+   (deepwalk overlapped through the engine and again bulk, ppr and simple
+   overlapped), its home blocks equal to the single-device paths bit for
+   bit, the counters zeroed just before each batch and read just after.
+   Then one rank over NCCL runs the same deepwalk batch, and times the
+   whole-walk and the segment kernels on it in turns.
 4. Times on the card (CUDA events): each kernel at the main path's shapes
    and its plain version, whose outputs are held against the main path's
    whole batches (deepwalk, ppr and simple paths; the state after round
@@ -40,17 +56,23 @@ Phases (any failure exits non-zero and prints no result line):
    and, last, ``{"ok": true, "device": {...}}``.
 
 Needs one card, the CUDA toolkit (nvcc) and nothing from the network.
-``--scale`` cuts the graph for a quicker run; ``--report`` writes every
-number measured to a JSON file; ``--profile DIR`` adds one profiled round
-(``torch.profiler``) and writes its trace there.
+The sharded phase spawns its ranks with the ``spawn`` start method and
+stops them all, whatever happens.  ``--scale`` cuts the graph for a
+quicker run; ``--report`` writes every number measured to a JSON file;
+``--profile DIR`` adds one profiled round (``torch.profiler``) and writes
+its trace there.
 """
 
 import argparse
+import datetime
+import hashlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -66,6 +88,9 @@ WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
 STREAM_UPDATES = 2000
+SHARDS = 4                         # ranks of the sharded phase, on one card
+SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
+RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
 
 
 class SmokeFailure(RuntimeError):
@@ -186,6 +211,57 @@ def check_walk_kernel(rng):
                     need(torch.equal(got, want),
                          f"walk_fused != plain ({kind}, base 2^{base_log2}, "
                          f"fp={fp}, fed={fed})")
+                    n += 1
+    return n
+
+
+def check_segment_kernel(rng):
+    """The segment entry == ``walk_segment_ref``, bit for bit, over
+    deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed uniforms, on a
+    relay view (remote neighbours encoded -(g+2)) with start steps spread
+    over [0, L+1], free slots and a permuted slot → walker id map."""
+    import torch
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.distributed.relay import relay_view
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.walk_fused import walk_segment_ref
+    V, C, bits, B, L = 4096, 128, 12, 2048, 24
+    src, dst, w = random_graph(rng, V, C, bits)
+    keep = (rng.random(V) >= 0.02)[src]                # some dead ends
+    src, dst, w = src[keep], dst[keep], w[keep]
+    lo, Vs = 1024, 2048                                # this view's shard
+    n = 0
+    for base_log2 in (1, 2):
+        for fp in (False, True):
+            wv = w.astype(np.float32) + rng.random(w.size).astype(np.float32) \
+                if fp else w
+            cfg = dg.BingoConfig(num_vertices=V, capacity=C, bias_bits=bits,
+                                 base_log2=base_log2, fp_bias=fp, lam=4.0)
+            view = relay_view(dg.from_edges(cfg, src, dst, wv, device="cuda"),
+                              lo, Vs)
+            need(bool((view.nbr <= -2).any()), "no remote neighbours")
+            starts = torch.from_numpy(rng.integers(-1, Vs, B).astype(np.int32)).cuda()
+            t0 = torch.from_numpy(rng.integers(0, L + 2, B).astype(np.int32)).cuda()
+            t0[:2] = torch.tensor([L, L + 1], dtype=torch.int32)
+            wid = torch.from_numpy(rng.permutation(B).astype(np.int32)).cuda()
+            args = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+                    view.deg, view.frac if fp else None, starts, t0)
+            for kind in ("deepwalk", "ppr", "simple"):
+                for fed in (True, False):
+                    u = torch.from_numpy(rng.random((L, B, 6)).astype(
+                        np.float32)).cuda() if fed else None
+                    kw = dict(length=L, base_log2=base_log2,
+                              uniform=kind == "simple",
+                              stop_prob=0.15 if kind == "ppr" else 0.0)
+                    seed = int(rng.integers(0, 2**31 - 1))
+                    got = ops.walk_segment(*args, seed, u, wid, **kw)
+                    want = walk_segment_ref(*args, u, wid, seed=seed, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"{kind}, base 2^{base_log2}, fp={fp}, fed={fed}")
+                    need(all(torch.equal(a, b) for a, b in zip(got, want)),
+                         f"walk_segment != plain ({what})")
+                    need(bool((got[1][:, 0] >= 0).any()),
+                         f"walk_segment: no frontier exit ({what})")
                     n += 1
     return n
 
@@ -478,6 +554,7 @@ def main_path(args, report):
     starts = torch.arange(0, V, 4, dtype=torch.int32, device="cuda")
     pre_last = None
     round_ms = []
+    round_stats = []
     applied = 0
     upd_err = 0.0
     ops.reset_launch_counts()
@@ -493,6 +570,7 @@ def main_path(args, report):
              f"round {r}: applied + rejected != {batch}")
         need(int(stats.rejected[1]) == 0, f"round {r}: vertex rejects")
         applied += int(stats.ins_applied) + int(stats.del_applied)
+        round_stats.append(stats_list(stats))
         need(tuple(paths.shape) == (len(starts), WALK_LEN + 1),
              f"round {r}: path shape {tuple(paths.shape)}")
         if r == 0:
@@ -521,7 +599,7 @@ def main_path(args, report):
                     ("simple", simple_paths)):
         check_paths(name, p, st, starts, cfg)
     ppr_len = float((ppr_paths[:, 1:] >= 0).sum(1).float().mean())
-    report.update(round_ms=round_ms,
+    report.update(round_ms=round_ms, round_stats=round_stats,
                   round_median_ms=statistics.median(round_ms),
                   round_mean_ms=statistics.mean(round_ms), stream_s=t_stream,
                   updates_applied=applied, ppr_mean_hops=ppr_len)
@@ -609,7 +687,12 @@ def main_path(args, report):
             traceback.print_exc()
             print(f"profiled round: failed ({e!r})", flush=True)
             report["profile"] = {"error": repr(e)}
-    return kernels, engine, cfg, starts
+    return kernels, engine, cfg, starts, stream
+
+
+def stats_list(stats):
+    """An ``UpdateStats``' counters as nested lists (JSON)."""
+    return [x.tolist() for x in stats[:4]]
 
 
 # --------------------------------------------------------------- phase 3b
@@ -787,6 +870,332 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
     return lines
+
+
+# ---------------------------------------------------------------- phase 3c
+def digest(tensors, rows=1 << 16):
+    """SHA-256 of tensors' bytes, in order (None leaves skipped), copied to
+    the host ``rows`` rows at a time."""
+    h = hashlib.sha256()
+    for x in tensors:
+        for i in range(0, 0 if x is None else x.shape[0], rows):
+            h.update(x[i:i + rows].contiguous().cpu().numpy())
+    return h.hexdigest()
+
+
+def state_leaves(st):
+    return list(st[:-1]) + list(st.itable)
+
+
+def slice_digest(st, lo, hi):
+    """Digest of rows [lo, hi) of every leaf of a state."""
+    return digest([None if x is None else x[lo:hi] for x in state_leaves(st)])
+
+
+def segment_work(path, frontier, deg, uniform):
+    """The work one segment launch needs, counted as ``walk_work`` counts a
+    whole walk, with each frontier exit counted as a hop that read its row
+    and picked an nbr word (to the remote vertex), plus the t0, wid and
+    frontier words."""
+    import torch
+    B, L1 = path.shape
+    cur, nxt = path[:, :-1].long(), path[:, 1:].long().clone()
+    ex = frontier[:, 0] >= 0
+    rows = torch.nonzero(ex).squeeze(1)
+    nxt[rows, frontier[ex, 1].long() - 1] = deg.shape[0] + frontier[ex, 0].long()
+    drawn, moved = cur >= 0, nxt >= 0
+    x_drawn = torch.unique(cur[drawn])
+    x_moved = torch.unique(cur[moved])
+    hops = torch.unique(cur[moved] * (1 << 32) + nxt[moved]).numel()
+    words = 5 * B + B * L1 + x_drawn.numel() + hops
+    ops = 0
+    if not uniform:
+        words += 2 * x_moved.numel() + int(deg[x_moved].long().sum())
+        ops = 2 * int(deg[cur[moved]].long().sum())
+    return {"bytes": 4 * words, "ops": ops, "alive_steps": int(drawn.sum()),
+            "exits": int(ex.sum())}
+
+
+def relay_batches(cfg):
+    """The sharded phase's walk batches: (name, params, overlap)."""
+    from repro_torch.core.walks import WalkParams
+    return (("deepwalk", WalkParams("deepwalk", WALK_LEN), True),
+            ("deepwalk bulk", WalkParams("deepwalk", WALK_LEN), False),
+            ("ppr", WalkParams("ppr", PPR_LEN, stop_prob=PPR_STOP), True),
+            ("simple", WalkParams("simple", WALK_LEN), True))
+
+
+def sharded_path(engine, cfg, starts, stream, report):
+    """Phase 3c: write the inputs and the single-device results, run the
+    4 gloo ranks and then one NCCL rank, check every rank's result.
+    Returns the segment kernel's line."""
+    import torch
+    from repro_torch.core.walks import random_walk
+    st = engine.state
+    V, W = cfg.num_vertices, len(starts)
+    Vs, Wb = V // SHARDS, W // SHARDS
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shards_"))
+    try:
+        np.savez(tmp / "inputs.npz", **stream._asdict(),
+                 starts=starts.cpu().numpy())
+        expect = {"V": V, "shards": SHARDS,
+                  "round_stats": report["round_stats"],
+                  "slices": [slice_digest(st, r * Vs, (r + 1) * Vs)
+                             for r in range(SHARDS)],
+                  "state": slice_digest(st, 0, V), "walks": {}}
+        for name, params, _ in relay_batches(cfg):
+            kind = name.split()[0]
+            seed = RELAY_SEEDS[kind]
+            if kind not in expect["walks"]:
+                p = random_walk(st, cfg, starts, seed, params)
+                expect["walks"][kind] = {
+                    "seed": seed, "all": digest([p]),
+                    "blocks": [digest([p[r * Wb:(r + 1) * Wb]])
+                               for r in range(SHARDS)]}
+                del p
+        (tmp / "expect.json").write_text(json.dumps(expect))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gloo = spawn_ranks(tmp, "gloo", SHARDS)
+        t_gloo = time.perf_counter() - t0
+        nccl = spawn_ranks(tmp, "nccl", 1)
+        t_nccl = time.perf_counter() - t0 - t_gloo
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = {"gloo_s": t_gloo, "nccl_s": t_nccl, "batches": {}}
+    launches = 0
+    for name, _, _ in relay_batches(cfg):
+        per = [g["batches"][name] for g in gloo]
+        need(len({(b["rounds"], b["overflow"], b["peak_slots"])
+                  for b in per}) == 1, f"relay {name}: ranks disagree")
+        seg = sorted(x for b in per for x in b["segment_ms"])
+        exch = sorted(x for b in per for x in b["exchange_ms"])
+        red = sorted(x for b in per for x in b["reduce_ms"])
+        b0 = per[0]
+        launches += sum(b["launches"] for b in per)
+        out["batches"][name] = dict(
+            rounds=b0["rounds"], overflow=b0["overflow"],
+            peak_slots=b0["peak_slots"], wall_s=max(b["wall_s"] for b in per),
+            launches=sum(b["launches"] for b in per),
+            segment_ms_median=seg[len(seg) // 2], segment_ms_max=seg[-1],
+            exchange_ms_median=exch[len(exch) // 2],
+            exchange_ms_mean=statistics.mean(exch),
+            reduce_ms_median=red[len(red) // 2],
+            reduce_ms_mean=statistics.mean(red))
+        o = out["batches"][name]
+        print(f"relay {name} (S={SHARDS}, gloo): {o['rounds']} rounds, "
+              f"overflow {o['overflow']}, peak slots {o['peak_slots']}, wall "
+              f"{o['wall_s']:.3f} s; walk_segment {o['launches']} launches, "
+              f"median {o['segment_ms_median']:.4f} ms (max "
+              f"{o['segment_ms_max']:.3f}); exchange per round median "
+              f"{o['exchange_ms_median']:.2f} ms, mean "
+              f"{o['exchange_ms_mean']:.2f} ms; closing all-reduce median "
+              f"{o['reduce_ms_median']:.2f} ms, mean {o['reduce_ms_mean']:.2f} "
+              f"ms; home blocks equal to the single-device paths", flush=True)
+    n1 = nccl[0]["batches"]["deepwalk"]
+    launches += n1["launches"]
+    out["nccl_deepwalk"] = n1
+    w1 = nccl[0]["whole"]
+    print(f"relay deepwalk (S=1, nccl): {n1['rounds']} round(s), wall "
+          f"{n1['wall_s']:.3f} s, paths equal to the single-device paths; "
+          f"on all {W} walkers, in turns in that rank: walk_fused "
+          f"{w1['walk_fused_ms']:.3f} ms, walk_segment "
+          f"{w1['walk_segment_ms']:.3f} ms, paths equal", flush=True)
+    t = gloo[0]["timing"]
+    print(f"walk_segment on rank 0's round-1 slots ({t['slots']} slots, "
+          f"{t['work']['alive_steps']} steps, {t['work']['exits']} exits): "
+          f"{t['ms']:.4f} ms; plain {t['plain_ms']:.1f} ms, equal; needs "
+          f"{t['work']['bytes'] / 1e6:.2f} MB and {t['work']['ops'] / 1e6:.2f} "
+          f"M ops -> bound {t['bound_ms']:.5f} ms ({t['bound_by']}); ranks "
+          f"gloo {t_gloo:.1f} s, nccl {t_nccl:.1f} s", flush=True)
+    out["timing"] = t
+    report["sharded"] = out
+    return {"name": "walk_segment", "route": "cuda",
+            "source": "src/repro_torch/csrc/walk_fused.cu",
+            "replaces": "src/repro/kernels/walk_fused.py:444",
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+
+
+def spawn_ranks(tmp, backend, n):
+    """Run ``shard_rank`` on ``n`` ranks (``spawn`` start method), stop them
+    all, fail unless every rank exited 0 with a result; returns the results
+    by rank."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=shard_rank, args=(r, n, backend, str(tmp)))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + SHARD_TIMEOUT_S
+    try:        # until all exit, one fails, or the time is up
+        while (time.monotonic() < end and any(p.is_alive() for p in procs)
+               and not any(p.exitcode for p in procs)):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    need(codes == [0] * n, f"{backend} ranks exited {codes}")
+    return [json.loads((tmp / f"result_{backend}_{r}.json").read_text())
+            for r in range(n)]
+
+
+def shard_rank(rank, n, backend, tmp):
+    """One rank of the sharded phase (runs in its own process)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.distributed.relay import make_relay
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DynamicWalkEngine
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(tmp / f"store_{backend}"), n),
+        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    group = dist.group.WORLD
+    try:
+        exp = json.loads((tmp / "expect.json").read_text())
+        data = np.load(tmp / "inputs.npz")
+        V = exp["V"]
+        Vs = V // n
+        cfg = dg.BingoConfig(num_vertices=V, capacity=256, bias_bits=16)
+        for r in range(n):           # build in turn: one whole state at a time
+            if r == rank:
+                st = dg.from_edges(cfg, data["init_src"], data["init_dst"],
+                                   data["init_w"], device="cuda")
+                engine = DynamicWalkEngine(
+                    st, cfg, WalkParams("deepwalk", WALK_LEN), group=group)
+                del st
+                torch.cuda.empty_cache()
+            dist.barrier()
+        for r, want in enumerate(exp["round_stats"]):
+            lanes = [torch.from_numpy(np.ascontiguousarray(data[k][r])).cuda()
+                     for k in ("is_insert", "u", "v", "w")]
+            got = stats_list(engine.ingest(*lanes))
+            need(got == want, f"rank {rank}: round {r + 1} stats {got} != "
+                 f"single-device {want}")
+        want = exp["slices"][rank] if n == exp["shards"] else exp["state"]
+        need(slice_digest(engine.state, 0, Vs) == want,
+             f"rank {rank}: state slice after the rounds != single device")
+        starts = torch.from_numpy(data["starts"]).cuda()
+        W = len(starts)
+        Wb = W // n
+        batches = relay_batches(cfg) if n == exp["shards"] else \
+            relay_batches(cfg)[:1]
+        res = {"batches": {}}
+        bk = get_backend("fused")
+        for name, params, overlap in batches:
+            kind = name.split()[0]
+            seed = exp["walks"][kind]["seed"]
+            trace = []
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if name == "deepwalk":       # through the engine
+                engine.relay_trace = trace
+                home = engine.walk(starts, seed)
+                rounds, ovf, peak = (engine.last_relay[k] for k in
+                                     ("rounds", "overflow", "peak_slots"))
+            else:
+                run = make_relay(bk, cfg, params, group, overlap=overlap,
+                                 diagnostics=True)
+                home, rounds, ovf, peak = run(engine.state, starts, seed,
+                                              trace=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            need(counts["walk_segment"] == rounds and
+                 sum(counts.values()) == rounds,
+                 f"rank {rank} {name}: launches {counts}, rounds {rounds}")
+            want = exp["walks"][kind]["blocks"][rank] if n == exp["shards"] \
+                else exp["walks"][kind]["all"]
+            need(tuple(home.shape) == (Wb, params.length + 1) and
+                 digest([home]) == want,
+                 f"rank {rank} {name}: home block != single-device paths")
+            res["batches"][name] = {
+                "rounds": rounds, "overflow": ovf, "peak_slots": peak,
+                "wall_s": wall, "launches": counts["walk_segment"],
+                "segment_ms": [a.elapsed_time(b) for a, b in
+                               (x["segment"] for x in trace)],
+                "exchange_ms": [1e3 * x["exchange_s"] for x in trace],
+                "reduce_ms": [1e3 * x["reduce_s"] for x in trace]}
+            del home
+        if rank == 0 and n > 1:
+            res["timing"] = segment_timing(engine.state, starts, Vs, n)
+        elif n == 1:
+            res["whole"] = whole_vs_segment(engine.state, starts)
+        dist.barrier()
+        (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def whole_vs_segment(st, starts):
+    """On one shard (the whole state, no remote neighbour): the whole-walk
+    kernel and the segment kernel with every ``t0 = 0`` and ``wid = b`` on
+    the deepwalk batch, timed in turns (whole, segment, segment, whole);
+    their paths must be equal."""
+    import torch
+    from repro_torch.kernels import ops
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg, None,
+            starts)
+    zeros = torch.zeros_like(starts)
+    seed = RELAY_SEEDS["deepwalk"]
+    times = {"walk_fused_ms": [], "walk_segment_ms": []}
+    for name in ("walk_fused_ms", "walk_segment_ms", "walk_segment_ms",
+                 "walk_fused_ms"):
+        if name == "walk_fused_ms":
+            ms, whole = cuda_ms(lambda: ops.walk_fused(*tabs, seed,
+                                                       length=WALK_LEN))
+        else:
+            ms, (seg, fr) = cuda_ms(lambda: ops.walk_segment(
+                *tabs, zeros, seed, length=WALK_LEN))
+        times[name].append(ms)
+    path_diff(seg, whole, "walk_segment on one shard vs walk_fused")
+    need(bool((fr == -1).all()), "walk_segment on one shard: a frontier exit")
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def segment_timing(st, starts, Vs, n):
+    """The segment kernel and its plain version on rank 0's round-1 slots
+    of the deepwalk batch (its residents in walker order, the other slots
+    free): times, equality and the bound."""
+    import torch
+    from repro_torch.distributed.relay import relay_view, slot_count
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.walk_fused import walk_segment_ref
+    view = relay_view(st, 0, Vs)
+    W = len(starts)
+    Wl = slot_count(W, n)
+    res = torch.nonzero((starts >= 0) & (starts < Vs)).squeeze(1)[:Wl]
+    slot_start = torch.full((Wl,), -1, dtype=torch.int32, device="cuda")
+    slot_wid = slot_start.clone()
+    slot_start[:len(res)] = starts[res]
+    slot_wid[:len(res)] = res.to(torch.int32)
+    t0 = torch.zeros(Wl, dtype=torch.int32, device="cuda")
+    args = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+            view.deg, None, slot_start, t0)
+    kw = dict(length=WALK_LEN, seed=RELAY_SEEDS["deepwalk"], wid=slot_wid)
+    ms, got = cuda_ms(lambda: ops.walk_segment(*args, **kw))
+    plain_ms, want = cuda_ms(lambda: walk_segment_ref(*args, **kw), reps=1)
+    err = max(path_diff(a, b, "walk_segment round 1") for a, b in
+              zip(got, want))
+    work = segment_work(got[0], got[1], view.deg, False)
+    b_ms, b_by = bound(work["bytes"], work["ops"])
+    return {"slots": Wl, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "bound_ms": b_ms, "bound_by": b_by, "work": work}
 
 
 def host_counts(fn):
@@ -1016,17 +1425,21 @@ def main():
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     nw = check_walk_kernel(rng)
+    ng = check_segment_kernel(rng)
     nu = check_update_kernel(rng)
     ns = check_sample_kernels(rng)
     report["check_s"] = time.perf_counter() - t0
-    print(f"kernel == plain, bit-exact: walk_fused {nw} cases, update_fused "
-          f"{nu} rounds, walk_sample and walk_sample_uniform {ns} cases each "
-          f"({report['check_s']:.1f} s)", flush=True)
+    print(f"kernel == plain, bit-exact: walk_fused {nw} cases, walk_segment "
+          f"{ng} cases, update_fused {nu} rounds, walk_sample and "
+          f"walk_sample_uniform {ns} cases each ({report['check_s']:.1f} s)",
+          flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
-    kernels, engine, cfg, starts = main_path(args, report)
-    # ---- phase 3b: the per-step paths and streaming updates
+    kernels, engine, cfg, starts, stream = main_path(args, report)
+    # ---- phase 3b: the per-step paths
     kernels += per_step_paths(engine, cfg, starts, report, args.profile)
+    # ---- phase 3c: the sharded path, then the streaming updates
+    kernels.insert(1, sharded_path(engine, cfg, starts, stream, report))
     streaming(engine, cfg, report, rng)
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if args.report:

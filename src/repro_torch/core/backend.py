@@ -45,6 +45,13 @@ class EngineBackend(Protocol):
     starts (B,) int32, seed int, params: WalkParams, u=None) -> (B,
     length+1) int32 path`` — column 0 holds ``starts``, terminated walkers
     pad -1; ``u`` (L, B, 6) optionally pins the uniform stream.
+
+    ``sample_walk_segment(state, cfg, starts, t0, seed, params, u=None,
+    wid=None) -> (path (B, length+1), frontier (B, 2))`` is one round of
+    the walker relay (``distributed/relay.py``): walker b enters at step
+    ``t0[b]``, draws the stream of walker id ``wid[b]``, and exits with a
+    ``(vertex, step)`` frontier record on a remote neighbour, encoded
+    ``-(g + 2)`` in the state's ``nbr``.  node2vec has no segment path.
     """
 
     name: str
@@ -57,6 +64,10 @@ class EngineBackend(Protocol):
 
     def apply_updates(self, state: BingoState, cfg: BingoConfig,
                       is_insert, u, v, w, active=None): ...
+
+    def sample_walk_segment(self, state: BingoState, cfg: BingoConfig,
+                            starts, t0, seed: int, params, u=None, wid=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]: ...
 
 
 _REGISTRY: Dict[str, EngineBackend] = {}
@@ -101,8 +112,10 @@ class FusedBackend:
     the reference gathers (B, C) rows first).  ``sample_walk`` hands the
     state tables to the whole-walk kernel (``csrc/walk_fused.cu``) for
     deepwalk/ppr/simple; node2vec goes to the per-step ``scan_walk``, as
-    its Eq. 1 rejection reads the previous hop's row.  ``apply_updates``
-    runs one round through the update kernel (``csrc/update_fused.cu``).
+    its Eq. 1 rejection reads the previous hop's row.
+    ``sample_walk_segment`` launches the same kernel's segment entry, one
+    launch per relay round.  ``apply_updates`` runs one round through the
+    update kernel (``csrc/update_fused.cu``).
     """
 
     name = "fused"
@@ -138,6 +151,26 @@ class FusedBackend:
             length=params.length, base_log2=cfg.base_log2, stop_prob=stop,
             uniform=params.kind == "simple")
 
+    def sample_walk_segment(self, state, cfg, starts, t0, seed, params,
+                            u=None, wid=None):
+        from repro_torch.kernels import ops
+        args, kw = segment_args(state, cfg, starts, t0, seed, params, u, wid)
+        return ops.walk_segment(*args, **kw)
+
     def apply_updates(self, state, cfg, is_insert, u, v, w, active=None):
         from repro_torch.kernels import ops
         return ops.update_fused(state, cfg, is_insert, u, v, w, active)
+
+
+def segment_args(state, cfg, starts, t0, seed, params, u, wid):
+    """``(args, kwargs)`` of ``walk_segment`` and of its plain version for
+    a segment walk of ``params`` on ``state``; node2vec raises
+    ``ValueError``, as in the reference."""
+    if params.kind == "node2vec":
+        raise ValueError("node2vec has no segment path (per-step only)")
+    stop = float(params.stop_prob) if params.kind == "ppr" else 0.0
+    return ((state.itable.prob, state.itable.alias, state.bias, state.nbr,
+             state.deg, state.frac if cfg.fp_bias else None, starts, t0),
+            dict(seed=seed, u=u, wid=wid, length=params.length,
+                 base_log2=cfg.base_log2, stop_prob=stop,
+                 uniform=params.kind == "simple"))

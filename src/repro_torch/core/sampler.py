@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core import radix
 from repro_torch.core.alias import AliasTable, sample_alias
-from repro_torch.core.backend import register_backend
+from repro_torch.core.backend import register_backend, segment_args
 from repro_torch.core.dyngraph import DENSE, BingoConfig, BingoState
 
 __all__ = ["sample_group", "sample_slot", "sample_neighbor",
@@ -169,6 +169,15 @@ class ReferenceBackend:
             state.deg, state.frac if cfg.fp_bias else None, starts, u,
             base_log2=cfg.base_log2, stop_prob=stop,
             uniform=params.kind == "simple")
+
+    def sample_walk_segment(self, state, cfg, starts, t0, seed, params,
+                            u=None, wid=None):
+        """One relay round as the plain windowed loop
+        (``walk_segment_ref``), the segment kernel's plain version: the
+        same stream, fed or hashed, bit for bit."""
+        from repro_torch.kernels.walk_fused import walk_segment_ref
+        args, kw = segment_args(state, cfg, starts, t0, seed, params, u, wid)
+        return walk_segment_ref(*args, **kw)
 
     def apply_updates(self, state, cfg, is_insert, u, v, w, active=None):
         from repro_torch.core.updates import batched_update

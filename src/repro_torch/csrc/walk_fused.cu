@@ -1,10 +1,11 @@
-// Whole-walk Bingo kernel for Hopper (sm_90a): B walks of L steps, one launch.
+// Whole-walk Bingo kernel for Hopper (sm_90a): B walks of L steps, one launch,
+// and its segment entry, the per-round kernel of the walker relay.
 //
-// Replaces the TPU kernel repro/kernels/walk_fused.py:walk_fused_pallas
-// (whole-walk entry, its _kernel and the in-register sampler
-// repro/kernels/walk_sample.py:sample_rows / uniform_pick).  Plain version:
-// repro_torch/kernels/walk_fused.py:walk_fused_ref, which this kernel equals
-// bit for bit.
+// Replaces the TPU kernel repro/kernels/walk_fused.py:walk_fused_pallas, both
+// entries (whole walks, and segment=True), its _kernel and the in-register
+// sampler repro/kernels/walk_sample.py:sample_rows / uniform_pick.  Plain
+// versions: repro_torch/kernels/walk_fused.py:walk_fused_ref and
+// walk_segment_ref, which this kernel equals bit for bit.
 //
 // Design: one warp per walker, the L-step loop inside the kernel.  Per step
 // the warp reads deg[cur] and draws from row cur with the shared per-step
@@ -15,6 +16,16 @@
 // in one lane, left to right).  The PPR coin is u5.  Path column t+1 is written
 // straight to the (B, L+1) output.  Uniforms are the counter hash
 // uniforms_at(seed, b, t) in uint32 arithmetic, or fed (L, B, ucols) floats.
+//
+// Segment entry (kSegment, walk_segment_launch): walker b enters at step
+// t0[b] (start vertex at column t0, earlier columns -1; t0 > L or a
+// negative start is a free slot and writes only -1), hashes with wid[b] in
+// place of b (the relay's slot -> walker id map), and stops when it samples
+// a remote neighbour, encoded -(g + 2) in nbr: it writes (g, t + 1) to
+// frontier[b] (-1, -1 otherwise).  The TPU kernel walks every lane in
+// lockstep and wakes a walker at step t0; with one warp per walker the
+// walker's loop simply starts at t0.  The whole-walk instantiation is the
+// same code as before the segment entry existed.
 //
 // Bound on this card: a step reads deg[cur], one prob and one alias entry,
 // the bias row (deg words, two integer ops each to find the group's members)
@@ -56,14 +67,16 @@ __device__ __forceinline__ float hash_uniform(uint32_t h_wt, int c) {
   return static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
 }
 
+template <bool kSegment>
 __global__ void __launch_bounds__(kThreads)
 walk_fused_kernel(const float* __restrict__ prob, const int* __restrict__ alias,
                   const int* __restrict__ bias, const int* __restrict__ nbr,
                   const int* __restrict__ deg, const float* __restrict__ frac,
-                  const int* __restrict__ starts, const float* __restrict__ u,
-                  int* __restrict__ path, int B, int V, int C, int Kin, int L,
-                  int base_log2, float stop_prob, int uniform, int has_frac,
-                  int ucols, uint32_t seed) {
+                  const int* __restrict__ starts, const int* __restrict__ t0s,
+                  const int* __restrict__ wids, const float* __restrict__ u,
+                  int* __restrict__ path, int* __restrict__ frontier, int B,
+                  int V, int C, int Kin, int L, int base_log2, float stop_prob,
+                  int uniform, int has_frac, int ucols, uint32_t seed) {
   const int lane = threadIdx.x & (kWarp - 1);
   const long long wglobal =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
@@ -71,13 +84,29 @@ walk_fused_kernel(const float* __restrict__ prob, const int* __restrict__ alias,
   const int b = static_cast<int>(wglobal);
   int* out = path + static_cast<size_t>(b) * (L + 1);
   const int start = starts[b];
-  if (lane == 0) out[0] = start;
+  int t_begin = 0;
+  uint32_t key = static_cast<uint32_t>(b);
+  if (kSegment) {
+    const int t0 = t0s[b];
+    key = static_cast<uint32_t>(wids[b]);
+    if (lane == 0) {
+      frontier[2 * b] = -1;
+      frontier[2 * b + 1] = -1;
+    }
+    if (start < 0 || t0 < 0 || t0 > L) {   // free slot: nothing to walk
+      for (int c = lane; c <= L; c += kWarp) out[c] = -1;
+      return;
+    }
+    for (int c = lane; c < t0; c += kWarp) out[c] = -1;
+    t_begin = t0;
+  }
+  if (lane == 0) out[t_begin] = start;
 
-  const uint32_t h_w = fmix32(seed ^ (static_cast<uint32_t>(b) * 0x9E3779B1u));
+  const uint32_t h_w = fmix32(seed ^ (key * 0x9E3779B1u));
   int cur = start;
   bool alive = true;
 
-  for (int t = 0; t < L; ++t) {
+  for (int t = t_begin; t < L; ++t) {
     if (!alive) {
       for (int c = t + 1 + lane; c <= L; c += kWarp) out[c] = -1;
       break;
@@ -107,10 +136,39 @@ walk_fused_kernel(const float* __restrict__ prob, const int* __restrict__ alias,
 
     alive = d > 0;
     if (stop_prob > 0.0f) alive = alive && uu[5] >= stop_prob;
-    if (lane == 0) out[t + 1] = alive ? nxt : -1;
+    if (kSegment) {
+      // a remote neighbour -(g + 2) ends the segment with a frontier record
+      if (lane == 0) {
+        out[t + 1] = alive && nxt >= 0 ? nxt : -1;
+        if (alive && nxt <= -2) {
+          frontier[2 * b] = -nxt - 2;
+          frontier[2 * b + 1] = t + 1;
+        }
+      }
+    } else {
+      if (lane == 0) out[t + 1] = alive ? nxt : -1;
+    }
     alive = alive && nxt >= 0;
     if (alive) cur = nxt;
   }
+}
+
+template <bool kSegment>
+int launch(const float* prob, const int* alias, const int* bias,
+           const int* nbr, const int* deg, const float* frac,
+           const int* starts, const int* t0s, const int* wids, const float* u,
+           int* path, int* frontier, int B, int V, int C, int Kin, int L,
+           int base_log2, float stop_prob, int uniform, int has_frac,
+           int ucols, int seed, cudaStream_t stream) {
+  if (B > 0) {
+    const long long threads = static_cast<long long>(B) * kWarp;
+    const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+    walk_fused_kernel<kSegment><<<blocks, kThreads, 0, stream>>>(
+        prob, alias, bias, nbr, deg, frac, starts, t0s, wids, u, path,
+        frontier, B, V, C, Kin, L, base_log2, stop_prob, uniform, has_frac,
+        ucols, static_cast<uint32_t>(seed));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -123,15 +181,24 @@ extern "C" int walk_fused_launch(const float* prob, const int* alias,
                                  int base_log2, float stop_prob, int uniform,
                                  int has_frac, int ucols, int seed,
                                  cudaStream_t stream) {
-  if (B > 0) {
-    const long long threads = static_cast<long long>(B) * kWarp;
-    const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-    walk_fused_kernel<<<blocks, kThreads, 0, stream>>>(
-        prob, alias, bias, nbr, deg, frac, starts, u, path, B, V, C, Kin, L,
-        base_log2, stop_prob, uniform, has_frac, ucols,
-        static_cast<uint32_t>(seed));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(prob, alias, bias, nbr, deg, frac, starts, nullptr,
+                       nullptr, u, path, nullptr, B, V, C, Kin, L, base_log2,
+                       stop_prob, uniform, has_frac, ucols, seed, stream);
+}
+
+// Segment entry: t0 (B,), wid (B,) int32 in; frontier (B, 2) int32 out.
+extern "C" int walk_segment_launch(const float* prob, const int* alias,
+                                   const int* bias, const int* nbr,
+                                   const int* deg, const float* frac,
+                                   const int* starts, const int* t0,
+                                   const int* wid, const float* u, int* path,
+                                   int* frontier, int B, int V, int C, int Kin,
+                                   int L, int base_log2, float stop_prob,
+                                   int uniform, int has_frac, int ucols,
+                                   int seed, cudaStream_t stream) {
+  return launch<true>(prob, alias, bias, nbr, deg, frac, starts, t0, wid, u,
+                      path, frontier, B, V, C, Kin, L, base_log2, stop_prob,
+                      uniform, has_frac, ucols, seed, stream);
 }
 
 extern "C" const char* kernels_error_string(int code) {

@@ -36,6 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "walk_fused": {
         "walk_fused_launch": ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+        "walk_segment_launch": ([_P] * 12 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+                                _I),
     },
     "update_fused": {
         "update_fused_launch": ([_P] * 23 + [_I] * 8 + [_F, _F] + [_P], _I),

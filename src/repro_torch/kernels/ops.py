@@ -9,14 +9,14 @@ there is no fallback, and a failed build raises.
 from __future__ import annotations
 
 from repro_torch.kernels.update_fused import update_fused
-from repro_torch.kernels.walk_fused import walk_fused
+from repro_torch.kernels.walk_fused import walk_fused, walk_segment
 from repro_torch.kernels.walk_sample import walk_sample, walk_sample_uniform
 
-__all__ = ["walk_fused", "update_fused", "walk_sample", "walk_sample_uniform",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["walk_fused", "walk_segment", "update_fused", "walk_sample",
+           "walk_sample_uniform", "launch_counts", "reset_launch_counts"]
 
-_WRAPPERS = {"walk_fused": walk_fused, "update_fused": update_fused,
-             "walk_sample": walk_sample,
+_WRAPPERS = {"walk_fused": walk_fused, "walk_segment": walk_segment,
+             "update_fused": update_fused, "walk_sample": walk_sample,
              "walk_sample_uniform": walk_sample_uniform}
 
 

@@ -1,11 +1,18 @@
-"""Whole-walk kernel: B walks of L steps in one launch.
+"""Whole-walk kernel: B walks of L steps in one launch, and its segment entry.
 
-Port of ``repro/kernels/walk_fused.py`` (whole-walk entry of
-``walk_fused_pallas``) and its oracle ``kernels/ref.py:walk_fused_ref``.
-``walk_fused`` is the wrapper: on CPU tensors it runs the plain version
-``walk_fused_ref``; on CUDA tensors it launches ``csrc/walk_fused.cu`` (one
-warp per walker, the step loop inside the kernel) and counts the launch in
-``walk_fused.launches``.
+Port of ``repro/kernels/walk_fused.py`` (both entries of
+``walk_fused_pallas``) and its oracles ``kernels/ref.py:walk_fused_ref``
+and ``walk_segment_ref``.  ``walk_fused`` and ``walk_segment`` are the
+wrappers: on CPU tensors they run the plain versions ``walk_fused_ref``
+and ``walk_segment_ref``; on CUDA tensors they launch ``csrc/walk_fused.cu``
+(one warp per walker, the step loop inside the kernel) and count the
+launch in ``walk_fused.launches`` / ``walk_segment.launches``.
+
+The segment entry is the walker relay's per-round kernel
+(``distributed/relay.py``): walker b enters at step ``t0[b]``, draws the
+stream of walker id ``wid[b]`` and exits with a ``(vertex, step)``
+frontier record when it samples a remote neighbour, which the relay's
+shard-local view encodes ``-(g + 2)`` in ``nbr``.
 
 Uniforms are counter-based: step t of walker b draws ``uniforms_at(seed,
 b, t)``, six float32 columns — alias bucket, alias coin, member pick,
@@ -24,7 +31,7 @@ import torch
 from repro_torch.kernels.walk_sample import sample_rows, uniform_pick
 
 __all__ = ["NUM_UNIFORMS", "fmix32", "uniforms_at", "hash_uniforms",
-           "walk_fused_ref", "walk_fused"]
+           "walk_fused_ref", "walk_fused", "walk_segment_ref", "walk_segment"]
 
 NUM_UNIFORMS = 6
 
@@ -73,6 +80,19 @@ def hash_uniforms(seed: int, length: int, B: int, device="cuda"):
     return uniforms_at(seed, wid, ts)
 
 
+def _step(prob, alias, bias, nbr, deg, frac, cur, ut, base_log2, uniform):
+    """One sample of every walker from row ``cur``: ``(deg[cur], nxt)``."""
+    safe = torch.clamp(cur, 0, nbr.shape[0] - 1)
+    d = deg[safe]
+    if uniform:
+        nxt, _, _ = uniform_pick(nbr[safe], d, ut[:, 2])
+    else:
+        fr = frac[safe] if frac is not None else None
+        nxt, _, _ = sample_rows(prob[safe], alias[safe], bias[safe],
+                                nbr[safe], d, ut, fr, base_log2=base_log2)
+    return d, nxt
+
+
 def walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u=None, *,
                    base_log2: int = 1, stop_prob: float = 0.0,
                    uniform: bool = False, seed=None, length=None):
@@ -85,7 +105,6 @@ def walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u=None, *,
     Returns the (B, L+1) int32 path, column 0 = ``starts``.
     """
     B = starts.shape[0]
-    V = nbr.shape[0]
     dev = nbr.device
     if u is not None:
         if u.shape[-1] < NUM_UNIFORMS:
@@ -98,14 +117,8 @@ def walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u=None, *,
     cols = [starts.to(torch.int32)]
     for t in range(length):
         ut = u[t] if u is not None else uniforms_at(seed, wid, t)
-        safe = torch.clamp(cur, 0, V - 1)
-        d = deg[safe]
-        if uniform:
-            nxt, _, _ = uniform_pick(nbr[safe], d, ut[:, 2])
-        else:
-            fr = frac[safe] if frac is not None else None
-            nxt, _, _ = sample_rows(prob[safe], alias[safe], bias[safe],
-                                    nbr[safe], d, ut, fr, base_log2=base_log2)
+        d, nxt = _step(prob, alias, bias, nbr, deg, frac, cur, ut, base_log2,
+                       uniform)
         alive = alive & (d > 0)
         if stop_prob > 0.0:
             alive = alive & (ut[:, 5] >= stop)
@@ -115,22 +128,64 @@ def walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u=None, *,
     return torch.stack(cols, dim=1)
 
 
-def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
-               length: int, base_log2: int = 1, stop_prob: float = 0.0,
-               uniform: bool = False):
-    """Whole-walk entry, dispatched by the device of ``nbr``.
+def walk_segment_ref(prob, alias, bias, nbr, deg, frac, starts, t0, u=None,
+                     wid=None, *, length: int, base_log2: int = 1,
+                     stop_prob: float = 0.0, uniform: bool = False,
+                     seed=None):
+    """Plain segment walk: the windowed L-step loop.
 
-    Same arguments as ``walk_fused_ref`` (``seed`` an int in int32 range,
-    ``u`` optional fed uniforms).  CPU tensors run ``walk_fused_ref``;
-    CUDA tensors launch ``csrc/walk_fused.cu``; anything else raises.
-    ``uniform=True`` (the ``simple`` kind) reads only ``nbr``/``deg``.
+    Walker b idles until step ``t0[b]`` (its start at path column ``t0``,
+    earlier columns -1), then walks until it stops or samples a remote
+    neighbour (an ``nbr`` value ``-(g + 2)``), where it exits with the
+    frontier record ``(g, t + 1)``.  ``starts < 0`` is a free slot and a
+    walker with ``t0 > length`` emits nothing.  Step t draws ``u[t]``
+    (fed, (L, B, ≥6)) or ``uniforms_at(seed, wid[b], t)`` (``wid``
+    default ``arange(B)``).  Returns ``(path (B, L+1), frontier (B, 2))``
+    int32.
     """
-    if nbr.device.type == "cpu":
-        return walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u,
-                              base_log2=base_log2, stop_prob=stop_prob,
-                              uniform=uniform, seed=seed, length=length)
-    if nbr.device.type != "cuda":
-        raise ValueError(f"walk_fused: no kernel for device {nbr.device}")
+    B, L = starts.shape[0], length
+    dev = nbr.device
+    if u is not None and u.shape[-1] < NUM_UNIFORMS:
+        raise ValueError(f"fed uniforms must be (L, B, 6); got {tuple(u.shape)}")
+    if wid is None:
+        wid = torch.arange(B, dtype=torch.int64, device=dev)
+    stop = torch.tensor(stop_prob, dtype=torch.float32, device=dev)
+    starts = starts.to(torch.int64)
+    t0 = t0.to(torch.int64)
+    occupied = (starts >= 0) & (t0 <= L)
+    alive = occupied & (t0 == 0)
+    cur = torch.clamp(starts, min=0)
+    fv = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    ft = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    cols = [torch.full((B,), -1, dtype=torch.int64, device=dev)]
+    for t in range(L):
+        ut = u[t] if u is not None else uniforms_at(seed, wid, t)
+        d, nxt = _step(prob, alias, bias, nbr, deg, frac, cur, ut, base_log2,
+                       uniform)
+        nxt = nxt.to(torch.int64)
+        alive = alive & (d > 0)
+        if stop_prob > 0.0:
+            alive = alive & (ut[:, 5] >= stop)
+        emit = alive & (nxt >= 0)
+        remote = alive & (nxt <= -2)
+        cols.append(torch.where(emit, nxt, -1))
+        fv = torch.where(remote, -nxt - 2, fv)
+        ft = torch.where(remote, t + 1, ft)
+        activate = occupied & (t0 == t + 1) & (t + 1 < L)
+        cur = torch.where(activate, starts, torch.where(emit, nxt, cur))
+        alive = emit | activate
+    path = torch.stack(cols, dim=1)
+    col = torch.arange(L + 1, device=dev)[None, :]
+    path = torch.where((col == t0[:, None]) & occupied[:, None],
+                       starts[:, None], path)
+    return path.to(torch.int32), torch.stack([fv, ft], 1).to(torch.int32)
+
+
+def _tables(prob, alias, bias, nbr, deg, frac, starts, u, length, uniform,
+            seed):
+    """Check the tables and walk arguments a walk kernel takes; returns
+    ``(prob, alias, bias, frac, V, C, Kin, ucols)`` with the tables the
+    uniform pick does not read set to None."""
     from repro_torch.kernels import _build
     V, C = nbr.shape
     B = starts.shape[0]
@@ -155,6 +210,29 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
         _build.check("u", u, torch.float32, (length, B, ucols))
     if not -(1 << 31) <= int(seed) < (1 << 31):
         raise ValueError(f"seed {seed} is outside int32")
+    return prob, alias, bias, frac, V, C, Kin, ucols
+
+
+def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
+               length: int, base_log2: int = 1, stop_prob: float = 0.0,
+               uniform: bool = False):
+    """Whole-walk entry, dispatched by the device of ``nbr``.
+
+    Same arguments as ``walk_fused_ref`` (``seed`` an int in int32 range,
+    ``u`` optional fed uniforms).  CPU tensors run ``walk_fused_ref``;
+    CUDA tensors launch ``csrc/walk_fused.cu``; anything else raises.
+    ``uniform=True`` (the ``simple`` kind) reads only ``nbr``/``deg``.
+    """
+    if nbr.device.type == "cpu":
+        return walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u,
+                              base_log2=base_log2, stop_prob=stop_prob,
+                              uniform=uniform, seed=seed, length=length)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"walk_fused: no kernel for device {nbr.device}")
+    from repro_torch.kernels import _build
+    prob, alias, bias, frac, V, C, Kin, ucols = _tables(
+        prob, alias, bias, nbr, deg, frac, starts, u, length, uniform, seed)
+    B = starts.shape[0]
     path = torch.empty((B, length + 1), dtype=torch.int32, device=nbr.device)
     lib = _build.library("walk_fused")
     ptrs = [_build.ptr(x) for x in
@@ -170,3 +248,48 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
 
 
 walk_fused.launches = 0
+
+
+def walk_segment(prob, alias, bias, nbr, deg, frac, starts, t0, seed, u=None,
+                 wid=None, *, length: int, base_log2: int = 1,
+                 stop_prob: float = 0.0, uniform: bool = False):
+    """Segment entry, dispatched by the device of ``nbr``.
+
+    Same arguments as ``walk_segment_ref``: ``t0`` (B,) int32 start steps,
+    ``seed`` an int in int32 range, ``u`` optional fed uniforms (L, B, 6),
+    ``wid`` (B,) int32 slot → walker id map (default ``arange(B)``).  CPU
+    tensors run ``walk_segment_ref``; CUDA tensors launch the segment entry
+    of ``csrc/walk_fused.cu``; anything else raises.  Returns ``(path
+    (B, L+1), frontier (B, 2))`` int32.
+    """
+    if nbr.device.type == "cpu":
+        return walk_segment_ref(prob, alias, bias, nbr, deg, frac, starts, t0,
+                                u, wid, length=length, base_log2=base_log2,
+                                stop_prob=stop_prob, uniform=uniform,
+                                seed=seed)
+    if nbr.device.type != "cuda":
+        raise ValueError(f"walk_segment: no kernel for device {nbr.device}")
+    from repro_torch.kernels import _build
+    prob, alias, bias, frac, V, C, Kin, ucols = _tables(
+        prob, alias, bias, nbr, deg, frac, starts, u, length, uniform, seed)
+    B = starts.shape[0]
+    if wid is None:
+        wid = torch.arange(B, dtype=torch.int32, device=nbr.device)
+    _build.check("t0", t0, torch.int32, (B,))
+    _build.check("wid", wid, torch.int32, (B,))
+    path = torch.empty((B, length + 1), dtype=torch.int32, device=nbr.device)
+    frontier = torch.empty((B, 2), dtype=torch.int32, device=nbr.device)
+    lib = _build.library("walk_fused")
+    ptrs = [_build.ptr(x) for x in (prob, alias, bias, nbr, deg, frac, starts,
+                                    t0, wid, u, path, frontier)]
+    err = lib.walk_segment_launch(
+        *ptrs, B, V, C, Kin, length, base_log2, ctypes.c_float(stop_prob),
+        int(uniform), int(frac is not None), ucols, int(seed),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"walk_segment launch failed: {_build.error_string(err)}")
+    walk_segment.launches += 1
+    return path, frontier
+
+
+walk_segment.launches = 0

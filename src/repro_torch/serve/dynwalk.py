@@ -10,21 +10,35 @@ for node2vec).  Update rounds mutate the state's tensors in place — the
 counterpart of the reference's donated buffers — so the caller must not
 keep using the state it passed in; read ``engine.state``.
 
-The guard, the vertex-sharded mode, capacity regrowth, walk buckets and
-deferred guard accounting come in later slices of the port.
+**Sharded mode** (``group=``, a ``torch.distributed`` process group of S
+ranks, each running one engine): rank r keeps rows ``[r·V/S, (r+1)·V/S)``
+of every state table (neighbour ids stay global).  ``ingest`` applies the
+lanes whose source vertex the rank owns, with local ids, through one
+update round of the shard-local config, and sums the ``UpdateStats`` over
+the group; ``walk`` runs the exact walker relay (``distributed/relay.py``,
+overlapped rounds by default) and returns this rank's home block of the
+paths, rows ``[r·W/S, (r+1)·W/S)`` of the single-device engine's paths for
+the same seed, bit for bit (``distributed.stitch`` gathers them).
+
+The guard, capacity regrowth, walk buckets, deferred guard accounting and
+the 2D vertex × walker layout come in later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.alias import AliasTable
+from repro_torch.core.backend import get_backend
 from repro_torch.core.dyngraph import BingoConfig, BingoState
 from repro_torch.core.updates import UpdateStats, make_updater
 from repro_torch.core.walks import WalkParams, make_walker
+from repro_torch.distributed.relay import make_relay, shard_index
 from repro_torch.graph.streams import UpdateStream
 
 __all__ = ["DynamicWalkEngine"]
@@ -66,24 +80,63 @@ def _rounds_on_device(stream: UpdateStream, device, *, prefetch: int = 2,
         yield queue.popleft()
 
 
+def _map_state(state: BingoState, fn) -> BingoState:
+    """``state`` with ``fn`` applied to every tensor leaf."""
+    return BingoState(*[None if x is None else fn(x) for x in state[:-1]],
+                      itable=AliasTable(*map(fn, state.itable)))
+
+
 class DynamicWalkEngine:
-    """One dynamic graph on one device, serving update rounds and walks.
+    """One dynamic graph on one device, or one vertex shard of it, serving
+    update rounds and walks.
 
     ``seed`` seeds the engine's own ``torch.Generator``, from which
     ``walk`` draws a walk seed when the caller gives none.  ``whole_walk``
     is passed to ``random_walk`` (False pins the per-step path).
+    ``group`` turns on the sharded mode (module docstring): ``state`` is
+    the whole state, of which the engine keeps its rank's rows;
+    ``mailbox_cap`` bounds the relay's walker mailboxes and
+    ``relay_overlap`` picks its schedule.  After a sharded walk
+    ``last_relay`` holds its rounds, mailbox overflow and peak slots, and
+    setting ``relay_trace`` to a list collects the relay's per-round
+    spans.
     """
 
     def __init__(self, state: BingoState, cfg: BingoConfig,
                  params: WalkParams = WalkParams(), *,
                  backend: Optional[str] = None,
-                 whole_walk: Optional[bool] = None, seed: int = 0):
+                 whole_walk: Optional[bool] = None, seed: int = 0,
+                 group=None, mailbox_cap: Optional[int] = None,
+                 relay_overlap: bool = True):
         self.cfg = cfg
         self.params = params
-        self._state = state
-        self._update = make_updater(cfg, backend=backend)
-        self._walk = make_walker(state, cfg, params, backend=backend,
-                                 whole_walk=whole_walk)
+        self.group = group
+        self.num_shards, self.rank = 1, 0
+        self.relay_trace: Optional[list] = None
+        self.last_relay: Optional[dict] = None
+        if group is None:
+            self._state = state
+            self._update = make_updater(cfg, backend=backend)
+            self._walk = make_walker(state, cfg, params, backend=backend,
+                                     whole_walk=whole_walk)
+        else:
+            import torch.distributed as dist
+            if params.kind == "node2vec" or whole_walk is False:
+                raise ValueError("the sharded engine relays whole walks "
+                                 "(deepwalk/ppr/simple) only")
+            self.num_shards = dist.get_world_size(group)
+            self.rank = shard_index(group)
+            self._relay = make_relay(   # validates V % S
+                get_backend(cfg.backend if backend is None else backend),
+                cfg, params, group, mailbox_cap=mailbox_cap,
+                overlap=relay_overlap, diagnostics=True)
+            self.shard_size = cfg.num_vertices // self.num_shards
+            lo = self.rank * self.shard_size
+            self._state = _map_state(
+                state, lambda x: x[lo:lo + self.shard_size].clone())
+            self._update = make_updater(
+                dataclasses.replace(cfg, num_vertices=self.shard_size),
+                backend=backend)
         self._gen = torch.Generator().manual_seed(seed)
         self.rounds_ingested = 0
         self.updates_applied = 0
@@ -92,8 +145,22 @@ class DynamicWalkEngine:
 
     @property
     def state(self) -> BingoState:
-        """The current sampling space (updated in place by ``ingest``)."""
+        """The current sampling space (updated in place by ``ingest``);
+        this rank's vertex slice in sharded mode."""
         return self._state
+
+    def gather_state(self) -> BingoState:
+        """The whole state: every rank's slice, all-gathered over the
+        group in sharded mode (a collective: every rank calls it)."""
+        if self.group is None:
+            return self._state
+        import torch.distributed as dist
+
+        def gather(x):
+            parts = [torch.empty_like(x) for _ in range(self.num_shards)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts)
+        return _map_state(self._state, gather)
 
     @property
     def device(self) -> torch.device:
@@ -116,20 +183,46 @@ class DynamicWalkEngine:
         if not 0 <= nv <= B:
             raise ValueError(f"n_valid {nv} outside round of {B} lanes")
         lanes = torch.arange(B, device=self.device) < nv
+        u = self._as(u, torch.int32)
+        if self.group is not None:
+            # owner-masked lanes with local source ids; the stats sum
+            lo = self.rank * self.shard_size
+            lanes = lanes & (u >= lo) & (u < lo + self.shard_size)
+            u = torch.where(lanes, u - lo, 0)
         self._state, stats = self._update(
-            self._state, self._as(is_insert, torch.bool),
-            self._as(u, torch.int32), self._as(v, torch.int32), self._as(w),
-            lanes)
+            self._state, self._as(is_insert, torch.bool), u,
+            self._as(v, torch.int32), self._as(w), lanes)
+        if self.group is not None:
+            stats = self._sum_stats(stats)
         self.rounds_ingested += 1
         self.updates_applied += nv
         return stats._replace(max_fill=self._fill())
 
+    def _sum_stats(self, stats: UpdateStats) -> UpdateStats:
+        """``UpdateStats`` summed over the group, in one all-reduce."""
+        import torch.distributed as dist
+        parts = [x.reshape(-1).to(torch.int64) for x in stats[:4]]
+        flat = torch.cat(parts)
+        dist.all_reduce(flat, group=self.group)
+        out = [p.reshape(x.shape).to(torch.int32) for p, x in
+               zip(flat.split([p.numel() for p in parts]), stats[:4])]
+        return UpdateStats(*out)
+
     def _fill(self) -> torch.Tensor:
-        """Fill watermark ``max(deg) / capacity`` as a device scalar."""
-        return self._state.deg.max() / self.cfg.capacity
+        """Fill watermark ``max(deg) / capacity`` as a device scalar (the
+        largest degree over the group in sharded mode)."""
+        dmax = self._state.deg.max()
+        if self.group is not None:
+            import torch.distributed as dist
+            dmax = dmax.reshape(1).clone()
+            dist.all_reduce(dmax, op=dist.ReduceOp.MAX, group=self.group)
+            dmax = dmax[0]
+        return dmax / self.cfg.capacity
 
     def walk(self, starts, seed: Optional[int] = None) -> torch.Tensor:
-        """Serve one walk batch; returns ``(B, length+1)`` paths.
+        """Serve one walk batch; returns ``(B, length+1)`` paths — in
+        sharded mode this rank's ``(B/S, length+1)`` home block, and
+        ``B`` must divide over the S ranks.
 
         ``seed`` keys the walk's randomness (the counter-hash stream of a
         whole walk, the generator of the per-step path); when None it is
@@ -140,7 +233,13 @@ class DynamicWalkEngine:
         if seed is None:
             seed = int(torch.randint(0, _SEED_HI, (1,), generator=self._gen))
         self.last_seed = seed
-        self._state, paths = self._walk(self._state, starts, seed)
+        if self.group is None:
+            self._state, paths = self._walk(self._state, starts, seed)
+        else:
+            paths, rounds, ovf, peak = self._relay(
+                self._state, starts, seed, trace=self.relay_trace)
+            self.last_relay = {"rounds": rounds, "overflow": ovf,
+                               "peak_slots": peak}
         self.walks_served += int(starts.shape[0])
         return paths
 

@@ -1,11 +1,12 @@
 """Each CUDA kernel against its plain PyTorch version, bit for bit, on the card.
 
 The sweeps of ``tests/test_torch_walks.py``,
-``tests/test_torch_walk_sample.py`` and ``tests/test_torch_updates.py``:
-whole walks (deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed
-uniforms, a ragged batch), per-step samples (base 2/4 × fp on/off ×
-gathered rows / in-place ``rows``, degree-0 rows in the batch) and update
-rounds (insert/delete/mixed × the five config rows, chained, plus a batch
+``tests/test_torch_walk_segment.py``, ``tests/test_torch_walk_sample.py``
+and ``tests/test_torch_updates.py``: whole walks and segment walks
+(deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed uniforms, a
+ragged batch; segments on a relay view with spread start steps),
+per-step samples (base 2/4 × fp on/off × gathered rows / in-place
+``rows``, degree-0 rows in the batch) and update rounds (insert/delete/mixed × the five config rows, chained, plus a batch
 wider than 2·C).  A CUDA kernel has no CPU mode, so these tests carry the
 ``cuda`` marker and skip where there is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -21,7 +22,8 @@ import torch
 from repro_torch.core import dyngraph as tdg
 from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
-from repro_torch.kernels.walk_fused import walk_fused_ref
+from repro_torch.distributed.relay import relay_view
+from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
 from repro_torch.kernels.walk_sample import (walk_sample_ref,
                                             walk_sample_uniform_ref)
 
@@ -105,6 +107,40 @@ def test_walk_kernel_equals_plain(kind, base_log2, fp, fed):
     want = walk_fused_ref(*args, u, seed=12345, length=L, **kw)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("fed", [True, False])
+@pytest.mark.parametrize("base_log2,fp", [(1, False), (2, False), (1, True),
+                                          (2, True)])
+@pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
+def test_segment_kernel_equals_plain(kind, base_log2, fp, fed):
+    """The segment entry on a relay view (remote neighbours -(g+2)), start
+    steps over [0, L+1] with L and L+1 present, free slots and a permuted
+    slot → walker id map."""
+    st, cfg = _state(40, 64, fp, base_log2)
+    view = relay_view(st, 10, 20)
+    assert bool((view.nbr <= -2).any())
+    B, L = 301, 12
+    g = torch.Generator(device="cuda").manual_seed(5)
+    starts = torch.randint(-1, 20, (B,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    t0 = torch.randint(0, L + 2, (B,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    t0[:2] = torch.tensor([L, L + 1], dtype=torch.int32)
+    wid = torch.randperm(B, generator=g, device="cuda").to(torch.int32) + 3
+    u = torch.rand((L, B, 6), generator=g, device="cuda") if fed else None
+    kw = dict(base_log2=base_log2, stop_prob=0.15 if kind == "ppr" else 0.0,
+              uniform=kind == "simple", length=L)
+    args = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+            view.deg, view.frac if fp else None, starts, t0)
+    before = ops.launch_counts()["walk_segment"]
+    got = ops.walk_segment(*args, 12345, u, wid, **kw)
+    assert ops.launch_counts()["walk_segment"] == before + 1
+    want = walk_segment_ref(*args, u, wid, seed=12345, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert bool((got[1][:, 0] >= 0).any())
 
 
 @pytest.mark.parametrize("in_place", [True, False])
@@ -214,5 +250,9 @@ def test_cuda_tensors_never_take_the_plain_path():
     ops.walk_sample_uniform(st.nbr, st.deg, torch.rand((4, 1), device="cuda"),
                             rows=torch.zeros(4, dtype=torch.int32,
                                              device="cuda"))
-    assert ops.launch_counts() == {"walk_fused": 1, "update_fused": 1,
-                                   "walk_sample": 1, "walk_sample_uniform": 1}
+    zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
+    ops.walk_segment(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
+                     None, zeros, zeros, 1, length=4)
+    assert ops.launch_counts() == {"walk_fused": 1, "walk_segment": 1,
+                                   "update_fused": 1, "walk_sample": 1,
+                                   "walk_sample_uniform": 1}
