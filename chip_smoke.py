@@ -16,7 +16,16 @@ Phases (any failure exits non-zero and prints no result line):
    ``update_fused`` over insert/delete/mixed × five config rows, plus a
    batch wider than 2·C; ``walk_sample`` and ``walk_sample_uniform`` over
    base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
-   holding degree-0 rows.
+   holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256 and
+   ``alias_build`` over K 2/5/16/17/33 (degrees 0 and C, empty and
+   single-entry rows); ``flash_attention`` against its plain version
+   entry by entry at ``FLASH_TOL`` (2e-5 in float32, plus 2^-7 of the
+   value in bfloat16), and the kernel one tile off at the band's edge
+   (``shifted_window``) against the same limit, which must reject it,
+   over ``FLASH_CASES``: GQA 4:1 at
+   Mixtral 8x7B's widths with its 4096 window at S = T = 8192 in bf16, a
+   causal f32 D = 64 case, S = 512 < T = 8192, a ragged S = T = 1000 and
+   a non-causal batch of two.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -24,6 +33,12 @@ Phases (any failure exits non-zero and prints no result line):
    round, then one ppr batch (max 400, stop 1/80) and one simple batch.
    Launch counters are zeroed just before and read just after.  Round 1's
    state is held against ``batched_update`` on a copy.
+3d. Right after the main path, on its final state, the counters zeroed
+   just before and read just after: ``radix_hist(state.bias, state.deg,
+   num_k=16)`` must equal ``(state.digitsum, state.gsize)`` and
+   ``alias_build(group_weights(state.digitsum))`` must equal
+   ``state.itable`` (written by ``update_fused`` in ten rounds), bit for
+   bit, and so must the plain versions; times (median of 3) and bounds.
 3b. The per-step paths on the main path's final state, each with the
    counters zeroed just before and read just after: a node2vec batch
    (``WalkParams("node2vec", 80, p=0.5, q=2.0)``), a per-step deepwalk and
@@ -47,6 +62,16 @@ Phases (any failure exits non-zero and prints no result line):
    bit, the counters zeroed just before each batch and read just after.
    Then one rank over NCCL runs the same deepwalk batch, and times the
    whole-walk and the segment kernels on it in turns.
+3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
+   D = 128, bf16) over one 32,768-token sequence (``prefill_32k``): the
+   4096 window, then full causal, the counters zeroed just before and
+   read just after; 256 query rows of each output held against the dense
+   ``attention_ref`` in f32, the whole output against
+   ``flash_attention_ref``, both at ``FLASH_TOL``, which must reject the
+   planted fault of phase 2 at this size; kernel times (median of 3), the
+   FLOP bound at the dense bf16 tensor-core rate, and
+   ``scaled_dot_product_attention`` on the same tensors as the library
+   yardstick (a boolean mask for the window).
 4. Times on the card (CUDA events): each kernel at the main path's shapes
    and its plain version, whose outputs are held against the main path's
    whole batches (deepwalk, ppr and simple paths; the state after round
@@ -84,6 +109,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12                  # H100 SXM float32 outside the tensor cores
+TC_BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
@@ -91,6 +117,22 @@ STREAM_UPDATES = 2000
 SHARDS = 4                         # ranks of the sharded phase, on one card
 SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
 RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
+# (B, H, Hkv, S, T, D, dtype, causal, window): flash_attention vs plain
+FLASH_CASES = [
+    (1, 32, 8, 8192, 8192, 128, "bfloat16", True, 4096),    # Mixtral widths
+    (1, 8, 2, 2048, 2048, 64, "float32", True, 0),
+    (1, 8, 2, 512, 8192, 128, "float32", True, 0),          # S < T
+    (1, 4, 2, 1000, 1000, 64, "bfloat16", True, 300),       # ragged
+    (2, 4, 1, 1536, 1536, 128, "float32", False, 0),        # non-causal
+]
+# |kernel - plain| <= atol + rtol * |plain|, entry by entry: float32 to
+# its accumulation order, bfloat16 to that and one rounding step of the
+# output (a bfloat16 step is at most 2^-7 of the value)
+FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -7)}
+# phase 3e: Mixtral 8x7B's attention (configs/mixtral_8x7b.py) over one
+# prefill_32k sequence (configs/shapes.py)
+ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM = 32, 8, 4096 // 32
+ATTN_SEQ, ATTN_WINDOW = 32768, 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -374,6 +416,97 @@ def check_update_kernel(rng):
     batch = round_of(4, (src[src < 4], dst[src < 4]), Bn, "mixed", False)
     compare(st_k, st_p, cfg, batch, "B > 2C")
     return n + 1
+
+
+def check_table_kernels(rng):
+    """``radix_hist`` and ``alias_build`` == their plain versions, bit for
+    bit: K 4/16/31 × C 8/256 with degrees 0 and C present; K 2/5/16/17/33
+    with an empty and a single-entry row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.alias_build import alias_build_ref
+    from repro_torch.kernels.radix_hist import radix_hist_ref
+    V, n = 4096, 0
+    for K in (4, 16, 31):
+        for C in (8, 256):
+            deg = rng.integers(0, C + 1, V).astype(np.int32)
+            deg[:2] = 0, C
+            bias = torch.from_numpy(
+                rng.integers(0, 1 << K, (V, C)).astype(np.int32)).cuda()
+            deg = torch.from_numpy(deg).cuda()
+            got = ops.radix_hist(bias, deg, num_k=K)
+            want = radix_hist_ref(bias, deg, K)
+            torch.cuda.synchronize()
+            need(all(torch.equal(a, b) for a, b in zip(got, want)),
+                 f"radix_hist != plain (K={K}, C={C})")
+            n += 1
+    for K in (2, 5, 16, 17, 33):
+        w = (rng.random((V, K)) * rng.integers(1, 100, (V, K))).astype(np.float32)
+        w[0], w[1, 1:] = 0.0, 0.0
+        w = torch.from_numpy(w).cuda()
+        got = ops.alias_build(w)
+        want = alias_build_ref(w)
+        torch.cuda.synchronize()
+        need(all(torch.equal(a, b) for a, b in zip(got, want)),
+             f"alias_build != plain (K={K})")
+        n += 1
+    return n
+
+
+def flash_excess(got, want, dtype):
+    """Largest ``|got - want| / (atol + rtol * |want|)`` over the entries,
+    at ``FLASH_TOL[dtype]``: the limit holds where it is at most 1."""
+    atol, rtol = FLASH_TOL[dtype]
+    want = want.float()
+    return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def shifted_window(T, window):
+    """The window of a planted fault: the band's lower edge one 64-key tile
+    off (``window + 64``) or, with no window, the first tile cut from the
+    last rows (``T - 64``).  The limit must reject its output."""
+    return window + 64 if window else T - 64
+
+
+def flash_inputs(case, seed):
+    """q, k and v of a ``FLASH_CASES`` entry on the card, from ``seed``."""
+    import torch
+    B, H, Hkv, S, T, D, dtype, _, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(
+        getattr(torch, dtype)) for shape in
+        ((B, H, S, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+
+
+def check_flash_kernel(rng):
+    """``flash_attention`` against ``flash_attention_ref`` over
+    ``FLASH_CASES`` at ``FLASH_TOL``, and a planted fault (the kernel at
+    ``shifted_window``) against the same limit, which must reject it.
+    Returns, per case, the max abs error and its share of the limit, then
+    the planted fault's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    errs = []
+    for case in FLASH_CASES:
+        B, H, Hkv, S, T, D, dtype, causal, window = case
+        q, k, v = flash_inputs(case, int(rng.integers(2**31)))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        fault = ops.flash_attention(q, k, v, causal=causal,
+                                    window=shifted_window(T, window))
+        err = float((got.float() - want.float()).abs().max())
+        fault_err = float((fault.float() - want.float()).abs().max())
+        excess = flash_excess(got, want, dtype)
+        fault_excess = flash_excess(fault, want, dtype)
+        need(got.dtype == q.dtype and bool(torch.isfinite(got).all())
+             and excess <= 1,
+             f"flash_attention != plain ({case}): max abs {err}, "
+             f"{excess:.3f} of the limit")
+        need(fault_excess > 1, f"flash_attention ({case}): the limit passes a "
+             f"kernel one tile off ({fault_excess:.3f} of it)")
+        errs.append((err, excess, fault_err, fault_excess))
+    return errs
 
 
 # ---------------------------------------------------------------- phase 3
@@ -693,6 +826,77 @@ def main_path(args, report):
 def stats_list(stats):
     """An ``UpdateStats``' counters as nested lists (JSON)."""
     return [x.tolist() for x in stats[:4]]
+
+
+# --------------------------------------------------------------- phase 3d
+def table_phase(engine, cfg, report):
+    """Phase 3d: ``radix_hist`` and ``alias_build`` on the main path's
+    final state, through ``ops``, the counters zeroed just before and read
+    just after; their outputs and the plain versions' must equal the
+    tables the state keeps.  Returns the two kernels' lines."""
+    import torch
+    from repro_torch.core.radix import group_weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.alias_build import alias_build_ref
+    from repro_torch.kernels.radix_hist import radix_hist_ref
+    st = engine.state
+    need(not cfg.fp_bias and cfg.base_log2 == 1,
+         "phase 3d expects a base-2 integer state")
+    K = cfg.num_radix
+    V, C = st.bias.shape
+    gw = group_weights(st.digitsum, cfg.base_log2)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ds, gs = ops.radix_hist(st.bias, st.deg, num_k=K)
+    prob, alias = ops.alias_build(gw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"tables on the final state, launches: {counts}", flush=True)
+    need(counts["radix_hist"] == counts["alias_build"] == 1
+         and sum(counts.values()) == 2, f"phase 3d launches {counts}")
+
+    def same_hist(got, what):
+        need(torch.equal(got[0], st.digitsum) and torch.equal(got[1], st.gsize),
+             f"{what} on the final state != (digitsum, gsize)")
+
+    def same_itable(got, what):
+        need(torch.equal(got[0], st.itable.prob)
+             and torch.equal(got[1], st.itable.alias),
+             f"{what} on the final state != state.itable")
+
+    same_hist((ds, gs), "radix_hist")
+    same_itable((prob, alias), "alias_build")
+    del ds, gs, prob, alias
+    edges = int(st.deg.clamp(max=C).sum())
+    lines = []
+    for name, fn, ref, same, nbytes, nops, replaces in (
+            ("alias_build", lambda: ops.alias_build(gw),
+             lambda: alias_build_ref(gw), same_itable, 4 * 3 * V * K,
+             V * (K * K + 3 * K), "src/repro/kernels/alias_build.py:67"),
+            ("radix_hist", lambda: ops.radix_hist(st.bias, st.deg, num_k=K),
+             lambda: radix_hist_ref(st.bias, st.deg, K), same_hist,
+             4 * (V + edges + 2 * V * K), 4 * K * edges,
+             "src/repro/kernels/radix_hist.py:48")):
+        ms, got = cuda_ms(fn)
+        same(got, name)
+        plain_ms, want = cuda_ms(ref, reps=1)
+        same(want, f"{name} plain")
+        del got, want
+        b_ms, b_by = bound(nbytes, nops)
+        report[name] = {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+                        "ops": nops, "bound_ms": b_ms, "bound_by": b_by,
+                        "launches": counts[name], "edges": edges}
+        print(f"{name}: {ms:.4f} ms on the final state ({V} rows, K={K}, "
+              f"{edges} edges); plain {plain_ms:.2f} ms; both equal to the "
+              f"state's tables; needs {nbytes / 1e6:.1f} MB and "
+              f"{nops / 1e6:.1f} M ops -> bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        lines.append({"name": name, "route": "cuda",
+                      "source": f"src/repro_torch/csrc/{name}.cu",
+                      "replaces": replaces, "launches": counts[name],
+                      "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return lines
 
 
 # --------------------------------------------------------------- phase 3b
@@ -1333,6 +1537,135 @@ def streaming(engine, cfg, report, rng):
           f"counters and alias rows equal to a rebuild", flush=True)
 
 
+# --------------------------------------------------------------- phase 3e
+def attention_pairs(S, T, causal, window):
+    """Unmasked (query, key) pairs of one head: query row i at i + T - S."""
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(T, qpos + 1) if causal else np.full(S, T, np.int64)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def sdpa_ms(q, k, v, **kw):
+    """``(ms, output)`` of one ``scaled_dot_product_attention`` call on the
+    same tensors (``enable_gqa``: KV not repeated), restricted to its fused
+    backends (its math backend would hold the whole (H, S, T) logits)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+             SDPBackend.EFFICIENT_ATTENTION]
+    with sdpa_kernel(fused):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **kw))
+
+
+def attention_phase(report):
+    """Phase 3e: flash attention at Mixtral 8x7B's attention widths over
+    one 32,768-token sequence, windowed and full causal.  Returns the
+    kernel's line (the full-causal case, beside SDPA's ``is_causal``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_ref)
+    H, Hkv, D, S = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+               for shape in ((1, H, S, D), (1, Hkv, S, D), (1, Hkv, S, D)))
+    cases = (("window", ATTN_WINDOW), ("causal", 0))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = {name: ops.flash_attention(q, k, v, causal=True, window=w)
+            for name, w in cases}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"attention S=T={S}, launches: {counts}", flush=True)
+    need(counts["flash_attention"] == 2 and sum(counts.values()) == 2,
+         f"phase 3e launches {counts}")
+    kf, vf = k.float(), v.float()
+    blocks = [min(a, S - 64) for a in           # 4 x 64 rows
+              (0, ATTN_WINDOW - 32, S // 2 + 320, S - 64)]
+
+    def dense_excess(o, w):
+        """``o``'s 256 sampled rows against the dense ``attention_ref``."""
+        return max(flash_excess(o[:, :, a:a + 64], attention_ref(
+            q[:, :, a:a + 64].float(), kf, vf, causal=True, window=w,
+            q_offset=a), "bfloat16") for a in blocks)
+
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    out = {}
+    for name, w in cases:
+        o = outs.pop(name)
+        need(o.shape == q.shape and o.dtype == q.dtype
+             and bool(torch.isfinite(o).all()), f"attention {name}: output")
+        fault = ops.flash_attention(q, k, v, causal=True,
+                                    window=shifted_window(S, w))
+        dense, dense_fault = dense_excess(o, w), dense_excess(fault, w)
+        need(dense <= 1 < dense_fault, f"attention {name}: 256 rows vs "
+             f"attention_ref at {dense:.3f} of the limit, the planted fault "
+             f"at {dense_fault:.3f}")
+        ms, _ = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    window=w))
+        plain_ms, want = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, window=w), reps=1)
+        err = float((o.float() - want.float()).abs().max())
+        fault_err = float((fault.float() - want.float()).abs().max())
+        excess = flash_excess(o, want, "bfloat16")
+        fault_excess = flash_excess(fault, want, "bfloat16")
+        del want, fault
+        need(excess <= 1 < fault_excess, f"attention {name}: kernel vs plain "
+             f"max abs {err}, {excess:.3f} of the limit, the planted fault at "
+             f"{fault_excess:.3f}")
+        pairs = H * attention_pairs(S, S, True, w)
+        flops = 4 * D * pairs
+        b_ms = max(flops / TC_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        b_by = "operations" if flops / TC_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S \
+            else "bytes"
+        try:        # the yardstick: a library fault does not fail the smoke
+            if w:
+                pos = torch.arange(S, device="cuda")
+                mask = ((pos[None, :] <= pos[:, None])
+                        & (pos[None, :] > pos[:, None] - w))
+                lib_ms, lib = sdpa_ms(q, k, v, attn_mask=mask)
+                del mask
+            else:
+                lib_ms, lib = sdpa_ms(q, k, v, is_causal=True)
+            lib_err, how = float((lib.float() - o.float()).abs().max()), "ok"
+            del lib
+        except Exception as e:              # noqa: BLE001
+            traceback.print_exc()
+            lib_ms, lib_err, how = None, None, f"no time: {e!r}"[:300]
+        out[name] = {"window": w, "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": err, "excess": excess,
+                     "fault_max_abs_err": fault_err,
+                     "fault_excess": fault_excess, "dense_rows_excess": dense,
+                     "dense_rows_fault_excess": dense_fault,
+                     "pairs": pairs, "flops": flops, "bytes": nbytes,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "library": how, "library_vs_kernel_err": lib_err,
+                     "tflops": flops / ms / 1e9}
+        print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={Hkv}, D={D}, "
+              f"bf16, window {w}): {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), {pairs / 1e9:.3f} G pairs -> bound {b_ms:.3f} ms "
+              f"({b_by}, {flops / 1e12:.3f} TFLOP at the bf16 tensor-core "
+              f"rate); plain {plain_ms:.1f} ms, max abs {err:.5f}; share of "
+              f"the limit vs plain {excess:.3f} (planted fault: max abs "
+              f"{fault_err:.5f}, {fault_excess:.1f} of the limit), 256 rows "
+              f"vs dense attention_ref {dense:.3f} (fault {dense_fault:.1f}); "
+              f"sdpa "
+              f"{'not timed' if lib_ms is None else f'{lib_ms:.3f} ms'} "
+              f"({how}, vs kernel {lib_err})", flush=True)
+        del o
+    report["attention"] = out
+    c = out["causal"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": counts["flash_attention"],
+            "max_abs_err": max(x["max_abs_err"] for x in out.values()),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+
+
 def profiled(fn, trace, what, keep=True):
     """Run ``fn()`` once under ``torch.profiler``: its host wall time, the
     device's busy time (union of kernel, copy and set intervals) and the
@@ -1428,19 +1761,36 @@ def main():
     ng = check_segment_kernel(rng)
     nu = check_update_kernel(rng)
     ns = check_sample_kernels(rng)
+    rng_new = np.random.default_rng(1)       # rng's stream stays as it was
+    nt = check_table_kernels(rng_new)
+    fa_errs = check_flash_kernel(rng_new)
     report["check_s"] = time.perf_counter() - t0
+    report["flash_check_errs"] = fa_errs
     print(f"kernel == plain, bit-exact: walk_fused {nw} cases, walk_segment "
           f"{ng} cases, update_fused {nu} rounds, walk_sample and "
-          f"walk_sample_uniform {ns} cases each ({report['check_s']:.1f} s)",
-          flush=True)
+          f"walk_sample_uniform {ns} cases each, radix_hist and alias_build "
+          f"{nt} cases; flash_attention {len(fa_errs)} cases within "
+          f"its limit (max abs and share of the limit; the planted fault's: "
+          f"{['%.2e %.3f; %.2e %.1f' % e for e in fa_errs]}) "
+          f"({report['check_s']:.1f} s)", flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
     kernels, engine, cfg, starts, stream = main_path(args, report)
+    # ---- phase 3d: the table kernels on the final state
+    tables = table_phase(engine, cfg, report)
     # ---- phase 3b: the per-step paths
     kernels += per_step_paths(engine, cfg, starts, report, args.profile)
     # ---- phase 3c: the sharded path, then the streaming updates
     kernels.insert(1, sharded_path(engine, cfg, starts, stream, report))
     streaming(engine, cfg, report, rng)
+    kernels += tables
+    # ---- phase 3e: attention at full width
+    del engine
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(attention_phase(report))
+    report["attention_s"] = time.perf_counter() - t0
+    print(f"attention phase: {report['attention_s']:.1f} s", flush=True)
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)

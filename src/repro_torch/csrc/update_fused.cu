@@ -21,7 +21,8 @@
 //      gmem compaction by prefix counts over members (DENSE groups stay
 //      empty in adaptive mode), ginv in baseline mode;
 //   6. one thread sums wdec left to right and builds the Kin-entry alias row
-//      with Vose's loop in exactly alias._build_row's order;
+//      with Vose's loop in exactly alias._build_row's order (alias_row.cuh,
+//      shared with alias_build.cu);
 //   7. every row and per-row output is written in place at the row's index.
 // Per-lane delete flags go to del_ok; the round's stats are torch ops.
 //
@@ -42,11 +43,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "alias_row.cuh"
+
 namespace {
 
+using alias_row::kMaxInter;
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-constexpr int kMaxInter = 64;
 constexpr int EMPTY = 0, DENSE = 1, ONE = 2, SPARSE = 3, REGULAR = 4;
 
 __device__ __forceinline__ unsigned lanemask_lt(int lane) {
@@ -247,38 +250,12 @@ update_fused_kernel(const int* __restrict__ U, const int* __restrict__ ins_lo,
     for (int s = 1; s < C; ++s) wd = wd + s_frac[s];
     wdec[vtx] = wd;
     const int n = Kin;
-    float w[kMaxInter], sc[kMaxInter], pr[kMaxInter];
+    float w[kMaxInter], pr[kMaxInter];
     int al[kMaxInter];
-    bool done[kMaxInter];
     for (int k = 0; k < K; ++k)
       w[k] = static_cast<float>(s_dsum[k]) * ldexpf(1.0f, k * base_log2);
     if (n > K) w[K] = wd;                     // decimal group (fp mode)
-    float total = w[0];
-    for (int j = 1; j < n; ++j) total = total + w[j];
-    for (int j = 0; j < n; ++j) {
-      sc[j] = total > 0.0f ? (w[j] * static_cast<float>(n)) / fmaxf(total, 1e-30f)
-                           : 0.0f;
-      pr[j] = 1.0f;
-      al[j] = j;
-      done[j] = false;
-    }
-    for (int it = 0; it < n; ++it) {
-      int s = -1, l = -1;
-      for (int j = 0; j < n; ++j) {
-        if (done[j]) continue;
-        if (sc[j] < 1.0f) {
-          if (s < 0) s = j;
-        } else if (l < 0) {
-          l = j;
-        }
-      }
-      if (s >= 0 && l >= 0) {
-        pr[s] = sc[s];
-        al[s] = l;
-        sc[l] = sc[l] + (sc[s] - 1.0f);
-        done[s] = true;
-      }
-    }
+    alias_row::vose_row(w, n, pr, al);
     const size_t arow = static_cast<size_t>(vtx) * n;
     for (int j = 0; j < n; ++j) {
       prob[arow + j] = pr[j];

@@ -9,7 +9,10 @@ build raises; there is no fallback.
 
 ``-fmad=false`` keeps nvcc from fusing a multiply and an add: the
 kernels' float results must equal their plain PyTorch versions bit for
-bit, whatever the compiler would contract.
+bit, whatever the compiler would contract.  The sources in ``CONTRACTED``
+are held to their plain versions at a stated tolerance instead, and are
+built without it: flash attention's dot-product loops run 1.29x faster
+fused on an H100 (``tools/flash_fmad_ab.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ __all__ = ["SOURCES", "build_all", "library", "error_string", "ptr",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("walk_fused", "update_fused", "walk_sample")
+SOURCES = ("walk_fused", "update_fused", "walk_sample", "radix_hist",
+           "alias_build", "flash_attention")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CONTRACTED = ("flash_attention",)
 
 # Signatures of the C entry points: (argtypes, restype).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -45,6 +50,11 @@ _SIGNATURES = {
     "walk_sample": {
         "walk_sample_launch": ([_P] * 10 + [_I] * 6 + [_P], _I),
         "walk_sample_uniform_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    },
+    "radix_hist": {"radix_hist_launch": ([_P] * 4 + [_I] * 3 + [_P], _I)},
+    "alias_build": {"alias_build_launch": ([_P] * 3 + [_I] * 2 + [_P], _I)},
+    "flash_attention": {
+        "flash_attention_launch": ([_P] * 4 + [_I] * 9 + [_F, _P], _I),
     },
 }
 
@@ -64,9 +74,15 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> list:
+    if name in CONTRACTED:
+        return [f for f in FLAGS if f != "-fmad=false"]
+    return FLAGS
+
+
 def _key(name: str) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -88,7 +104,7 @@ def build_all(names=SOURCES) -> float:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -1,0 +1,172 @@
+"""Attention forward: the dense reference, the flash algorithm, its kernel.
+
+Port of ``repro/kernels/flash_attention.py`` (``flash_attention_pallas``)
+and of the oracles ``kernels/ref.py:attention_ref`` and
+``attention_ref_chunked``.  Layouts are the reference's: q (B, H, S, D),
+k and v (B, Hkv, T, D), H a multiple of Hkv (grouped-query attention:
+query head h reads KV head h // (H / Hkv)); query row i sits at position
+``i + T - S``.  A key is seen when it is at or before the query (causal)
+and, with ``window > 0``, fewer than ``window`` positions before it.
+
+- ``attention_ref``: dense softmax attention through a grouped einsum
+  (no repeated KV), masked logits at -inf, as the reference computes it.
+- ``flash_attention_ref``: the plain version of the kernel, the same
+  online-softmax algorithm: KV tiles of 64 in order, vectorised over all
+  query rows, float32 accumulation, masked scores at -1e30, the output
+  ``acc / max(l, 1e-30)`` in q's type.  q is cast to float32 and then
+  scaled, as the Pallas body does.
+- ``flash_attention``: the wrapper.  CPU tensors run
+  ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
+  (D in {64, 128}, float32 or bfloat16) and count the launch in
+  ``flash_attention.launches``.  Kernel and plain version agree entry by
+  entry to float rounding: within 2e-5 in float32, and that plus one
+  rounding step of the output (2^-7 of the value) in bfloat16.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["attention_ref", "attention_ref_chunked",
+           "flash_attention_ref", "flash_attention"]
+
+_BLOCK_K = 64                # KV tile of the kernel and of its plain version
+_NEG_INF = -1e30
+_MAX_Q_TILES = 65535         # the kernel's grid height, in 64-row query tiles
+
+
+def _mask(S: int, T: int, q_offset: int, causal: bool, window: int,
+          kpos: torch.Tensor, device):
+    """(S, len(kpos)) bool: which keys each query row sees, or None."""
+    if not causal and not window:
+        return None
+    qpos = torch.arange(S, device=device)[:, None] + q_offset
+    mask = torch.ones((S, kpos.numel()), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos
+    if window:
+        mask &= kpos[None, :] > qpos - window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                  q_offset=None):
+    """Reference attention (B, H, S, D) x (B, Hkv, T, D) -> (B, H, S, D).
+
+    q is scaled in its own type, as the reference does; the logits and the
+    softmax are float32; ``q_offset`` (default T - S) places the queries.
+    Rows that see no key are NaN.
+    """
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+          ).reshape(B, Hkv, rep, S, D)
+    logits = torch.einsum("bkrsd,bktd->bkrst", qg.to(torch.float32),
+                          k.to(torch.float32))
+    off = (T - S) if q_offset is None else q_offset
+    mask = _mask(S, T, off, causal, window, torch.arange(T, device=q.device),
+                 q.device)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrst,bktd->bkrsd", p, v.to(torch.float32))
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def attention_ref_chunked(q, k, v, *, causal=True, window=0, scale=None,
+                          q_chunk=1024):
+    """``attention_ref`` over query chunks of ``q_chunk`` rows, chunk i at
+    ``q_offset = i * q_chunk`` as the reference places it; the whole at
+    once when S is not a multiple of the chunk."""
+    S = q.shape[2]
+    qc = min(q_chunk, S)
+    if S % qc:
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    return torch.cat([attention_ref(q[:, :, i:i + qc], k, v, causal=causal,
+                                    window=window, scale=scale, q_offset=i)
+                      for i in range(0, S, qc)], dim=2)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """Plain online-softmax attention, KV tile by KV tile (see the module
+    docstring).  Returns (B, H, S, D) in q's type."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = float(D ** -0.5) if scale is None else float(scale)
+    dev = q.device
+    qf = (q.to(torch.float32) * scale).reshape(B, Hkv, rep, S, D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    m = torch.full((B, Hkv, rep, S, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, rep, S, D), dtype=torch.float32, device=dev)
+    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=dev)
+    for j0 in range(0, T, _BLOCK_K):
+        kt, vt = kf[:, :, j0:j0 + _BLOCK_K], vf[:, :, j0:j0 + _BLOCK_K]
+        s = torch.einsum("bkrsd,bktd->bkrst", qf, kt)
+        mask = _mask(S, T, T - S, causal, window,
+                     torch.arange(j0, j0 + kt.shape[2], device=dev), dev)
+        if mask is not None:
+            s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkrst,bktd->bkrsd", p, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """Attention forward, dispatched by the device of ``q``.
+
+    q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32
+    or bfloat16 on the card), D in {64, 128} on the card.  Returns (B, H,
+    S, D) in q's type.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: no kernel for {q.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"flash_attention: head dim {D} is not 64 or 128")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
+    if -(-S // 64) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention: {S} query rows exceed the grid")
+    _build.check("q", q, q.dtype, (B, H, S, D))
+    _build.check("k", k, q.dtype, (B, Hkv, T, D))
+    _build.check("v", v, q.dtype, (B, Hkv, T, D))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+    scale = float(D ** -0.5) if scale is None else float(scale)
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    err = lib.flash_attention_launch(
+        *[_build.ptr(x) for x in (q, k, v, out)], B, H, Hkv, S, T, D,
+        int(q.dtype == torch.bfloat16), int(causal), int(window), scale,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention launch failed: {_build.error_string(err)}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,97 @@
+"""Attention (``kernels/flash_attention.py``) against JAX's reference.
+
+The same q, k and v, built once in numpy (bfloat16 inputs rounded once by
+JAX and handed to torch bit for bit), go through JAX's
+``ref.attention_ref`` and through the port's ``ops.flash_attention`` on
+CPU tensors (its plain version, ``flash_attention_ref``) and the port's
+``attention_ref``, at ``atol`` 2e-5 in float32 and 2e-2 in bfloat16.  JAX's
+``flash_attention_pallas`` cannot run with the installed JAX (it calls
+``pltpu.TPUCompilerParams``, which JAX 0.9 does not have), so JAX's dense
+reference is the oracle, as it is for the JAX package's own kernel test.
+The cases are that test's (MHA, GQA 4:1, S < T, D = 128, windows 32 and
+128, non-causal) plus a ragged S = T = 200.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from repro.kernels import ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 attention_ref_chunked)
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(shape_q, shape_kv, dtype, seed):
+    """(jax q, k, v), (torch q, k, v): the same values in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in (shape_q, shape_kv, shape_kv)]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    if dtype == "float32":
+        tx = [torch.from_numpy(a) for a in arrs]
+    else:
+        tx = [torch.from_numpy(np.asarray(j).view(np.int16).copy())
+              .view(torch.bfloat16) for j in jx]
+    return jx, tx
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _check(jx, tx, dtype, **kw):
+    want = ref.attention_ref(*jx, **kw)
+    before = ops.launch_counts()
+    got = ops.flash_attention(*tx, **kw)
+    assert ops.launch_counts() == before         # CPU tensors: plain version
+    dense = attention_ref(*tx, **kw)
+    assert got.dtype == dense.dtype == tx[0].dtype
+    assert got.shape == tx[0].shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype])
+    np.testing.assert_allclose(_f32(dense), _f32(want), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,T,D",
+    [
+        (1, 4, 4, 128, 128, 64),     # MHA square
+        (2, 8, 2, 128, 128, 64),     # GQA 4:1
+        (1, 4, 4, 64, 256, 64),      # S < T: q_offset = T - S
+        (1, 2, 1, 256, 256, 128),    # D = 128
+        (1, 4, 2, 200, 200, 64),     # ragged: a partial KV tile
+    ])
+def test_flash_attention_matches_jax(B, H, Hkv, S, T, D, dtype):
+    jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + H)
+    _check(jx, tx, dtype, causal=True)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_flash_attention_sliding_window_matches_jax(window):
+    jx, tx = _inputs((1, 2, 256, 64), (1, 2, 256, 64), "float32", window)
+    _check(jx, tx, "float32", causal=True, window=window)
+
+
+def test_flash_attention_noncausal_matches_jax():
+    jx, tx = _inputs((1, 2, 128, 64), (1, 2, 128, 64), "float32", 1)
+    _check(jx, tx, "float32", causal=False)
+
+
+def test_flash_attention_window_with_offset_matches_jax():
+    """A window and S < T together, with GQA."""
+    jx, tx = _inputs((1, 4, 72, 64), (1, 2, 200, 64), "float32", 9)
+    _check(jx, tx, "float32", causal=True, window=50)
+
+
+def test_attention_ref_chunked_matches_jax():
+    jx, tx = _inputs((1, 4, 256, 64), (1, 2, 256, 64), "float32", 3)
+    want = ref.attention_ref_chunked(*jx, causal=True, window=96, q_chunk=64)
+    got = attention_ref_chunked(*tx, causal=True, window=96, q_chunk=64)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5)

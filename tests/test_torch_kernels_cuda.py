@@ -6,13 +6,22 @@ and ``tests/test_torch_updates.py``: whole walks and segment walks
 (deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed uniforms, a
 ragged batch; segments on a relay view with spread start steps),
 per-step samples (base 2/4 × fp on/off × gathered rows / in-place
-``rows``, degree-0 rows in the batch) and update rounds (insert/delete/mixed × the five config rows, chained, plus a batch
-wider than 2·C).  A CUDA kernel has no CPU mode, so these tests carry the
-``cuda`` marker and skip where there is no card.  The file imports
+``rows``, degree-0 rows in the batch) and update rounds
+(insert/delete/mixed × the five config rows, chained, plus a batch wider
+than 2·C); the radix histogram (K 4/16/31 × C 8/256, degrees 0 and C
+present) and batched alias tables (K 2/5/16/17/33, empty and
+single-entry rows), bit for bit; flash attention at ``chip_smoke.py``'s
+phase-2 cases and limit (``FLASH_CASES``, ``FLASH_TOL``), which must also
+reject the kernel one tile off at the band's edge.  A CUDA kernel has no
+CPU mode, so these tests carry the ``cuda`` marker and skip where there
+is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,9 +32,16 @@ from repro_torch.core import dyngraph as tdg
 from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
 from repro_torch.distributed.relay import relay_view
+from repro_torch.kernels.alias_build import alias_build_ref
+from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.radix_hist import radix_hist_ref
 from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
 from repro_torch.kernels.walk_sample import (walk_sample_ref,
                                             walk_sample_uniform_ref)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import (FLASH_CASES, flash_excess, flash_inputs,  # noqa: E402
+                        shifted_window)
 
 pytestmark = pytest.mark.cuda
 
@@ -234,6 +250,69 @@ def test_update_kernel_batch_wider_than_twice_capacity():
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+@pytest.mark.parametrize("C", [8, 256])
+@pytest.mark.parametrize("K", [4, 16, 31])
+def test_radix_hist_kernel_equals_plain(K, C):
+    rng = np.random.default_rng(K * C)
+    V = 4096
+    bias = rng.integers(0, 1 << K, (V, C)).astype(np.int32)
+    deg = rng.integers(0, C + 1, V).astype(np.int32)
+    deg[:2] = 0, C
+    bias, deg = torch.from_numpy(bias).cuda(), torch.from_numpy(deg).cuda()
+    before = ops.launch_counts()["radix_hist"]
+    got = ops.radix_hist(bias, deg, num_k=K)
+    assert ops.launch_counts()["radix_hist"] == before + 1
+    want = radix_hist_ref(bias, deg, K)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("K", [2, 5, 16, 17, 33])
+def test_alias_build_kernel_equals_plain(K):
+    rng = np.random.default_rng(K)
+    V = 4096
+    w = (rng.random((V, K)) * rng.integers(1, 100, (V, K))).astype(np.float32)
+    w[0] = 0.0                                   # an empty row
+    w[1, 1:] = 0.0                               # a single-entry row
+    w = torch.from_numpy(w).cuda()
+    before = ops.launch_counts()["alias_build"]
+    got = ops.alias_build(w)
+    assert ops.launch_counts()["alias_build"] == before + 1
+    want = alias_build_ref(w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_attention_kernel_equals_plain(case):
+    B, H, Hkv, S, T, D, dtype, causal, window = case
+    q, k, v = flash_inputs(case, S + T + H)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert flash_excess(got, want, dtype) <= 1
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_attention_limit_rejects_a_tile_shift(case):
+    """The limit is tight enough to fail the kernel one KV tile off at the
+    band's edge."""
+    B, H, Hkv, S, T, D, dtype, causal, window = case
+    q, k, v = flash_inputs(case, S + T + H)
+    fault = ops.flash_attention(q, k, v, causal=causal,
+                                window=shifted_window(T, window))
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert flash_excess(fault, want, dtype) > 1
+
+
 def test_cuda_tensors_never_take_the_plain_path():
     """A CUDA state goes to the kernels: the launch counters move."""
     st, cfg = _state(16, 32, False, 1)
@@ -253,6 +332,11 @@ def test_cuda_tensors_never_take_the_plain_path():
     zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
     ops.walk_segment(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
                      None, zeros, zeros, 1, length=4)
+    ops.radix_hist(st.bias, st.deg, num_k=cfg.num_radix)
+    ops.alias_build(st.itable.prob)
+    q = torch.randn((1, 2, 8, 64), device="cuda")
+    ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
     assert ops.launch_counts() == {"walk_fused": 1, "walk_segment": 1,
                                    "update_fused": 1, "walk_sample": 1,
-                                   "walk_sample_uniform": 1}
+                                   "walk_sample_uniform": 1, "radix_hist": 1,
+                                   "alias_build": 1, "flash_attention": 1}
