@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) and print the build time and the card's name and
-   power limit.
+   source, in parallel) and print the build time, ptxas's register and
+   spill lines and the card's name and power limit; census of the
+   tensor-core attention's library (``sm90_census``): no spill stores, and
+   HGMMA and UTMALDG instructions in its SASS.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
@@ -18,14 +20,18 @@ Phases (any failure exits non-zero and prints no result line):
    base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
    holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256 and
    ``alias_build`` over K 2/5/16/17/33 (degrees 0 and C, empty and
-   single-entry rows); ``flash_attention`` against its plain version
-   entry by entry at ``FLASH_TOL`` (2e-5 in float32, plus 2^-7 of the
-   value in bfloat16), and the kernel one tile off at the band's edge
-   (``shifted_window``) against the same limit, which must reject it,
-   over ``FLASH_CASES``: GQA 4:1 at
-   Mixtral 8x7B's widths with its 4096 window at S = T = 8192 in bf16, a
-   causal f32 D = 64 case, S = 512 < T = 8192, a ragged S = T = 1000 and
-   a non-causal batch of two.
+   single-entry rows); ``flash_attention`` over ``FLASH_CASES``, each case
+   through the kernel of its type (float32: ``flash_attention.cu``,
+   bfloat16: ``flash_attention_sm90.cu``, the launch counters show which),
+   at its limit (``flash_limit``: float32 entry by entry within 2e-5 of
+   the plain version; bfloat16 row by row against the all-f32
+   ``flash_attention_ref32``, at most twice the plain bf16 algorithm's
+   error plus 2^-7 of the row's largest value, ``FLASH_ROW``), and the
+   kernel one tile off at the band's edge (``shifted_window``) against the
+   same limit, which must reject it: GQA 4:1 at Mixtral 8x7B's widths with
+   its 4096 window at S = T = 8192 in bf16, D = 64 causal in f32 and
+   bf16, S = 512 < T = 8192 in both, a ragged S = T = 1000 in bf16 and a
+   non-causal batch of two in both.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -60,18 +66,21 @@ Phases (any failure exits non-zero and prints no result line):
    (deepwalk overlapped through the engine and again bulk, ppr and simple
    overlapped), its home blocks equal to the single-device paths bit for
    bit, the counters zeroed just before each batch and read just after.
-   Then one rank over NCCL runs the same deepwalk batch, and times the
-   whole-walk and the segment kernels on it in turns.
+   Then each gloo rank replays the four batches untimed through a
+   backend that records the work of each segment launch
+   (``SegmentWork``), giving a bound per launch beside the time of the
+   same launch.  Then one rank over NCCL runs the same deepwalk batch,
+   and times the whole-walk and the segment kernels on it in turns.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
-   D = 128, bf16) over one 32,768-token sequence (``prefill_32k``): the
-   4096 window, then full causal, the counters zeroed just before and
-   read just after; 256 query rows of each output held against the dense
-   ``attention_ref`` in f32, the whole output against
-   ``flash_attention_ref``, both at ``FLASH_TOL``, which must reject the
-   planted fault of phase 2 at this size; kernel times (median of 3), the
-   FLOP bound at the dense bf16 tensor-core rate, and
-   ``scaled_dot_product_attention`` on the same tensors as the library
-   yardstick (a boolean mask for the window).
+   D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
+   4096 window and full causal, in f32 the window, the counters zeroed
+   just before and read just after; 256 query rows of each output held
+   against the dense ``attention_ref`` in f32 and the whole output
+   against the plain version, at the limits of phase 2, which must reject
+   the planted fault at this size; kernel times (median of 3), the FLOP
+   bound (bf16 at the dense tensor-core rate, f32 at the float32 rate),
+   and ``scaled_dot_product_attention`` on the same tensors as the
+   library yardstick (a boolean mask for the window).
 4. Times on the card (CUDA events): each kernel at the main path's shapes
    and its plain version, whose outputs are held against the main path's
    whole batches (deepwalk, ppr and simple paths; the state after round
@@ -124,11 +133,21 @@ FLASH_CASES = [
     (1, 8, 2, 512, 8192, 128, "float32", True, 0),          # S < T
     (1, 4, 2, 1000, 1000, 64, "bfloat16", True, 300),       # ragged
     (2, 4, 1, 1536, 1536, 128, "float32", False, 0),        # non-causal
+    (2, 4, 1, 1536, 1536, 128, "bfloat16", False, 0),       # non-causal
+    (1, 8, 2, 512, 8192, 128, "bfloat16", True, 0),         # S < T
+    (1, 8, 2, 2048, 2048, 64, "bfloat16", True, 0),         # D = 64 causal
 ]
-# |kernel - plain| <= atol + rtol * |plain|, entry by entry: float32 to
-# its accumulation order, bfloat16 to that and one rounding step of the
-# output (a bfloat16 step is at most 2^-7 of the value)
+# float32: |kernel - plain| <= atol + rtol * |plain|, entry by entry, to
+# the accumulation order.  The bfloat16 entry is the limit of the CUDA-core
+# bf16 kernel this repository had before the tensor-core one; it is read
+# for the record only
 FLASH_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-5, 2.0 ** -7)}
+# bfloat16, row by row against the all-float32 algorithm (ref32): for each
+# query row, max_d |kernel - ref32| <= k * max_d |plain16 - ref32| + step *
+# max_d |ref32|: no less accurate than the plain bf16 algorithm (P rounded
+# to bf16, as the tensor cores take it) twice over, plus one bf16 output
+# step at the row's scale
+FLASH_ROW = (2.0, 2.0 ** -7)
 # phase 3e: Mixtral 8x7B's attention (configs/mixtral_8x7b.py) over one
 # prefill_32k sequence (configs/shapes.py)
 ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM = 32, 8, 4096 // 32
@@ -461,6 +480,44 @@ def flash_excess(got, want, dtype):
     return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
 
 
+def flash_row_excess(got, plain, ref32):
+    """Largest share of the bf16 limit ``FLASH_ROW`` over the query rows:
+    ``max_d |got - ref32|`` over ``k * max_d |plain - ref32| + step *
+    max_d |ref32|``; the limit holds where it is at most 1."""
+    k, step = FLASH_ROW
+    r = ref32.float()
+    err = (got.float() - r).abs().amax(-1)
+    lim = k * (plain.float() - r).abs().amax(-1) + step * r.abs().amax(-1)
+    return float((err / lim.clamp_min(1e-30)).max())
+
+
+def flash_refs(q, k, v, causal, window):
+    """``(plain, ref32)``: the plain version of the kernel of q's type and,
+    for bfloat16, the all-float32 algorithm (None for float32)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_ref,
+                                                     flash_attention_ref32)
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    ref32 = flash_attention_ref32(q, k, v, causal=causal, window=window) \
+        if q.dtype == torch.bfloat16 else None
+    return plain, ref32
+
+
+def flash_limit(got, plain, ref32):
+    """Share of its limit that ``got`` reaches: entry by entry at
+    ``FLASH_TOL`` against the plain version in float32 (``ref32`` None),
+    row by row at ``FLASH_ROW`` against ``ref32`` in bfloat16."""
+    if ref32 is None:
+        return flash_excess(got, plain, "float32")
+    return flash_row_excess(got, plain, ref32)
+
+
+def flash_route(dtype):
+    """The launch counter of the kernel that takes ``dtype`` (a
+    ``FLASH_CASES`` type name)."""
+    return "flash_attention_sm90" if dtype == "bfloat16" else "flash_attention"
+
+
 def shifted_window(T, window):
     """The window of a planted fault: the band's lower edge one 64-key tile
     off (``window + 64``) or, with no window, the first tile cut from the
@@ -479,34 +536,81 @@ def flash_inputs(case, seed):
 
 
 def check_flash_kernel(rng):
-    """``flash_attention`` against ``flash_attention_ref`` over
-    ``FLASH_CASES`` at ``FLASH_TOL``, and a planted fault (the kernel at
+    """``flash_attention`` over ``FLASH_CASES``, each case through the
+    kernel of its type (the launch counters show which), held at its limit
+    (``flash_limit``), and a planted fault (the kernel at
     ``shifted_window``) against the same limit, which must reject it.
-    Returns, per case, the max abs error and its share of the limit, then
-    the planted fault's."""
+    Returns, per case, the max abs difference from the plain version, the
+    share of the limit, the fault's two, and in bf16 the readings of the
+    old entry-by-entry ``FLASH_TOL`` (kernel, fault) against the plain
+    version."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_ref
     errs = []
     for case in FLASH_CASES:
         B, H, Hkv, S, T, D, dtype, causal, window = case
         q, k, v = flash_inputs(case, int(rng.integers(2**31)))
+        route = flash_route(dtype)
+        before = ops.launch_counts()
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
         fault = ops.flash_attention(q, k, v, causal=causal,
                                     window=shifted_window(T, window))
-        err = float((got.float() - want.float()).abs().max())
-        fault_err = float((fault.float() - want.float()).abs().max())
-        excess = flash_excess(got, want, dtype)
-        fault_excess = flash_excess(fault, want, dtype)
+        after = ops.launch_counts()
+        need(after[route] == before[route] + 2
+             and sum(after.values()) == sum(before.values()) + 2,
+             f"flash_attention ({case}): launches {before} -> {after}")
+        plain, ref32 = flash_refs(q, k, v, causal, window)
+        err = float((got.float() - plain.float()).abs().max())
+        fault_err = float((fault.float() - plain.float()).abs().max())
+        excess = flash_limit(got, plain, ref32)
+        fault_excess = flash_limit(fault, plain, ref32)
         need(got.dtype == q.dtype and bool(torch.isfinite(got).all())
              and excess <= 1,
              f"flash_attention != plain ({case}): max abs {err}, "
              f"{excess:.3f} of the limit")
         need(fault_excess > 1, f"flash_attention ({case}): the limit passes a "
              f"kernel one tile off ({fault_excess:.3f} of it)")
-        errs.append((err, excess, fault_err, fault_excess))
+        old = None if ref32 is None else (flash_excess(got, plain, dtype),
+                                          flash_excess(fault, plain, dtype))
+        errs.append({"case": list(case), "max_abs_err": err, "excess": excess,
+                     "fault_max_abs_err": fault_err,
+                     "fault_excess": fault_excess, "old_tol_excess": old})
     return errs
+
+
+def sm90_census():
+    """What nvcc made of the tensor-core attention: per instantiation,
+    ptxas's registers and spill stores (from this run's build log; from
+    ``cuobjdump -res-usage``'s REG and LOCAL when the library was built
+    before), all spills 0; and in ``cuobjdump -sass`` of the library the
+    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions, both
+    non-zero."""
+    import re
+    from repro_torch.kernels import _build
+
+    def dump(flag):
+        return subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
+             str(_build._lib_path("flash_attention_sm90"))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+    log = _build.BUILD_LOG.get("flash_attention_sm90")
+    if log is not None:
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+    else:
+        res = dump("-res-usage")
+        regs = re.findall(r"REG:(\d+)", res)
+        spills = re.findall(r"LOCAL:(\d+)", res)
+    sass = dump("-sass")
+    census = {"registers": [int(x) for x in regs],
+              "spill_stores": [int(x) for x in spills],
+              "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+    print(f"flash_attention_sm90 census: {census}", flush=True)
+    need(len(spills) == len(regs) > 0 and not any(census["spill_stores"]),
+         f"flash_attention_sm90: spill stores {census}")
+    need(census["HGMMA"] > 0 and census["UTMALDG"] > 0,
+         f"flash_attention_sm90: no wgmma or no TMA load in the SASS {census}")
+    return census
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1120,6 +1224,27 @@ def segment_work(path, frontier, deg, uniform):
             "exits": int(ex.sum())}
 
 
+class SegmentWork:
+    """A backend that launches each relay segment through ``bk`` and then
+    records the work the launch needed (``segment_work``, with host
+    syncs): for an untimed replay of a relay batch, whose launches are
+    the timed run's, one for one."""
+
+    def __init__(self, bk, uniform):
+        self.bk, self.uniform, self.works = bk, uniform, []
+
+    def __getattr__(self, name):
+        return getattr(self.bk, name)
+
+    def sample_walk_segment(self, state, cfg, starts, t0, seed, params,
+                            u=None, wid=None):
+        path, frontier = self.bk.sample_walk_segment(
+            state, cfg, starts, t0, seed, params, u=u, wid=wid)
+        self.works.append(segment_work(path, frontier, state.deg,
+                                       self.uniform))
+        return path, frontier
+
+
 def relay_batches(cfg):
     """The sharded phase's walk batches: (name, params, overlap)."""
     from repro_torch.core.walks import WalkParams
@@ -1175,6 +1300,7 @@ def sharded_path(engine, cfg, starts, stream, report):
         need(len({(b["rounds"], b["overflow"], b["peak_slots"])
                   for b in per}) == 1, f"relay {name}: ranks disagree")
         seg = sorted(x for b in per for x in b["segment_ms"])
+        lb = sorted(x for b in per for x in b["bound_ms"])
         exch = sorted(x for b in per for x in b["exchange_ms"])
         red = sorted(x for b in per for x in b["reduce_ms"])
         b0 = per[0]
@@ -1184,6 +1310,10 @@ def sharded_path(engine, cfg, starts, stream, report):
             peak_slots=b0["peak_slots"], wall_s=max(b["wall_s"] for b in per),
             launches=sum(b["launches"] for b in per),
             segment_ms_median=seg[len(seg) // 2], segment_ms_max=seg[-1],
+            segment_ms_sum=sum(seg), bound_ms_median=lb[len(lb) // 2],
+            bound_ms_sum=sum(lb),
+            over_1ms=[x for x in seg if x >= 1.0],
+            pairs=[list(zip(b["segment_ms"], b["bound_ms"])) for b in per],
             exchange_ms_median=exch[len(exch) // 2],
             exchange_ms_mean=statistics.mean(exch),
             reduce_ms_median=red[len(red) // 2],
@@ -1193,11 +1323,23 @@ def sharded_path(engine, cfg, starts, stream, report):
               f"overflow {o['overflow']}, peak slots {o['peak_slots']}, wall "
               f"{o['wall_s']:.3f} s; walk_segment {o['launches']} launches, "
               f"median {o['segment_ms_median']:.4f} ms (max "
-              f"{o['segment_ms_max']:.3f}); exchange per round median "
+              f"{o['segment_ms_max']:.3f}, sum {o['segment_ms_sum']:.2f}; "
+              f"{len(o['over_1ms'])} launches of 1 ms or more, sum "
+              f"{sum(o['over_1ms']):.2f}), bound per launch median "
+              f"{o['bound_ms_median']:.5f} ms (sum {o['bound_ms_sum']:.3f}); "
+              f"exchange per round median "
               f"{o['exchange_ms_median']:.2f} ms, mean "
               f"{o['exchange_ms_mean']:.2f} ms; closing all-reduce median "
               f"{o['reduce_ms_median']:.2f} ms, mean {o['reduce_ms_mean']:.2f} "
               f"ms; home blocks equal to the single-device paths", flush=True)
+    batches = out["batches"].values()
+    gap = sum(o["segment_ms_sum"] - o["bound_ms_sum"] for o in batches)
+    gap_med = sum(o["launches"] * (o["segment_ms_median"] - o["bound_ms_median"])
+                  for o in batches)
+    out["segment_gap_ms"], out["segment_gap_median_ms"] = gap, gap_med
+    print(f"walk_segment over the {launches} gloo relay launches: sum of "
+          f"(ms - bound) per launch {gap:.2f} ms; launches x (median ms - "
+          f"median bound), by batch, {gap_med:.2f} ms", flush=True)
     n1 = nccl[0]["batches"]["deepwalk"]
     launches += n1["launches"]
     out["nccl_deepwalk"] = n1
@@ -1336,6 +1478,19 @@ def shard_rank(rank, n, backend, tmp):
                 "exchange_ms": [1e3 * x["exchange_s"] for x in trace],
                 "reduce_ms": [1e3 * x["reduce_s"] for x in trace]}
             del home
+        if n == exp["shards"]:      # each launch's bound, on a replay
+            for name, params, overlap in batches:
+                kind = name.split()[0]
+                rec = SegmentWork(bk, kind == "simple")
+                home = make_relay(rec, cfg, params, group, overlap=overlap)(
+                    engine.state, starts, exp["walks"][kind]["seed"])[0]
+                b = res["batches"][name]
+                need(len(rec.works) == b["launches"] and digest([home]) ==
+                     exp["walks"][kind]["blocks"][rank],
+                     f"rank {rank} {name}: the replay differs")
+                b["bound_ms"] = [bound(w["bytes"], w["ops"])[0]
+                                 for w in rec.works]
+                del home
         if rank == 0 and n > 1:
             res["timing"] = segment_timing(engine.state, starts, Vs, n)
         elif n == 1:
@@ -1561,64 +1716,84 @@ def sdpa_ms(q, k, v, **kw):
 
 def attention_phase(report):
     """Phase 3e: flash attention at Mixtral 8x7B's attention widths over
-    one 32,768-token sequence, windowed and full causal.  Returns the
-    kernel's line (the full-causal case, beside SDPA's ``is_causal``)."""
+    one 32,768-token sequence: bf16 windowed and full causal (the
+    tensor-core kernel), then f32 windowed (the CUDA-core kernel).
+    Returns the two kernels' lines (bf16: the full-causal case beside
+    SDPA's ``is_causal``; f32: the window beside SDPA with a mask)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     flash_attention_ref32)
     H, Hkv, D, S = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ
     g = torch.Generator(device="cuda").manual_seed(11)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    bf = tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
                for shape in ((1, H, S, D), (1, Hkv, S, D), (1, Hkv, S, D)))
-    cases = (("window", ATTN_WINDOW), ("causal", 0))
+    f32 = tuple(x.float() for x in bf)
+    cases = (("window", ATTN_WINDOW, bf), ("causal", 0, bf),
+             ("window f32", ATTN_WINDOW, f32))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    outs = {name: ops.flash_attention(q, k, v, causal=True, window=w)
-            for name, w in cases}
+    outs = {name: ops.flash_attention(*x, causal=True, window=w)
+            for name, w, x in cases}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"attention S=T={S}, launches: {counts}", flush=True)
-    need(counts["flash_attention"] == 2 and sum(counts.values()) == 2,
-         f"phase 3e launches {counts}")
-    kf, vf = k.float(), v.float()
+    need(counts["flash_attention_sm90"] == 2 and counts["flash_attention"] == 1
+         and sum(counts.values()) == 3, f"phase 3e launches {counts}")
+    kf, vf = f32[1], f32[2]
     blocks = [min(a, S - 64) for a in           # 4 x 64 rows
               (0, ATTN_WINDOW - 32, S // 2 + 320, S - 64)]
 
-    def dense_excess(o, w):
-        """``o``'s 256 sampled rows against the dense ``attention_ref``."""
-        return max(flash_excess(o[:, :, a:a + 64], attention_ref(
-            q[:, :, a:a + 64].float(), kf, vf, causal=True, window=w,
-            q_offset=a), "bfloat16") for a in blocks)
+    def dense_excess(o, plain, w):
+        """``o``'s 256 sampled rows against the dense ``attention_ref`` in
+        f32: entry by entry in f32, row by row (with ``plain``) in bf16."""
+        worst = 0.0
+        for a in blocks:
+            rows = slice(a, a + 64)
+            dense = attention_ref(f32[0][:, :, rows], kf, vf, causal=True,
+                                  window=w, q_offset=a)
+            worst = max(worst, flash_excess(o[:, :, rows], dense, "float32")
+                        if o.dtype == torch.float32 else flash_row_excess(
+                            o[:, :, rows], plain[:, :, rows], dense))
+        return worst
 
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     out = {}
-    for name, w in cases:
+    for name, w, (q, k, v) in cases:
         o = outs.pop(name)
         need(o.shape == q.shape and o.dtype == q.dtype
              and bool(torch.isfinite(o).all()), f"attention {name}: output")
         fault = ops.flash_attention(q, k, v, causal=True,
                                     window=shifted_window(S, w))
-        dense, dense_fault = dense_excess(o, w), dense_excess(fault, w)
+        ms, _ = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    window=w))
+        plain_ms, plain = cuda_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, window=w), reps=1)
+        ref32 = flash_attention_ref32(q, k, v, causal=True, window=w) \
+            if q.dtype == torch.bfloat16 else None
+        dense, dense_fault = dense_excess(o, plain, w), \
+            dense_excess(fault, plain, w)
         need(dense <= 1 < dense_fault, f"attention {name}: 256 rows vs "
              f"attention_ref at {dense:.3f} of the limit, the planted fault "
              f"at {dense_fault:.3f}")
-        ms, _ = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                    window=w))
-        plain_ms, want = cuda_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, window=w), reps=1)
-        err = float((o.float() - want.float()).abs().max())
-        fault_err = float((fault.float() - want.float()).abs().max())
-        excess = flash_excess(o, want, "bfloat16")
-        fault_excess = flash_excess(fault, want, "bfloat16")
-        del want, fault
-        need(excess <= 1 < fault_excess, f"attention {name}: kernel vs plain "
-             f"max abs {err}, {excess:.3f} of the limit, the planted fault at "
-             f"{fault_excess:.3f}")
+        err = float((o.float() - plain.float()).abs().max())
+        fault_err = float((fault.float() - plain.float()).abs().max())
+        excess = flash_limit(o, plain, ref32)
+        fault_excess = flash_limit(fault, plain, ref32)
+        old = None if ref32 is None else (
+            flash_excess(o, plain, "bfloat16"),
+            flash_excess(fault, plain, "bfloat16"))
+        del plain, ref32, fault
+        need(excess <= 1 < fault_excess, f"attention {name}: kernel at "
+             f"{excess:.3f} of the limit (max abs vs plain {err}), the "
+             f"planted fault at {fault_excess:.3f}")
+        is16 = q.dtype == torch.bfloat16
         pairs = H * attention_pairs(S, S, True, w)
         flops = 4 * D * pairs
-        b_ms = max(flops / TC_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        b_by = "operations" if flops / TC_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S \
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        rate = TC_BF16_FLOPS if is16 else OPS_PER_S
+        b_ms = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        b_by = "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S \
             else "bytes"
         try:        # the yardstick: a library fault does not fail the smoke
             if w:
@@ -1634,36 +1809,50 @@ def attention_phase(report):
         except Exception as e:              # noqa: BLE001
             traceback.print_exc()
             lib_ms, lib_err, how = None, None, f"no time: {e!r}"[:300]
-        out[name] = {"window": w, "ms": ms, "plain_ms": plain_ms,
-                     "max_abs_err": err, "excess": excess,
-                     "fault_max_abs_err": fault_err,
-                     "fault_excess": fault_excess, "dense_rows_excess": dense,
+        out[name] = {"window": w, "dtype": str(q.dtype), "ms": ms,
+                     "plain_ms": plain_ms, "max_abs_err": err,
+                     "excess": excess, "fault_max_abs_err": fault_err,
+                     "fault_excess": fault_excess, "old_tol_excess": old,
+                     "dense_rows_excess": dense,
                      "dense_rows_fault_excess": dense_fault,
                      "pairs": pairs, "flops": flops, "bytes": nbytes,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "share_of_bound": b_ms / ms, "library_ms": lib_ms,
                      "library": how, "library_vs_kernel_err": lib_err,
                      "tflops": flops / ms / 1e9}
         print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={Hkv}, D={D}, "
-              f"bf16, window {w}): {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s), {pairs / 1e9:.3f} G pairs -> bound {b_ms:.3f} ms "
-              f"({b_by}, {flops / 1e12:.3f} TFLOP at the bf16 tensor-core "
-              f"rate); plain {plain_ms:.1f} ms, max abs {err:.5f}; share of "
-              f"the limit vs plain {excess:.3f} (planted fault: max abs "
-              f"{fault_err:.5f}, {fault_excess:.1f} of the limit), 256 rows "
-              f"vs dense attention_ref {dense:.3f} (fault {dense_fault:.1f}); "
-              f"sdpa "
+              f"{'bf16' if is16 else 'f32'}, window {w}): {ms:.3f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % of "
+              f"the bound), {pairs / 1e9:.3f} G pairs -> bound {b_ms:.3f} ms "
+              f"({b_by}, {flops / 1e12:.3f} TFLOP at "
+              f"{rate / 1e12:.0f} TFLOP/s); plain {plain_ms:.1f} ms, max abs "
+              f"{err:.5f}; share of the limit {excess:.3f} (planted fault: "
+              f"max abs {fault_err:.5f}, {fault_excess:.1f} of the limit), "
+              f"256 rows vs dense attention_ref {dense:.3f} (fault "
+              f"{dense_fault:.1f})"
+              + ("" if old is None else f"; old FLASH_TOL vs plain (record "
+                 f"only) {old[0]:.3f}, fault {old[1]:.1f}")
+              + f"; sdpa "
               f"{'not timed' if lib_ms is None else f'{lib_ms:.3f} ms'} "
               f"({how}, vs kernel {lib_err})", flush=True)
         del o
     report["attention"] = out
-    c = out["causal"]
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:102",
-            "launches": counts["flash_attention"],
-            "max_abs_err": max(x["max_abs_err"] for x in out.values()),
-            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+
+    def line(name, source, route, pipe, case, names):
+        c = out[case]
+        return {"name": name, "route": route, "pipe": pipe,
+                "source": source,
+                "replaces": "src/repro/kernels/flash_attention.py:102",
+                "launches": counts[name],
+                "max_abs_err": max(out[n]["max_abs_err"] for n in names),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": c["library_ms"]}
+    return [line("flash_attention_sm90",
+                 "src/repro_torch/csrc/flash_attention_sm90.cu", "cuda",
+                 "wgmma", "causal", ("window", "causal")),
+            line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                 "cuda", "fma", "window f32", ("window f32",))]
 
 
 def profiled(fn, trace, what, keep=True):
@@ -1748,8 +1937,10 @@ def main():
     report["build_s"] = secs
     print(f"built {list(_build.SOURCES)} in {secs:.1f} s", flush=True)
     for name, log in _build.BUILD_LOG.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln
+                or "spill" in ln]
         print(f"  {name}: {'; '.join(regs)}", flush=True)
+    report["sm90"] = sm90_census()
     card = card_line()
     report["card"] = card
     torch.cuda.init()
@@ -1770,9 +1961,15 @@ def main():
           f"{ng} cases, update_fused {nu} rounds, walk_sample and "
           f"walk_sample_uniform {ns} cases each, radix_hist and alias_build "
           f"{nt} cases; flash_attention {len(fa_errs)} cases within "
-          f"its limit (max abs and share of the limit; the planted fault's: "
-          f"{['%.2e %.3f; %.2e %.1f' % e for e in fa_errs]}) "
-          f"({report['check_s']:.1f} s)", flush=True)
+          f"its limit ({report['check_s']:.1f} s)", flush=True)
+    for e in fa_errs:
+        old = e["old_tol_excess"]
+        print(f"  flash_attention {e['case']}: max abs vs plain "
+              f"{e['max_abs_err']:.2e}, {e['excess']:.3f} of the limit; "
+              f"planted fault {e['fault_max_abs_err']:.2e}, "
+              f"{e['fault_excess']:.1f} of it"
+              + ("" if old is None else f"; old FLASH_TOL (record only): "
+                 f"{old[0]:.3f}, fault {old[1]:.1f}"), flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
     kernels, engine, cfg, starts, stream = main_path(args, report)
@@ -1788,7 +1985,7 @@ def main():
     del engine
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    kernels.append(attention_phase(report))
+    kernels += attention_phase(report)
     report["attention_s"] = time.perf_counter() - t0
     print(f"attention phase: {report['attention_s']:.1f} s", flush=True)
     report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30

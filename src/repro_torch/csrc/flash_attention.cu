@@ -2,19 +2,20 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (causal, sliding-window or non-causal GQA attention
-// with an online softmax).  Plain version:
+// with an online softmax) for float32 inputs; bfloat16 inputs go to the
+// tensor-core kernel of csrc/flash_attention_sm90.cu.  Plain version:
 // repro_torch/kernels/flash_attention.py:flash_attention_ref, which runs the
 // same algorithm tile by tile; the two agree to float rounding (the dot
 // products sum in another order), not bit for bit, so this source is built
 // without -fmad=false.
 //
-// q (B, H, S, D), k and v (B, Hkv, T, D), all float32 or all bfloat16; out
-// (B, H, S, D) in q's type; D in {64, 128}; H a multiple of Hkv.  Query row i
-// sits at position qpos = i + T - S; key kpos is seen when kpos < T, kpos <=
-// qpos (causal) and kpos > qpos - window (window > 0).
+// q (B, H, S, D), k and v (B, Hkv, T, D), all float32; out (B, H, S, D)
+// float32; D in {64, 128}; H a multiple of Hkv.  Query row i sits at
+// position qpos = i + T - S; key kpos is seen when kpos < T, kpos <= qpos
+// (causal) and kpos > qpos - window (window > 0).
 //
 // Design: one block of 8 warps per (b * H + h, 64-row query tile).  The query
-// tile, cast to float32 and scaled, stays in shared memory; K and V tiles of
+// tile, scaled, stays in shared memory; K and V tiles of
 // 64 x D stream through shared memory (K rows padded by 4 floats, so that a
 // warp's 16-byte row reads fall in distinct banks).  Warp w owns query rows
 // 8w..8w+7: lane j scores keys j and j + 32 of the tile for its 8 rows, the
@@ -30,13 +31,12 @@
 // valid key at all is outside the contract (the reference gives NaN there).
 //
 // Bound on this card: operations.  4 D float operations per unmasked
-// (query, key) pair, at the dense bf16 tensor-core rate; the bytes (q, k, v
-// and out once) are far below.  This kernel uses no tensor core: it runs on
-// the float32 pipes, and each score and output update is a shared-memory
-// read per multiply-add or two.  wgmma with TMA-fed tiles is later work.
+// (query, key) pair, at the float32 rate outside the tensor cores (TF32
+// would weaken the float32 contract); the bytes (q, k, v and out once) are
+// far below.  Each score and output update is a shared-memory read per
+// multiply-add or two.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,21 +58,7 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
   o[3] = x.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
-}
-
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = kWarp / 2; o > 0; o /= 2) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -93,10 +79,10 @@ struct Tiles {
   static constexpr size_t kBytes = kFloats * sizeof(float);
 };
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int H,
                        int Hkv, int S, int Tk, int causal, int window,
                        float scale) {
   constexpr int kChunks = D / 4;          // 4-element chunks per row
@@ -114,9 +100,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & (kWarp - 1);
   const int r0 = (tid / kWarp) * kRows;
-  const T* qb = q + static_cast<size_t>(bh) * S * D;
-  const T* kb = k + static_cast<size_t>(kvh) * Tk * D;
-  const T* vb = v + static_cast<size_t>(kvh) * Tk * D;
+  const float* qb = q + static_cast<size_t>(bh) * S * D;
+  const float* kb = k + static_cast<size_t>(kvh) * Tk * D;
+  const float* vb = v + static_cast<size_t>(kvh) * Tk * D;
 
   for (int c = tid; c < kBlockQ * kChunks; c += kThreads) {
     const int r = c / kChunks, d = (c % kChunks) * 4;
@@ -220,26 +206,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRows; ++r) {
     const int row = i0 + r0 + r;
     if (row >= S) continue;
-    T* o = out + (static_cast<size_t>(bh) * S + row) * D;
+    float* o = out + (static_cast<size_t>(bh) * S + row) * D;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < kCols; ++i) store1(o + lane + i * kWarp, acc[r][i] / den);
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
            int Hkv, int S, int Tk, int causal, int window, float scale,
            cudaStream_t stream) {
   const size_t shmem = Tiles<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D, T>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(shmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(B) * H, (S + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<D, T><<<grid, kThreads, shmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, S, Tk, causal, window, scale);
+  flash_attention_kernel<D><<<grid, kThreads, shmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, S, Tk,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -247,17 +234,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int H, int Hkv, int S,
-                                      int Tk, int D, int is_bf16, int causal,
-                                      int window, float scale,
-                                      cudaStream_t stream) {
+                                      int Tk, int D, int causal, int window,
+                                      float scale, cudaStream_t stream) {
   if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
-  if (D == 64)
-    return is_bf16 ? launch<64, __nv_bfloat16>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream)
-                   : launch<64, float>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
-  return is_bf16 ? launch<128, __nv_bfloat16>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream)
-                 : launch<128, float>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
+  return D == 64 ? launch<64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream)
+                 : launch<128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
 }
 
 extern "C" const char* kernels_error_string(int code) {

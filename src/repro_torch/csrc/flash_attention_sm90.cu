@@ -1,0 +1,479 @@
+// Flash-attention forward on Hopper's tensor cores (sm_90a), bfloat16.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py:
+// flash_attention_pallas (causal, sliding-window or non-causal GQA attention
+// with an online softmax) for bfloat16 inputs; float32 inputs keep the CUDA-core
+// kernel of csrc/flash_attention.cu.  Plain version:
+// repro_torch/kernels/flash_attention.py:flash_attention_ref on bfloat16
+// tensors (``_plain16``), which rounds where this kernel rounds: the scores
+// are float32 sums of bfloat16 products, p = exp2(s * scale * log2(e) - m) in
+// float32, l sums the float32 p, P is rounded to bfloat16 before P V, and P V
+// accumulates in float32, over KV tiles of kBlockK keys.  The two differ in
+// the order of the float32 sums only.
+//
+// q (B, H, S, D), k and v (B, Hkv, T, D), bfloat16; out (B, H, S, D)
+// bfloat16; D in {64, 128}; H a multiple of Hkv.  Query row i sits at
+// position qpos = i + T - S; key kpos is seen when kpos < T, kpos <= qpos
+// (causal) and kpos > qpos - window (window > 0).
+//
+// Design.  One block per (b * H + h, 128-row query tile), heaviest tiles
+// first: two consumer warpgroups of 64 query rows each and one producer
+// warp.  The producer's first lane loads the query tile once and streams K
+// and V tiles of kBlockK x D through a ring of kStages stages with TMA
+// (cp.async.bulk.tensor, 3-D maps over (D, T, B * Hkv), so a ragged tail
+// reads zeros and never the next head), 128-byte swizzled in 64-column
+// panels; each stage has a K barrier, a V barrier and an "empty" barrier
+// that every consumer thread arrives on once it is done with the stage.
+// A consumer warpgroup computes S = Q K^T with wgmma m64n128k16 (Q and K
+// read from shared memory, K-major), keeps S in registers, applies the mask
+// only on tiles that cross the band's edge or T, runs the online softmax in
+// the exp2 domain with the scale folded into the exponent (q is never
+// rounded after scaling), rounds P to bfloat16 in registers (the
+// accumulator's fragment is the A operand's register fragment) and
+// accumulates O += P V with wgmma m64nDk16, V read from shared memory
+// MN-major through the transpose bit.  m and l stay in registers; l is the
+// sum of the float32 p.  The epilogue writes acc / max(l, 1e-30) for rows
+// < S.  KV tiles wholly outside the causal/window band are skipped, which
+// is exact (see csrc/flash_attention.cu).
+//
+// Bound on this card: operations, 4 D FLOPs per unmasked (query, key) pair
+// at the dense bf16 tensor-core rate.  What this first tensor-core version
+// leaves: each warpgroup waits for its own S product before the softmax and
+// for P V before the next tile (no ping-pong between the two warpgroups, no
+// overlap of softmax and wgmma inside one), the producer warp keeps its
+// full register allocation (no setmaxnreg), and blocks are not persistent.
+
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockQ = 128;              // query rows per block
+constexpr int kBlockK = 128;              // keys per K/V tile
+constexpr int kStages = 2;                // K/V ring depth
+constexpr int kConsumers = 256;           // two warpgroups
+constexpr int kThreads = kConsumers + 32; // and the producer warp
+constexpr int kPanel = 64;                // bf16 columns of a 128-byte panel
+constexpr float kNegInf = -1e30f;
+constexpr int kEncodeFailed = -1;         // returned when a tensor map fails
+
+template <int D>
+struct Smem {
+  static constexpr int kPanels = D / kPanel;
+  static constexpr int kQPanel = kBlockQ * 128;       // bytes of a Q panel
+  static constexpr int kKPanel = kBlockK * 128;       // bytes of a K or V panel
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kTile = kPanels * kKPanel;     // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  // barriers: Q, K full x kStages, V full x kStages, empty x kStages; and
+  // room to round the dynamic base up to 1024 bytes (the swizzle's period)
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte swizzled operand: start address, leading
+// byte offset (the next 64-column panel of an MN-major operand), stride byte
+// offset (the next group of 8 rows), layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma's asynchronous window.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define D8(i)                                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define D32 D8(0), D8(8), D8(16), D8(24)
+#define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31}"
+#define R64                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63}"
+
+// S (64 x 128, f32) (+)= A (64 x 16) B (16 x 128): A and B from shared
+// memory, both K-major; the sum starts from zero unless ``accumulate``.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N): B from shared
+// memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
+      : D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef D8
+#undef D32
+#undef D64
+#undef R32
+#undef R64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                            int S, int Tk, int causal, int window,
+                            float scale_log2) {
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages,
+                 bar_e = bar_v + 8 * kStages;     // + 8 * stage
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int warp = threadIdx.x / 32;
+
+  // the KV tiles that meet the band of this query tile
+  const int off = Tk - S;
+  const int last = min(i0 + kBlockQ, S) - 1;
+  const int kend = causal ? min(Tk, last + off + 1) : Tk;
+  const int kbeg = window > 0 ? max(0, i0 + off - window + 1) : 0;
+  const int t_lo = kbeg / kBlockK;
+  const int t_hi = kend > kbeg ? (kend + kBlockK - 1) / kBlockK : t_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {          // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int p = 0; p < L::kPanels; ++p)
+        tma_load(sQ + p * L::kQPanel, &tm_q, bar_q, p * kPanel, i0, bh);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int it = t - t_lo, s = it % kStages;
+        if (it >= kStages) mbar_wait(bar_e + 8 * s, (it / kStages - 1) & 1);
+        mbar_expect_tx(bar_k + 8 * s, L::kTile);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load(sK + s * L::kTile + p * L::kKPanel, &tm_k, bar_k + 8 * s,
+                   p * kPanel, t * kBlockK, kvh);
+        mbar_expect_tx(bar_v + 8 * s, L::kTile);
+        for (int p = 0; p < L::kPanels; ++p)
+          tma_load(sV + s * L::kTile + p * L::kKPanel, &tm_v, bar_v + 8 * s,
+                   p * kPanel, t * kBlockK, kvh);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup wg holds query rows 64 wg .. 64 wg + 63 of the tile;
+  // this thread holds rows r and r + 8 and, of each 8-column block, columns
+  // 2 (lane % 4) and the next
+  const int wg = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int row = i0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int qpos[2] = {row + off, row + 8 + off};
+  const int col = 2 * (lane % 4);
+  const uint32_t q_rows = sQ + wg * 64 * 128;
+
+  float o[D / 2];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int it = t - t_lo, s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int j0 = t * kBlockK;
+
+    // S = Q K^T over D / 16 steps of 16
+    float sc[64];
+    mbar_wait(bar_k + 8 * s, parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t step = (kk % 4) * 32;   // 16 columns into the panel
+      const uint64_t da = sw128_desc(q_rows + (kk / 4) * L::kQPanel + step, 16, 1024);
+      const uint64_t db =
+          sw128_desc(sK + s * L::kTile + (kk / 4) * L::kKPanel + step, 16, 1024);
+      wgmma_ss_n128(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // scale into the exp2 domain; mask only a tile that crosses the band's
+    // edge or the end of the keys
+    const bool edge = j0 + kBlockK > Tk || (causal && j0 + kBlockK - 1 > i0 + off) ||
+                      (window > 0 && j0 <= last + off - window);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float x = sc[i] * scale_log2;
+      if (edge) {
+        const int kpos = j0 + 8 * (i / 4) + col + (i & 1);
+        const int qp = qpos[(i >> 1) & 1];
+        const bool ok = kpos < Tk && (!causal || kpos <= qp) &&
+                        (window <= 0 || kpos > qp - window);
+        if (!ok) x = kNegInf;
+      }
+      sc[i] = x;
+    }
+
+    // online softmax of rows r (h = 0) and r + 8 (h = 1)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float corr[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]));
+      corr[h] = exp2f(m[h] - mn);
+      m[h] = mn;
+    }
+    uint32_t pa[32];     // P in bf16: the A fragments of the 8 steps of P V
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = exp2f(sc[i] - m[h]);
+      const float p1 = exp2f(sc[i + 1] - m[h]);
+      psum[h] += p0 + p1;
+      pa[i / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V over kBlockK / 16 steps of 16 keys
+    mbar_wait(bar_v + 8 * s, parity);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const uint64_t db = sw128_desc(sV + s * L::kTile + kk * 16 * 128, L::kKPanel, 1024);
+      wgmma_rs(o, pa + 4 * kk, db);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(bar_e + 8 * s);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) den[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    __nv_bfloat16* dst = out + (static_cast<size_t>(bh) * S + r) * D + col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[4 * n + 2 * h] / den[h], o[4 * n + 2 * h + 1] / den[h]);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, through the runtime (no link against libcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                     12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over (D, rows, heads) bf16, read in boxes of 64 columns x
+// ``box_rows`` rows of one head, 128-byte swizzled; reads past ``rows`` fill
+// zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
+              int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kPanel),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
+           int Hkv, int S, int Tk, int causal, int window, float scale_log2,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, S, B * H, kBlockQ) ||
+      !make_map(&tk, k, D, Tk, B * Hkv, kBlockK) ||
+      !make_map(&tv, v, D, Tk, B * Hkv, kBlockK))
+    return kEncodeFailed;
+  const size_t shmem = Smem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_sm90_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(shmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(B) * H, (S + kBlockQ - 1) / kBlockQ);
+  flash_attention_sm90_kernel<D><<<grid, kThreads, shmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, Hkv, S, Tk, causal, window,
+      scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
+                                           const void* v, void* out, int B, int H,
+                                           int Hkv, int S, int Tk, int D,
+                                           int causal, int window,
+                                           float scale_log2, cudaStream_t stream) {
+  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
+  if (Tk == 0)        // no key: every row is 0 / max(0, 1e-30)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(B) * H * S * D * sizeof(__nv_bfloat16), stream));
+  return D == 64 ? launch<64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                              scale_log2, stream)
+                 : launch<128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                               scale_log2, stream);
+}
+
+extern "C" const char* kernels_error_string(int code) {
+  if (code == kEncodeFailed) return "cuTensorMapEncodeTiled failed";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -11,8 +11,8 @@ build raises; there is no fallback.
 kernels' float results must equal their plain PyTorch versions bit for
 bit, whatever the compiler would contract.  The sources in ``CONTRACTED``
 are held to their plain versions at a stated tolerance instead, and are
-built without it: flash attention's dot-product loops run 1.29x faster
-fused on an H100 (``tools/flash_fmad_ab.py``).
+built without it: the float32 flash attention's dot-product loops ran
+1.29x faster fused on an H100 (PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -31,10 +31,10 @@ __all__ = ["SOURCES", "build_all", "library", "error_string", "ptr",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("walk_fused", "update_fused", "walk_sample", "radix_hist",
-           "alias_build", "flash_attention")
+           "alias_build", "flash_attention", "flash_attention_sm90")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CONTRACTED = ("flash_attention",)
+CONTRACTED = ("flash_attention", "flash_attention_sm90")
 
 # Signatures of the C entry points: (argtypes, restype).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,7 +54,10 @@ _SIGNATURES = {
     "radix_hist": {"radix_hist_launch": ([_P] * 4 + [_I] * 3 + [_P], _I)},
     "alias_build": {"alias_build_launch": ([_P] * 3 + [_I] * 2 + [_P], _I)},
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 4 + [_I] * 9 + [_F, _P], _I),
+        "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
+    },
+    "flash_attention_sm90": {
+        "flash_attention_sm90_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
     },
 }
 
@@ -149,8 +152,10 @@ def check(name: str, x, dtype, shape) -> None:
         raise ValueError(f"{name} must be a contiguous CUDA tensor")
 
 
-def error_string(code: int) -> str:
-    """``cudaGetErrorString`` of a code returned by a launch."""
-    for lib in _LIBS.values():
-        return f"{code} ({lib.kernels_error_string(code).decode()})"
-    return str(code)
+def error_string(code: int, name: str | None = None) -> str:
+    """The message of a code returned by a launch: ``cudaGetErrorString``,
+    or the message of the library ``name`` for its own codes."""
+    lib = _LIBS.get(name) or next(iter(_LIBS.values()), None)
+    if lib is None:
+        return str(code)
+    return f"{code} ({lib.kernels_error_string(code).decode()})"

@@ -1,4 +1,4 @@
-"""Attention forward: the dense reference, the flash algorithm, its kernel.
+"""Attention forward: the dense reference, the flash algorithm, its kernels.
 
 Port of ``repro/kernels/flash_attention.py`` (``flash_attention_pallas``)
 and of the oracles ``kernels/ref.py:attention_ref`` and
@@ -10,33 +10,45 @@ and, with ``window > 0``, fewer than ``window`` positions before it.
 
 - ``attention_ref``: dense softmax attention through a grouped einsum
   (no repeated KV), masked logits at -inf, as the reference computes it.
-- ``flash_attention_ref``: the plain version of the kernel, the same
-  online-softmax algorithm: KV tiles of 64 in order, vectorised over all
-  query rows, float32 accumulation, masked scores at -1e30, the output
-  ``acc / max(l, 1e-30)`` in q's type.  q is cast to float32 and then
-  scaled, as the Pallas body does.
+- ``flash_attention_ref32``: the online-softmax algorithm all in float32
+  whatever the input type: KV tiles of 64 in order, vectorised over all
+  query rows, masked scores at -1e30, q cast to float32 and then scaled,
+  as the Pallas body does; returns float32.  It is the plain version of
+  the float32 kernel and the float32 reference a bfloat16 output is held
+  against.
+- ``flash_attention_ref``: the plain version of the kernel of the input's
+  type: ``flash_attention_ref32`` in q's type for float32, and for
+  bfloat16 the tensor-core kernel's roundings (``_plain16``): KV tiles of
+  128, scores as float32 sums of the bfloat16 products, the scale folded
+  into an exp2, l summed from the float32 p, P rounded to bfloat16 before
+  P V, which sums in float32.
 - ``flash_attention``: the wrapper.  CPU tensors run
   ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
-  (D in {64, 128}, float32 or bfloat16) and count the launch in
-  ``flash_attention.launches``.  Kernel and plain version agree entry by
-  entry to float rounding: within 2e-5 in float32, and that plus one
-  rounding step of the output (2^-7 of the value) in bfloat16.
+  (float32, CUDA cores, counted in ``flash_attention.launches``) or
+  ``csrc/flash_attention_sm90.cu`` (bfloat16, wgmma, counted in
+  ``flash_attention_sm90.launches``), D in {64, 128}.  The float32 kernel
+  agrees with its plain version entry by entry within 2e-5; a bfloat16
+  output is held row by row against ``flash_attention_ref32`` (the limit
+  is ``chip_smoke.py``'s ``flash_row_excess``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["attention_ref", "attention_ref_chunked",
+__all__ = ["attention_ref", "attention_ref_chunked", "flash_attention_ref32",
            "flash_attention_ref", "flash_attention"]
 
-_BLOCK_K = 64                # KV tile of the kernel and of its plain version
+_BLOCK_K = 64                # KV tile of the float32 kernel and of ref32
+_BLOCK_K16 = 128             # KV tile of the bfloat16 kernel and of _plain16
+_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}   # query rows a block
 _NEG_INF = -1e30
-_MAX_Q_TILES = 65535         # the kernel's grid height, in 64-row query tiles
+_MAX_Q_TILES = 65535         # the kernels' grid height, in query tiles
 
 
 def _mask(S: int, T: int, q_offset: int, causal: bool, window: int,
@@ -94,9 +106,9 @@ def attention_ref_chunked(q, k, v, *, causal=True, window=0, scale=None,
                       for i in range(0, S, qc)], dim=2)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """Plain online-softmax attention, KV tile by KV tile (see the module
-    docstring).  Returns (B, H, S, D) in q's type."""
+def flash_attention_ref32(q, k, v, *, causal=True, window=0, scale=None):
+    """Plain online-softmax attention in float32, KV tile by KV tile (see
+    the module docstring).  Returns (B, H, S, D) float32."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -123,12 +135,57 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
         acc = acc * corr + torch.einsum("bkrst,bktd->bkrsd", p, vt)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(B, H, S, D).to(q.dtype)
+    return out.reshape(B, H, S, D)
+
+
+def _plain16(q, k, v, causal, window, scale):
+    """The bfloat16 kernel's algorithm (see the module docstring); returns
+    (B, H, S, D) bfloat16."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    dev = q.device
+    c = torch.tensor(scale * math.log2(math.e), dtype=torch.float32,
+                     device=dev)
+    qf = q.to(torch.float32).reshape(B, Hkv, rep, S, D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    m = torch.full((B, Hkv, rep, S, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, rep, S, D), dtype=torch.float32, device=dev)
+    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=dev)
+    for j0 in range(0, T, _BLOCK_K16):
+        kt, vt = kf[:, :, j0:j0 + _BLOCK_K16], vf[:, :, j0:j0 + _BLOCK_K16]
+        s = torch.einsum("bkrsd,bktd->bkrst", qf, kt) * c
+        mask = _mask(S, T, T - S, causal, window,
+                     torch.arange(j0, j0 + kt.shape[2], device=dev), dev)
+        if mask is not None:
+            s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p16 = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * corr + torch.einsum("bkrst,bktd->bkrsd", p16, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(B, H, S, D).to(torch.bfloat16)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """The plain version of the kernel of q's type (see the module
+    docstring).  Returns (B, H, S, D) in q's type."""
+    if q.dtype == torch.bfloat16:
+        D = q.shape[-1]
+        scale = float(D ** -0.5) if scale is None else float(scale)
+        return _plain16(q, k, v, causal, window, scale)
+    return flash_attention_ref32(q, k, v, causal=causal, window=window,
+                                 scale=scale).to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
-    """Attention forward, dispatched by the device of ``q``.
+    """Attention forward, dispatched by the device and type of ``q``.
 
     q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32
     or bfloat16 on the card), D in {64, 128} on the card.  Returns (B, H,
@@ -141,13 +198,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in _BLOCK_Q:
         raise ValueError(f"flash_attention: no kernel for {q.dtype}")
     if D not in (64, 128):
         raise ValueError(f"flash_attention: head dim {D} is not 64 or 128")
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
-    if -(-S // 64) > _MAX_Q_TILES:
+    if -(-S // _BLOCK_Q[q.dtype]) > _MAX_Q_TILES:
         raise ValueError(f"flash_attention: {S} query rows exceed the grid")
     _build.check("q", q, q.dtype, (B, H, S, D))
     _build.check("k", k, q.dtype, (B, Hkv, T, D))
@@ -156,11 +213,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
     scale = float(D ** -0.5) if scale is None else float(scale)
+    if q.dtype == torch.bfloat16:
+        return flash_attention_sm90(q, k, v, causal=causal, window=window,
+                                    scale=scale)
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     err = lib.flash_attention_launch(
         *[_build.ptr(x) for x in (q, k, v, out)], B, H, Hkv, S, T, D,
-        int(q.dtype == torch.bfloat16), int(causal), int(window), scale,
+        int(causal), int(window), scale,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError(
@@ -169,4 +229,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def flash_attention_sm90(q, k, v, *, causal: bool, window: int, scale: float):
+    """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 CUDA tensors that
+    ``flash_attention`` has checked; the bfloat16 route's launch count."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention_sm90")
+    err = lib.flash_attention_sm90_launch(
+        *[_build.ptr(x) for x in (q, k, v, out)], B, H, Hkv, S, T, D,
+        int(causal), int(window), scale * math.log2(math.e),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError("flash_attention (sm90) launch failed: "
+                           f"{_build.error_string(err, 'flash_attention_sm90')}")
+    flash_attention_sm90.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_sm90.launches = 0

@@ -9,7 +9,8 @@ there is no fallback, and a failed build raises.
 from __future__ import annotations
 
 from repro_torch.kernels.alias_build import alias_build
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_sm90)
 from repro_torch.kernels.radix_hist import radix_hist
 from repro_torch.kernels.update_fused import update_fused
 from repro_torch.kernels.walk_fused import walk_fused, walk_segment
@@ -23,7 +24,8 @@ _WRAPPERS = {"walk_fused": walk_fused, "walk_segment": walk_segment,
              "update_fused": update_fused, "walk_sample": walk_sample,
              "walk_sample_uniform": walk_sample_uniform,
              "radix_hist": radix_hist, "alias_build": alias_build,
-             "flash_attention": flash_attention}
+             "flash_attention": flash_attention,
+             "flash_attention_sm90": flash_attention_sm90}
 
 
 def launch_counts() -> dict:

@@ -9,8 +9,15 @@ CPU tensors (its plain version, ``flash_attention_ref``) and the port's
 ``pltpu.TPUCompilerParams``, which JAX 0.9 does not have), so JAX's dense
 reference is the oracle, as it is for the JAX package's own kernel test.
 The cases are that test's (MHA, GQA 4:1, S < T, D = 128, windows 32 and
-128, non-causal) plus a ragged S = T = 200.
+128, non-causal) plus a ragged S = T = 200.  In bfloat16 the plain
+version is the tensor-core kernel's algorithm (``_plain16``); the
+all-float32 ``flash_attention_ref32`` is held at 2e-5 in float32, and
+``chip_smoke.py``'s row-wise bfloat16 limit must pass the plain bfloat16
+algorithm and reject it one KV tile off at the band's edge.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,7 +28,12 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 attention_ref_chunked)
+                                                 attention_ref_chunked,
+                                                 flash_attention_ref,
+                                                 flash_attention_ref32)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import flash_row_excess, shifted_window  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -95,3 +107,52 @@ def test_attention_ref_chunked_matches_jax():
     want = ref.attention_ref_chunked(*jx, causal=True, window=96, q_chunk=64)
     got = attention_ref_chunked(*tx, causal=True, window=96, q_chunk=64)
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5)
+
+
+PLAIN_CASES = [   # (B, H, Hkv, S, T, D, causal, window): the file's cases
+    (1, 4, 4, 128, 128, 64, True, 0),        # MHA square
+    (2, 8, 2, 128, 128, 64, True, 0),        # GQA 4:1
+    (1, 4, 4, 64, 256, 64, True, 0),         # S < T
+    (1, 2, 1, 256, 256, 128, True, 0),       # D = 128
+    (1, 4, 2, 200, 200, 64, True, 0),        # ragged: a partial KV tile
+    (1, 2, 2, 256, 256, 64, True, 32),       # windows
+    (1, 2, 2, 256, 256, 64, True, 128),
+    (1, 4, 2, 72, 200, 64, True, 50),        # a window with S < T and GQA
+    (1, 2, 2, 128, 128, 64, False, 0),       # non-causal
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PLAIN_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_plain_versions_match_jax(case, dtype):
+    """Against JAX's dense reference at the file's atol: in bf16 the
+    tensor-core kernel's plain version (P rounded to bf16 before P V, the
+    scale folded into exp2, KV tiles of 128); in f32 the all-f32
+    ``flash_attention_ref32``, the reference a bf16 output is held
+    against."""
+    B, H, Hkv, S, T, D, causal, window = case
+    jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + H)
+    want = ref.attention_ref(*jx, causal=causal, window=window)
+    plain = flash_attention_ref if dtype == "bfloat16" else \
+        flash_attention_ref32
+    got = plain(*tx, causal=causal, window=window)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 0)])
+def test_bf16_limit_rejects_a_tile_shift(causal, window):
+    """``chip_smoke.py``'s row-wise bf16 limit: the plain bf16 algorithm
+    passes it against the f32 reference, and the same algorithm run with
+    its window one tile off at the band's edge (``shifted_window``)
+    fails it."""
+    B, H, Hkv, S, T, D = 1, 4, 2, 256, 256, 64
+    _, (q, k, v) = _inputs((B, H, S, D), (B, Hkv, T, D), "bfloat16", 7)
+    plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+    ref32 = flash_attention_ref32(q, k, v, causal=causal, window=window)
+    fault = flash_attention_ref(q, k, v, causal=causal,
+                                window=shifted_window(T, window))
+    assert flash_row_excess(plain, plain, ref32) <= 1
+    assert flash_row_excess(fault, plain, ref32) > 1

@@ -11,8 +11,9 @@ per-step samples (base 2/4 × fp on/off × gathered rows / in-place
 than 2·C); the radix histogram (K 4/16/31 × C 8/256, degrees 0 and C
 present) and batched alias tables (K 2/5/16/17/33, empty and
 single-entry rows), bit for bit; flash attention at ``chip_smoke.py``'s
-phase-2 cases and limit (``FLASH_CASES``, ``FLASH_TOL``), which must also
-reject the kernel one tile off at the band's edge.  A CUDA kernel has no
+phase-2 cases and limits (``FLASH_CASES``; ``flash_limit``: ``FLASH_TOL``
+in f32, the row-wise ``FLASH_ROW`` in bf16), which must also reject the
+kernel one tile off at the band's edge.  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -33,15 +34,14 @@ from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
 from repro_torch.distributed.relay import relay_view
 from repro_torch.kernels.alias_build import alias_build_ref
-from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.radix_hist import radix_hist_ref
 from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
 from repro_torch.kernels.walk_sample import (walk_sample_ref,
                                             walk_sample_uniform_ref)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (FLASH_CASES, flash_excess, flash_inputs,  # noqa: E402
-                        shifted_window)
+from chip_smoke import (FLASH_CASES, flash_inputs, flash_limit,  # noqa: E402
+                        flash_refs, flash_route, shifted_window)
 
 pytestmark = pytest.mark.cuda
 
@@ -289,15 +289,19 @@ def test_alias_build_kernel_equals_plain(K):
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_flash_attention_kernel_equals_plain(case):
+    """The kernel of the case's type (f32: CUDA cores, bf16: wgmma) within
+    its limit: entry by entry against the plain version in f32, row by
+    row against the all-f32 algorithm in bf16."""
     B, H, Hkv, S, T, D, dtype, causal, window = case
     q, k, v = flash_inputs(case, S + T + H)
-    before = ops.launch_counts()["flash_attention"]
+    route = flash_route(dtype)
+    before = ops.launch_counts()[route]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert ops.launch_counts()["flash_attention"] == before + 1
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert ops.launch_counts()[route] == before + 1
+    plain, ref32 = flash_refs(q, k, v, causal, window)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
-    assert flash_excess(got, want, dtype) <= 1
+    assert flash_limit(got, plain, ref32) <= 1
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
@@ -309,8 +313,8 @@ def test_flash_attention_limit_rejects_a_tile_shift(case):
     q, k, v = flash_inputs(case, S + T + H)
     fault = ops.flash_attention(q, k, v, causal=causal,
                                 window=shifted_window(T, window))
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    assert flash_excess(fault, want, dtype) > 1
+    plain, ref32 = flash_refs(q, k, v, causal, window)
+    assert flash_limit(fault, plain, ref32) > 1
 
 
 def test_cuda_tensors_never_take_the_plain_path():
@@ -336,7 +340,10 @@ def test_cuda_tensors_never_take_the_plain_path():
     ops.alias_build(st.itable.prob)
     q = torch.randn((1, 2, 8, 64), device="cuda")
     ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    q = q.to(torch.bfloat16)
+    ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
     assert ops.launch_counts() == {"walk_fused": 1, "walk_segment": 1,
                                    "update_fused": 1, "walk_sample": 1,
                                    "walk_sample_uniform": 1, "radix_hist": 1,
-                                   "alias_build": 1, "flash_attention": 1}
+                                   "alias_build": 1, "flash_attention": 1,
+                                   "flash_attention_sm90": 1}
