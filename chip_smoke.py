@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
    source, in parallel) and print the build time, ptxas's register and
    spill lines and the card's name and power limit; census of the
    tensor-core attention's library (``sm90_census``): no spill stores, and
-   HGMMA and UTMALDG instructions in its SASS.
+   HGMMA and UTMALDG instructions in its SASS; census of the walk kernels'
+   five instantiations (``walk_census``): registers, no spill stores, and
+   the resident blocks per SM (what the persistent grids are sized by).
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
@@ -30,8 +32,10 @@ Phases (any failure exits non-zero and prints no result line):
    kernel one tile off at the band's edge (``shifted_window``) against the
    same limit, which must reject it: GQA 4:1 at Mixtral 8x7B's widths with
    its 4096 window at S = T = 8192 in bf16, D = 64 causal in f32 and
-   bf16, S = 512 < T = 8192 in both, a ragged S = T = 1000 in bf16 and a
-   non-causal batch of two in both.
+   bf16, S = 512 < T = 8192 in both, a ragged S = T = 1000 in bf16, a
+   non-causal batch of two in both, and in both types the head dims the
+   card runs zero-padded: hubert-xlarge's D = 80 (MHA, non-causal), 16
+   and 8 (the SMOKE configs'), the last with a window.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -55,6 +59,10 @@ Phases (any failure exits non-zero and prints no result line):
    touched vertices.  Each batch is checked as the main path's are, and
    the per-step deepwalk and node2vec batches against their exact
    next-vertex distributions (TV bound derived from the sample count).
+   node2vec and per-step deepwalk then run once more untimed under
+   ``torch.profiler`` (``sample_launches``): the walkers in each
+   ``walk_sample`` launch, its kernel's device time, and their sums on
+   each path.
 3c. The sharded path, before the streaming updates: the parent writes the
    graph, the 10-round stream, SHA-256 digests of the 4 vertex slices of
    the main path's final state, its per-round ``UpdateStats`` and digests
@@ -66,15 +74,17 @@ Phases (any failure exits non-zero and prints no result line):
    (deepwalk overlapped through the engine and again bulk, ppr and simple
    overlapped), its home blocks equal to the single-device paths bit for
    bit, the counters zeroed just before each batch and read just after.
-   Then each gloo rank replays the four batches untimed through a
-   backend that records the work of each segment launch
-   (``SegmentWork``), giving a bound per launch beside the time of the
-   same launch.  Then one rank over NCCL runs the same deepwalk batch,
+   Then each gloo rank replays the four batches through a backend that
+   records the work of each segment launch and its time on the card
+   alone, without the wrapper's host work (``SegmentWork``), giving a
+   bound per launch beside the times of the same launch.  Then one rank over NCCL runs the same deepwalk batch,
    and times the whole-walk and the segment kernels on it in turns.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
-   4096 window and full causal, in f32 the window, the counters zeroed
-   just before and read just after; 256 query rows of each output held
+   4096 window and full causal, in f32 the window; and at hubert-xlarge's
+   (16 heads, MHA, D = 80, zero-padded to 128 by the wrapper, non-causal)
+   in bf16 and f32; the counters zeroed just before and read just after;
+   256 query rows of each output held
    against the dense ``attention_ref`` in f32 and the whole output
    against the plain version, at the limits of phase 2, which must reject
    the planted fault at this size; kernel times (median of 3), the FLOP
@@ -136,6 +146,13 @@ FLASH_CASES = [
     (2, 4, 1, 1536, 1536, 128, "bfloat16", False, 0),       # non-causal
     (1, 8, 2, 512, 8192, 128, "bfloat16", True, 0),         # S < T
     (1, 8, 2, 2048, 2048, 64, "bfloat16", True, 0),         # D = 64 causal
+    # head dims without a kernel of their own, run zero-padded to 64 / 128
+    (1, 16, 16, 1024, 1024, 80, "bfloat16", False, 0),      # hubert-xlarge
+    (1, 16, 16, 1024, 1024, 80, "float32", False, 0),
+    (1, 4, 2, 600, 600, 16, "bfloat16", True, 0),           # xlstm SMOKE
+    (1, 4, 2, 600, 600, 16, "float32", True, 0),
+    (2, 8, 8, 512, 512, 8, "bfloat16", True, 128),          # SMOKE configs
+    (2, 8, 8, 512, 512, 8, "float32", True, 128),
 ]
 # float32: |kernel - plain| <= atol + rtol * |plain|, entry by entry, to
 # the accumulation order.  The bfloat16 entry is the limit of the CUDA-core
@@ -152,6 +169,9 @@ FLASH_ROW = (2.0, 2.0 ** -7)
 # prefill_32k sequence (configs/shapes.py)
 ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM = 32, 8, 4096 // 32
 ATTN_SEQ, ATTN_WINDOW = 32768, 4096
+# and hubert-xlarge's (configs/hubert_xlarge.py: 16 heads, MHA, d_model
+# 1280, non-causal), the same sequence
+HUBERT_HEADS, HUBERT_DIM = 16, 1280 // 16
 
 
 class SmokeFailure(RuntimeError):
@@ -174,7 +194,10 @@ def card_line():
 def cuda_ms(fn, reps=3, setup=None):
     """``(median device ms, last result)`` of ``fn()`` over ``reps`` runs
     (CUDA events; ``setup()`` runs untimed before each and its result is
-    passed to ``fn``)."""
+    passed to ``fn``).  A spin kernel of about 1 ms runs before the first
+    event, so the host enqueues ``fn``'s launches while the card is busy
+    and a kernel shorter than its wrapper's host work is timed on the
+    card alone."""
     import torch
     times, out = [], None
     for _ in range(reps):
@@ -182,6 +205,7 @@ def cuda_ms(fn, reps=3, setup=None):
         out = None
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         out = fn(arg) if setup else fn()
         b.record()
@@ -578,39 +602,98 @@ def check_flash_kernel(rng):
     return errs
 
 
-def sm90_census():
-    """What nvcc made of the tensor-core attention: per instantiation,
-    ptxas's registers and spill stores (from this run's build log; from
+def kernel_resources(name):
+    """Per kernel function of the library of ``csrc/<name>.cu``: ptxas's
+    registers and spill stores (from this run's build log; from
     ``cuobjdump -res-usage``'s REG and LOCAL when the library was built
-    before), all spills 0; and in ``cuobjdump -sass`` of the library the
-    count of HGMMA (wgmma) and UTMALDG (TMA load) instructions, both
-    non-zero."""
+    before), in the order ptxas reports them."""
     import re
     from repro_torch.kernels import _build
-
-    def dump(flag):
-        return subprocess.run(
-            [str(Path(_build._nvcc()).parent / "cuobjdump"), flag,
-             str(_build._lib_path("flash_attention_sm90"))],
-            capture_output=True, text=True, timeout=300, check=True).stdout
-    log = _build.BUILD_LOG.get("flash_attention_sm90")
+    log = _build.BUILD_LOG.get(name)
     if log is not None:
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-    else:
-        res = dump("-res-usage")
-        regs = re.findall(r"REG:(\d+)", res)
-        spills = re.findall(r"LOCAL:(\d+)", res)
-    sass = dump("-sass")
-    census = {"registers": [int(x) for x in regs],
-              "spill_stores": [int(x) for x in spills],
+        out, fn = [], None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = {"function": m.group(1)}
+                out.append(fn)
+            elif fn is not None and "spill stores" in line:
+                fn["spill_stores"] = int(re.search(r"(\d+) bytes spill stores",
+                                                   line).group(1))
+            elif fn is not None and "Used" in line and "registers" in line:
+                fn["registers"] = int(re.search(r"Used (\d+) registers",
+                                                line).group(1))
+        return out
+    res = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage",
+         str(_build._lib_path(name))], capture_output=True, text=True,
+        timeout=300, check=True).stdout
+    return [{"function": f, "registers": int(r), "spill_stores": int(lo)}
+            for f, r, lo in re.findall(
+                r"Function ([^:\s]+):\s*REG:(\d+) STACK:\d+ SHARED:\d+ "
+                r"LOCAL:(\d+)", res)]
+
+
+def sm90_census():
+    """What nvcc made of the tensor-core attention: per instantiation,
+    registers and spill stores (``kernel_resources``), all spills 0; and
+    in ``cuobjdump -sass`` of the library the count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions, both non-zero."""
+    from repro_torch.kernels import _build
+    res = kernel_resources("flash_attention_sm90")
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(_build._lib_path("flash_attention_sm90"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    census = {"registers": [x.get("registers") for x in res],
+              "spill_stores": [x.get("spill_stores") for x in res],
               "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
     print(f"flash_attention_sm90 census: {census}", flush=True)
-    need(len(spills) == len(regs) > 0 and not any(census["spill_stores"]),
+    need(res and all(x.get("spill_stores") == 0 for x in res),
          f"flash_attention_sm90: spill stores {census}")
     need(census["HGMMA"] > 0 and census["UTMALDG"] > 0,
          f"flash_attention_sm90: no wgmma or no TMA load in the SASS {census}")
     return census
+
+
+def walk_census():
+    """The walk kernels' instantiations (a tile of 16 lanes a walker; a
+    thread a walker for the whole walk's uniform pick): registers
+    and spill stores (``kernel_resources``), no spills; and the resident
+    blocks of 256 threads per SM (the libraries' occupancy entries, what
+    the persistent grids are sized by), as warps and as a share of the
+    SM's 64."""
+    import re
+    from repro_torch.kernels import _build
+    fused, sample = _build.library("walk_fused"), _build.library("walk_sample")
+    rows = []
+    for name in ("walk_fused", "walk_sample"):
+        for x in kernel_resources(name):
+            f = x["function"]
+            m = re.search(r"walk_fused_kernelILb(\d)ELi(\d+)E", f)
+            if m:
+                seg, lanes = int(m.group(1)), int(m.group(2))
+                label = (f"walk_fused<{'segment' if seg else 'whole'}, "
+                         f"{lanes} lane{'s' if lanes > 1 else ''}>")
+                blocks = fused.walk_fused_occupancy(seg, int(lanes == 1))
+            elif "walk_sample_kernel" in f:
+                label, blocks = "walk_sample", sample.walk_sample_occupancy()
+            elif "walk_sample_uniform_kernel" in f:
+                label, blocks = "walk_sample_uniform", None
+            else:
+                continue
+            rows.append(dict(x, kernel=label, blocks_per_sm=blocks,
+                             warps_per_sm=None if blocks is None else 8 * blocks,
+                             occupancy=None if blocks is None else blocks / 8))
+    for r in rows:
+        occ = "" if r["blocks_per_sm"] is None else (
+            f", {r['blocks_per_sm']} blocks/SM = {r['warps_per_sm']} warps "
+            f"({100 * r['occupancy']:.1f} % of 64)")
+        print(f"walk census: {r['kernel']}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} bytes spill stores{occ}", flush=True)
+    need(len(rows) == 5 and all(r.get("spill_stores") == 0 for r in rows),
+         f"walk kernels: census {rows}")
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1053,6 +1136,45 @@ def first_order_probs(st, cfg, v):
         0, st.nbr[v, :d].long(), p[:d].double())
 
 
+def sample_launches(fn, trace):
+    """Run ``fn()`` once under ``torch.profiler`` (device activity only),
+    each ``ops.walk_sample`` call (the per-step paths reach the kernel
+    through it) counting its walkers: per launch the walkers and the device
+    ms of its kernel (the trace's ``walk_sample_kernel`` events, in order),
+    for an untimed replay of a batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    inner, walkers = ops.walk_sample, []
+
+    def counted(*args, **kw):
+        out = inner(*args, **kw)
+        walkers.append(out[0].shape[0])
+        return out
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    ops.walk_sample = counted
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        ops.walk_sample = inner
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    trace.unlink()
+    ms = [float(e.get("dur", 0)) / 1e3 for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"
+         and "walk_sample_kernel" in e.get("name", "")),
+        key=lambda e: float(e["ts"]))]
+    need(0 < len(ms) == len(walkers), f"sample_launches: {len(ms)} kernel events "
+         f"for {len(walkers)} launches")
+    return {"launches": len(ms), "walkers": walkers, "ms": ms,
+            "walkers_sum": sum(walkers), "kernel_ms_sum": sum(ms),
+            "walkers_max": max(walkers, default=0),
+            "walkers_median": statistics.median(walkers) if ms else 0}
+
+
 def per_step_paths(engine, cfg, starts, report, profile_dir=None):
     """node2vec, per-step deepwalk and per-step simple batches through
     ``DynamicWalkEngine.walk`` on the final state, each with the launch
@@ -1131,6 +1253,18 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
             need(counts["walk_fused"] == counts["walk_sample"] == 0,
                  f"{name}: launches of other kernels")
         del p
+        if name in ("node2vec", "per-step deepwalk"):
+            # B4a's time on the paths, which the kernel queue ranks by: a
+            # trace that misses a launch fails the smoke
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+                sl = sample_launches(lambda: eng.walk(starts),
+                                     Path(d) / "trace.json")
+            print(f"{name} replay, walk_sample: {sl['launches']} "
+                  f"launches, {sl['walkers_sum']} walkers (median "
+                  f"{sl['walkers_median']}, max {sl['walkers_max']} a "
+                  f"launch), kernel {sl['kernel_ms_sum']:.3f} ms in all "
+                  f"(profiler)", flush=True)
+            out[name]["walk_sample"] = sl
         if profile_dir is not None:
             try:    # a diagnostic: a profiler fault does not fail the smoke
                 out[name]["profile"] = profiled(
@@ -1227,19 +1361,28 @@ def segment_work(path, frontier, deg, uniform):
 class SegmentWork:
     """A backend that launches each relay segment through ``bk`` and then
     records the work the launch needed (``segment_work``, with host
-    syncs): for an untimed replay of a relay batch, whose launches are
-    the timed run's, one for one."""
+    syncs) and the launch's time on the card (CUDA events behind a spin
+    kernel of about 1 ms, so the wrapper's host work is not counted, as
+    in ``cuda_ms``): for a replay of a relay batch outside its timed run,
+    whose launches are the timed run's, one for one."""
 
     def __init__(self, bk, uniform):
-        self.bk, self.uniform, self.works = bk, uniform, []
+        self.bk, self.uniform, self.works, self.events = bk, uniform, [], []
 
     def __getattr__(self, name):
         return getattr(self.bk, name)
 
     def sample_walk_segment(self, state, cfg, starts, t0, seed, params,
                             u=None, wid=None):
+        import torch
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        a.record()
         path, frontier = self.bk.sample_walk_segment(
             state, cfg, starts, t0, seed, params, u=u, wid=wid)
+        b.record()
+        self.events.append((a, b))
         self.works.append(segment_work(path, frontier, state.deg,
                                        self.uniform))
         return path, frontier
@@ -1300,6 +1443,7 @@ def sharded_path(engine, cfg, starts, stream, report):
         need(len({(b["rounds"], b["overflow"], b["peak_slots"])
                   for b in per}) == 1, f"relay {name}: ranks disagree")
         seg = sorted(x for b in per for x in b["segment_ms"])
+        rep = sorted(x for b in per for x in b["replay_ms"])
         lb = sorted(x for b in per for x in b["bound_ms"])
         exch = sorted(x for b in per for x in b["exchange_ms"])
         red = sorted(x for b in per for x in b["reduce_ms"])
@@ -1310,7 +1454,8 @@ def sharded_path(engine, cfg, starts, stream, report):
             peak_slots=b0["peak_slots"], wall_s=max(b["wall_s"] for b in per),
             launches=sum(b["launches"] for b in per),
             segment_ms_median=seg[len(seg) // 2], segment_ms_max=seg[-1],
-            segment_ms_sum=sum(seg), bound_ms_median=lb[len(lb) // 2],
+            segment_ms_sum=sum(seg), replay_ms_median=rep[len(rep) // 2],
+            replay_ms_sum=sum(rep), bound_ms_median=lb[len(lb) // 2],
             bound_ms_sum=sum(lb),
             over_1ms=[x for x in seg if x >= 1.0],
             pairs=[list(zip(b["segment_ms"], b["bound_ms"])) for b in per],
@@ -1325,7 +1470,9 @@ def sharded_path(engine, cfg, starts, stream, report):
               f"median {o['segment_ms_median']:.4f} ms (max "
               f"{o['segment_ms_max']:.3f}, sum {o['segment_ms_sum']:.2f}; "
               f"{len(o['over_1ms'])} launches of 1 ms or more, sum "
-              f"{sum(o['over_1ms']):.2f}), bound per launch median "
+              f"{sum(o['over_1ms']):.2f}); on the card alone (replay) median "
+              f"{o['replay_ms_median']:.4f} ms (sum {o['replay_ms_sum']:.2f}); "
+              f"bound per launch median "
               f"{o['bound_ms_median']:.5f} ms (sum {o['bound_ms_sum']:.3f}); "
               f"exchange per round median "
               f"{o['exchange_ms_median']:.2f} ms, mean "
@@ -1336,10 +1483,14 @@ def sharded_path(engine, cfg, starts, stream, report):
     gap = sum(o["segment_ms_sum"] - o["bound_ms_sum"] for o in batches)
     gap_med = sum(o["launches"] * (o["segment_ms_median"] - o["bound_ms_median"])
                   for o in batches)
+    gap_rep = sum(o["launches"] * (o["replay_ms_median"] - o["bound_ms_median"])
+                  for o in batches)
     out["segment_gap_ms"], out["segment_gap_median_ms"] = gap, gap_med
+    out["segment_gap_replay_ms"] = gap_rep
     print(f"walk_segment over the {launches} gloo relay launches: sum of "
           f"(ms - bound) per launch {gap:.2f} ms; launches x (median ms - "
-          f"median bound), by batch, {gap_med:.2f} ms", flush=True)
+          f"median bound), by batch, {gap_med:.2f} ms; the same on the card "
+          f"alone (replay medians) {gap_rep:.2f} ms", flush=True)
     n1 = nccl[0]["batches"]["deepwalk"]
     launches += n1["launches"]
     out["nccl_deepwalk"] = n1
@@ -1490,6 +1641,7 @@ def shard_rank(rank, n, backend, tmp):
                      f"rank {rank} {name}: the replay differs")
                 b["bound_ms"] = [bound(w["bytes"], w["ops"])[0]
                                  for w in rec.works]
+                b["replay_ms"] = [x.elapsed_time(y) for x, y in rec.events]
                 del home
         if rank == 0 and n > 1:
             res["timing"] = segment_timing(engine.state, starts, Vs, n)
@@ -1715,43 +1867,58 @@ def sdpa_ms(q, k, v, **kw):
 
 
 def attention_phase(report):
-    """Phase 3e: flash attention at Mixtral 8x7B's attention widths over
-    one 32,768-token sequence: bf16 windowed and full causal (the
-    tensor-core kernel), then f32 windowed (the CUDA-core kernel).
-    Returns the two kernels' lines (bf16: the full-causal case beside
-    SDPA's ``is_causal``; f32: the window beside SDPA with a mask)."""
+    """Phase 3e: flash attention at full width over one 32,768-token
+    sequence: Mixtral 8x7B's widths in bf16 windowed and full causal (the
+    tensor-core kernel), then f32 windowed (the CUDA-core kernel); then
+    hubert-xlarge's (16 heads, MHA, D = 80, non-causal) in bf16 and f32,
+    both run zero-padded to D = 128.  Returns the two kernels' lines
+    (bf16: Mixtral's full-causal case beside SDPA's ``is_causal``; f32: the
+    window beside SDPA with a mask)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_ref,
                                                      flash_attention_ref32)
-    H, Hkv, D, S = ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ
+    S = ATTN_SEQ
     g = torch.Generator(device="cuda").manual_seed(11)
-    bf = tuple(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-               for shape in ((1, H, S, D), (1, Hkv, S, D), (1, Hkv, S, D)))
-    f32 = tuple(x.float() for x in bf)
-    cases = (("window", ATTN_WINDOW, bf), ("causal", 0, bf),
-             ("window f32", ATTN_WINDOW, f32))
+
+    def inputs(H, Hkv, D):
+        return tuple(torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16) for shape in ((1, H, S, D), (1, Hkv, S, D),
+                                          (1, Hkv, S, D)))
+    mix = inputs(ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM)
+    hub = inputs(HUBERT_HEADS, HUBERT_HEADS, HUBERT_DIM)
+    wide = {id(mix): tuple(x.float() for x in mix),
+            id(hub): tuple(x.float() for x in hub)}
+    # (name, inputs, causal, window, float32)
+    cases = (("window", mix, True, ATTN_WINDOW, False),
+             ("causal", mix, True, 0, False),
+             ("window f32", mix, True, ATTN_WINDOW, True),
+             ("hubert", hub, False, 0, False),
+             ("hubert f32", hub, False, 0, True))
+
+    def qkv(x, f32):
+        return wide[id(x)] if f32 else x
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    outs = {name: ops.flash_attention(*x, causal=True, window=w)
-            for name, w, x in cases}
+    outs = {name: ops.flash_attention(*qkv(x, f), causal=c, window=w)
+            for name, x, c, w, f in cases}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(f"attention S=T={S}, launches: {counts}", flush=True)
-    need(counts["flash_attention_sm90"] == 2 and counts["flash_attention"] == 1
-         and sum(counts.values()) == 3, f"phase 3e launches {counts}")
-    kf, vf = f32[1], f32[2]
+    need(counts["flash_attention_sm90"] == 3 and counts["flash_attention"] == 2
+         and sum(counts.values()) == 5, f"phase 3e launches {counts}")
     blocks = [min(a, S - 64) for a in           # 4 x 64 rows
               (0, ATTN_WINDOW - 32, S // 2 + 320, S - 64)]
 
-    def dense_excess(o, plain, w):
+    def dense_excess(o, plain, x, causal, w):
         """``o``'s 256 sampled rows against the dense ``attention_ref`` in
         f32: entry by entry in f32, row by row (with ``plain``) in bf16."""
+        qf, kf, vf = wide[id(x)]
         worst = 0.0
         for a in blocks:
             rows = slice(a, a + 64)
-            dense = attention_ref(f32[0][:, :, rows], kf, vf, causal=True,
+            dense = attention_ref(qf[:, :, rows], kf, vf, causal=causal,
                                   window=w, q_offset=a)
             worst = max(worst, flash_excess(o[:, :, rows], dense, "float32")
                         if o.dtype == torch.float32 else flash_row_excess(
@@ -1759,20 +1926,22 @@ def attention_phase(report):
         return worst
 
     out = {}
-    for name, w, (q, k, v) in cases:
+    for name, x, causal, w, f32 in cases:
+        q, k, v = qkv(x, f32)
+        H, D = q.shape[1], q.shape[3]
         o = outs.pop(name)
         need(o.shape == q.shape and o.dtype == q.dtype
              and bool(torch.isfinite(o).all()), f"attention {name}: output")
-        fault = ops.flash_attention(q, k, v, causal=True,
+        fault = ops.flash_attention(q, k, v, causal=causal,
                                     window=shifted_window(S, w))
-        ms, _ = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+        ms, _ = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                     window=w))
         plain_ms, plain = cuda_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, window=w), reps=1)
-        ref32 = flash_attention_ref32(q, k, v, causal=True, window=w) \
+            q, k, v, causal=causal, window=w), reps=1)
+        ref32 = flash_attention_ref32(q, k, v, causal=causal, window=w) \
             if q.dtype == torch.bfloat16 else None
-        dense, dense_fault = dense_excess(o, plain, w), \
-            dense_excess(fault, plain, w)
+        dense, dense_fault = dense_excess(o, plain, x, causal, w), \
+            dense_excess(fault, plain, x, causal, w)
         need(dense <= 1 < dense_fault, f"attention {name}: 256 rows vs "
              f"attention_ref at {dense:.3f} of the limit, the planted fault "
              f"at {dense_fault:.3f}")
@@ -1788,7 +1957,7 @@ def attention_phase(report):
              f"{excess:.3f} of the limit (max abs vs plain {err}), the "
              f"planted fault at {fault_excess:.3f}")
         is16 = q.dtype == torch.bfloat16
-        pairs = H * attention_pairs(S, S, True, w)
+        pairs = H * attention_pairs(S, S, causal, w)
         flops = 4 * D * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         rate = TC_BF16_FLOPS if is16 else OPS_PER_S
@@ -1803,13 +1972,15 @@ def attention_phase(report):
                 lib_ms, lib = sdpa_ms(q, k, v, attn_mask=mask)
                 del mask
             else:
-                lib_ms, lib = sdpa_ms(q, k, v, is_causal=True)
+                lib_ms, lib = sdpa_ms(q, k, v, is_causal=causal)
             lib_err, how = float((lib.float() - o.float()).abs().max()), "ok"
             del lib
         except Exception as e:              # noqa: BLE001
             traceback.print_exc()
             lib_ms, lib_err, how = None, None, f"no time: {e!r}"[:300]
-        out[name] = {"window": w, "dtype": str(q.dtype), "ms": ms,
+        out[name] = {"window": w, "causal": causal, "heads": H,
+                     "kv_heads": k.shape[1], "head_dim": D,
+                     "dtype": str(q.dtype), "ms": ms,
                      "plain_ms": plain_ms, "max_abs_err": err,
                      "excess": excess, "fault_max_abs_err": fault_err,
                      "fault_excess": fault_excess, "old_tol_excess": old,
@@ -1820,15 +1991,16 @@ def attention_phase(report):
                      "share_of_bound": b_ms / ms, "library_ms": lib_ms,
                      "library": how, "library_vs_kernel_err": lib_err,
                      "tflops": flops / ms / 1e9}
-        print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={Hkv}, D={D}, "
-              f"{'bf16' if is16 else 'f32'}, window {w}): {ms:.3f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % of "
-              f"the bound), {pairs / 1e9:.3f} G pairs -> bound {b_ms:.3f} ms "
-              f"({b_by}, {flops / 1e12:.3f} TFLOP at "
-              f"{rate / 1e12:.0f} TFLOP/s); plain {plain_ms:.1f} ms, max abs "
-              f"{err:.5f}; share of the limit {excess:.3f} (planted fault: "
-              f"max abs {fault_err:.5f}, {fault_excess:.1f} of the limit), "
-              f"256 rows vs dense attention_ref {dense:.3f} (fault "
+        print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={k.shape[1]}, "
+              f"D={D}, {'bf16' if is16 else 'f32'}, "
+              f"{'causal' if causal else 'non-causal'}, window {w}): "
+              f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * b_ms / ms:.1f} % of the bound), {pairs / 1e9:.3f} G "
+              f"pairs -> bound {b_ms:.3f} ms ({b_by}, {flops / 1e12:.3f} "
+              f"TFLOP at {rate / 1e12:.0f} TFLOP/s); plain {plain_ms:.1f} ms, "
+              f"max abs {err:.5f}; share of the limit {excess:.3f} (planted "
+              f"fault: max abs {fault_err:.5f}, {fault_excess:.1f} of the "
+              f"limit), 256 rows vs dense attention_ref {dense:.3f} (fault "
               f"{dense_fault:.1f})"
               + ("" if old is None else f"; old FLASH_TOL vs plain (record "
                  f"only) {old[0]:.3f}, fault {old[1]:.1f}")
@@ -1838,9 +2010,10 @@ def attention_phase(report):
         del o
     report["attention"] = out
 
-    def line(name, source, route, pipe, case, names):
+    def line(name, source, pipe, case):
         c = out[case]
-        return {"name": name, "route": route, "pipe": pipe,
+        names = [n for n, _, _, _, f in cases if f == (name == "flash_attention")]
+        return {"name": name, "route": "cuda", "pipe": pipe,
                 "source": source,
                 "replaces": "src/repro/kernels/flash_attention.py:102",
                 "launches": counts[name],
@@ -1849,10 +2022,10 @@ def attention_phase(report):
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"]}
     return [line("flash_attention_sm90",
-                 "src/repro_torch/csrc/flash_attention_sm90.cu", "cuda",
-                 "wgmma", "causal", ("window", "causal")),
+                 "src/repro_torch/csrc/flash_attention_sm90.cu", "wgmma",
+                 "causal"),
             line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                 "cuda", "fma", "window f32", ("window f32",))]
+                 "fma", "window f32")]
 
 
 def profiled(fn, trace, what, keep=True):
@@ -1941,6 +2114,7 @@ def main():
                 or "spill" in ln]
         print(f"  {name}: {'; '.join(regs)}", flush=True)
     report["sm90"] = sm90_census()
+    report["walk_census"] = walk_census()
     card = card_line()
     report["card"] = card
     torch.cuda.init()

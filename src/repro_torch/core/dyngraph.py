@@ -60,8 +60,11 @@ class BingoConfig:
     fp_bias: bool = False         # §4.3 floating-point biases
     lam: float = 16.0             # λ amortization factor (fp mode)
     backend: str = "auto"         # engine backend (core/backend.py)
-    cohorts: int = 1              # walk-kernel interleaving factor (unused
-                                  # by the CUDA kernel; output-invariant)
+    cohorts: int = 1              # the TPU walk kernel's interleaving
+                                  # factor; output-invariant, and the CUDA
+                                  # kernels take none (their tiles of lanes
+                                  # and persistent grid keep walkers in
+                                  # flight)
     capacity_ladder: tuple = ()   # pre-declared capacity tiers for regrowth
 
     def __post_init__(self):

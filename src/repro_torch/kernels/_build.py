@@ -40,9 +40,11 @@ CONTRACTED = ("flash_attention", "flash_attention_sm90")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "walk_fused": {
-        "walk_fused_launch": ([_P] * 9 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+        "walk_fused_launch": ([_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+                              _I),
         "walk_segment_launch": ([_P] * 12 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
                                 _I),
+        "walk_fused_occupancy": ([_I, _I], _I),
     },
     "update_fused": {
         "update_fused_launch": ([_P] * 23 + [_I] * 8 + [_F, _F] + [_P], _I),
@@ -50,6 +52,7 @@ _SIGNATURES = {
     "walk_sample": {
         "walk_sample_launch": ([_P] * 10 + [_I] * 6 + [_P], _I),
         "walk_sample_uniform_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        "walk_sample_occupancy": ([], _I),
     },
     "radix_hist": {"radix_hist_launch": ([_P] * 4 + [_I] * 3 + [_P], _I)},
     "alias_build": {"alias_build_launch": ([_P] * 3 + [_I] * 2 + [_P], _I)},

@@ -26,10 +26,13 @@ and, with ``window > 0``, fewer than ``window`` positions before it.
   ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
   (float32, CUDA cores, counted in ``flash_attention.launches``) or
   ``csrc/flash_attention_sm90.cu`` (bfloat16, wgmma, counted in
-  ``flash_attention_sm90.launches``), D in {64, 128}.  The float32 kernel
-  agrees with its plain version entry by entry within 2e-5; a bfloat16
-  output is held row by row against ``flash_attention_ref32`` (the limit
-  is ``chip_smoke.py``'s ``flash_row_excess``).
+  ``flash_attention_sm90.launches``).  The kernels are built for head
+  dims 64 and 128; any D ≤ 128 runs zero-padded to the next of the two
+  (``pad_head_dim``), and the card declines D > 128 and other types
+  (``check_kernel_inputs``).  The float32 kernel agrees with its plain
+  version entry by entry within 2e-5; a bfloat16 output is held row by
+  row against ``flash_attention_ref32`` (the limit is ``chip_smoke.py``'s
+  ``flash_row_excess``).
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_ref_chunked", "flash_attention_ref32",
-           "flash_attention_ref", "flash_attention"]
+           "flash_attention_ref", "kernel_head_dim", "check_kernel_inputs",
+           "pad_head_dim", "flash_attention"]
 
 _BLOCK_K = 64                # KV tile of the float32 kernel and of ref32
 _BLOCK_K16 = 128             # KV tile of the bfloat16 kernel and of _plain16
@@ -183,39 +187,86 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
                                  scale=scale).to(q.dtype)
 
 
+def kernel_head_dim(D: int) -> int:
+    """The width the card's kernels run a head dim ``D`` at: 64 for
+    D ≤ 64, 128 for 64 < D ≤ 128 (the two widths they are built for).
+    Raises ``ValueError`` above 128: no kernel is built that wide (the
+    bf16 kernel's 128-wide Q, K and V panels and its P·V accumulator, and
+    the f32 kernel's shared-memory tiles, would all double)."""
+    if not 1 <= D <= 128:
+        raise ValueError(f"flash_attention: head dim {D} is outside 1..128, "
+                         "the widths the card's kernels take")
+    return 64 if D <= 64 else 128
+
+
+def check_kernel_inputs(q, k, v) -> None:
+    """Raise ``ValueError`` unless the card's kernels take q (B, H, S, D),
+    k and v (B, Hkv, T, D): one type, float32 or bfloat16; D ≤ 128; H a
+    multiple of Hkv; S within the grid."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if q.dtype not in _BLOCK_Q:
+        raise ValueError(f"flash_attention: no kernel for {q.dtype}")
+    kernel_head_dim(D)
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
+    if -(-S // _BLOCK_Q[q.dtype]) > _MAX_Q_TILES:
+        raise ValueError(f"flash_attention: {S} query rows exceed the grid")
+    _build.check("k", k, q.dtype, (B, Hkv, T, D))
+    _build.check("v", v, q.dtype, (B, Hkv, T, D))
+
+
+def pad_head_dim(fn, q, k, v, *, causal=True, window=0, scale=None):
+    """``fn(q, k, v, causal=, window=, scale=)`` at the kernels' width:
+    q, k and v zero-padded along D to ``kernel_head_dim(D)``, ``scale``
+    taken from the true D (default D^-0.5), the output cut back to D.
+    Zero columns add exact zeros to every q·k, and zero columns of V give
+    output columns that are cut off, so the result is the same function
+    of the unpadded inputs."""
+    D = q.shape[-1]
+    width = kernel_head_dim(D)
+    scale = float(D ** -0.5) if scale is None else float(scale)
+    if width == D:
+        return fn(q, k, v, causal=causal, window=window, scale=scale)
+    q, k, v = (torch.nn.functional.pad(x, (0, width - D)) for x in (q, k, v))
+    out = fn(q, k, v, causal=causal, window=window, scale=scale)
+    return out[..., :D].contiguous()
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
     """Attention forward, dispatched by the device and type of ``q``.
 
     q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32
-    or bfloat16 on the card), D in {64, 128} on the card.  Returns (B, H,
-    S, D) in q's type.
+    or bfloat16 on the card), D ≤ 128 on the card (run zero-padded to 64
+    or 128, ``pad_head_dim``).  Returns (B, H, S, D) in q's type.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    if q.dtype not in _BLOCK_Q:
-        raise ValueError(f"flash_attention: no kernel for {q.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {D} is not 64 or 128")
-    if Hkv < 1 or H % Hkv:
-        raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
-    if -(-S // _BLOCK_Q[q.dtype]) > _MAX_Q_TILES:
-        raise ValueError(f"flash_attention: {S} query rows exceed the grid")
-    _build.check("q", q, q.dtype, (B, H, S, D))
-    _build.check("k", k, q.dtype, (B, Hkv, T, D))
-    _build.check("v", v, q.dtype, (B, Hkv, T, D))
+    check_kernel_inputs(q, k, v)
+    _build.check("q", q, q.dtype, q.shape)      # on the card, contiguous
+    route = flash_attention_sm90 if q.dtype == torch.bfloat16 else \
+        flash_attention_f32
+    return pad_head_dim(route, q, k, v, causal=causal, window=window,
+                        scale=scale)
+
+
+def _aligned(q, k, v) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
-    scale = float(D ** -0.5) if scale is None else float(scale)
-    if q.dtype == torch.bfloat16:
-        return flash_attention_sm90(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+
+
+def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
+    """Launch ``csrc/flash_attention.cu`` on float32 CUDA tensors of width
+    64 or 128 that ``flash_attention`` has checked; counted in
+    ``flash_attention.launches``."""
+    _aligned(q, k, v)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     err = lib.flash_attention_launch(
@@ -230,8 +281,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_sm90(q, k, v, *, causal: bool, window: int, scale: float):
-    """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 CUDA tensors that
-    ``flash_attention`` has checked; the bfloat16 route's launch count."""
+    """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 CUDA tensors of
+    width 64 or 128 that ``flash_attention`` has checked; the bfloat16
+    route's launch count."""
+    _aligned(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

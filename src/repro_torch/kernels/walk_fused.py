@@ -5,8 +5,10 @@ Port of ``repro/kernels/walk_fused.py`` (both entries of
 and ``walk_segment_ref``.  ``walk_fused`` and ``walk_segment`` are the
 wrappers: on CPU tensors they run the plain versions ``walk_fused_ref``
 and ``walk_segment_ref``; on CUDA tensors they launch ``csrc/walk_fused.cu``
-(one warp per walker, the step loop inside the kernel) and count the
-launch in ``walk_fused.launches`` / ``walk_segment.launches``.
+(a tile of lanes per walker, the step loop inside the kernel; the whole
+walk on a persistent grid that hands walkers out through a zeroed int32
+count, the segment entry a tile a slot) and count the launch in
+``walk_fused.launches`` / ``walk_segment.launches``.
 
 The segment entry is the walker relay's per-round kernel
 (``distributed/relay.py``): walker b enters at step ``t0[b]``, draws the
@@ -234,9 +236,10 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
         prob, alias, bias, nbr, deg, frac, starts, u, length, uniform, seed)
     B = starts.shape[0]
     path = torch.empty((B, length + 1), dtype=torch.int32, device=nbr.device)
+    taken = torch.zeros(1, dtype=torch.int32, device=nbr.device)
     lib = _build.library("walk_fused")
     ptrs = [_build.ptr(x) for x in
-            (prob, alias, bias, nbr, deg, frac, starts, u, path)]
+            (prob, alias, bias, nbr, deg, frac, starts, u, path, taken)]
     err = lib.walk_fused_launch(
         *ptrs, B, V, C, Kin, length, base_log2, ctypes.c_float(stop_prob),
         int(uniform), int(frac is not None), ucols, int(seed),

@@ -9,7 +9,9 @@ CPU tensors (its plain version, ``flash_attention_ref``) and the port's
 ``pltpu.TPUCompilerParams``, which JAX 0.9 does not have), so JAX's dense
 reference is the oracle, as it is for the JAX package's own kernel test.
 The cases are that test's (MHA, GQA 4:1, S < T, D = 128, windows 32 and
-128, non-causal) plus a ragged S = T = 200.  In bfloat16 the plain
+128, non-causal) plus a ragged S = T = 200, and the head dims the card
+runs zero-padded (``pad_head_dim``): hubert-xlarge's D = 80 and the
+SMOKE configs' D = 16 and 8.  In bfloat16 the plain
 version is the tensor-core kernel's algorithm (``_plain16``); the
 all-float32 ``flash_attention_ref32`` is held at 2e-5 in float32, and
 ``chip_smoke.py``'s row-wise bfloat16 limit must pass the plain bfloat16
@@ -29,8 +31,11 @@ from repro.kernels import ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  attention_ref_chunked,
+                                                 check_kernel_inputs,
                                                  flash_attention_ref,
-                                                 flash_attention_ref32)
+                                                 flash_attention_ref32,
+                                                 kernel_head_dim,
+                                                 pad_head_dim)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import flash_row_excess, shifted_window  # noqa: E402
@@ -156,3 +161,50 @@ def test_bf16_limit_rejects_a_tile_shift(causal, window):
                                 window=shifted_window(T, window))
     assert flash_row_excess(plain, plain, ref32) <= 1
     assert flash_row_excess(fault, plain, ref32) > 1
+
+
+PAD_CASES = [   # (B, H, Hkv, S, T, D, causal, window): widths run padded
+    (1, 16, 16, 128, 128, 80, False, 0),     # hubert-xlarge: MHA, 1280/16
+    (1, 4, 2, 200, 200, 16, True, 0),        # xlstm SMOKE: 64/4, ragged
+    (2, 8, 8, 128, 128, 8, True, 32),        # the SMOKE configs: 64/8
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PAD_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_padded_head_dims_match_jax(case, dtype):
+    """The card's route for a head dim it has no kernel for: q, k and v
+    zero-padded to ``kernel_head_dim(D)``, the plain version of the
+    kernel of the type at that width, the output cut back to D; against
+    JAX's dense reference at the true D, at the file's atol."""
+    B, H, Hkv, S, T, D, causal, window = case
+    jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + D)
+    want = ref.attention_ref(*jx, causal=causal, window=window)
+    got = pad_head_dim(flash_attention_ref, *tx, causal=causal,
+                       window=window)
+    assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
+    assert got.is_contiguous()
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype])
+
+
+def test_kernel_head_dims_and_declined_inputs():
+    """The card's domain: every D ≤ 128 in float32 and bfloat16, run at
+    64 or 128; D > 128 (xlstm-350m's 256) and float16 raise
+    ``ValueError``."""
+    assert [kernel_head_dim(D) for D in (1, 8, 16, 63, 64, 65, 80, 128)] \
+        == [64] * 5 + [128] * 3
+    for D in (0, 129, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            kernel_head_dim(D)
+
+    def qkv(D, dtype):
+        return (torch.zeros((1, 2, 8, D), dtype=dtype),
+                torch.zeros((1, 1, 8, D), dtype=dtype),
+                torch.zeros((1, 1, 8, D), dtype=dtype))
+    with pytest.raises(ValueError, match="head dim"):
+        check_kernel_inputs(*qkv(256, torch.float32))
+    with pytest.raises(ValueError, match="float16"):
+        check_kernel_inputs(*qkv(64, torch.float16))
+    with pytest.raises(ValueError, match="head dim"):
+        pad_head_dim(flash_attention_ref, *qkv(256, torch.float32))

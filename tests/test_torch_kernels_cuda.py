@@ -6,14 +6,20 @@ and ``tests/test_torch_updates.py``: whole walks and segment walks
 (deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed uniforms, a
 ragged batch; segments on a relay view with spread start steps),
 per-step samples (base 2/4 × fp on/off × gathered rows / in-place
-``rows``, degree-0 rows in the batch) and update rounds
+``rows``, degree-0 rows in the batch); the same three sampler entries at
+C = 256 on rows whose degrees sit around the sampler's 8-lane tile, its
+32-slot first tile, its 16-byte chunks and the 256-slot window (0, 1,
+3–5, 7–9, 15–17, 31–33, 63–65, 127–129, 255, 256), with a full hub row
+shared by many walkers, and at C = 37 (rows not 16-byte aligned) and
+C = 300 (rows past the window); update rounds
 (insert/delete/mixed × the five config rows, chained, plus a batch wider
 than 2·C); the radix histogram (K 4/16/31 × C 8/256, degrees 0 and C
 present) and batched alias tables (K 2/5/16/17/33, empty and
 single-entry rows), bit for bit; flash attention at ``chip_smoke.py``'s
-phase-2 cases and limits (``FLASH_CASES``; ``flash_limit``: ``FLASH_TOL``
-in f32, the row-wise ``FLASH_ROW`` in bf16), which must also reject the
-kernel one tile off at the band's edge.  A CUDA kernel has no
+phase-2 cases and limits (``FLASH_CASES``, head dims 8, 16, 64, 80 and
+128; ``flash_limit``: ``FLASH_TOL`` in f32, the row-wise ``FLASH_ROW`` in
+bf16), which must also reject the kernel one tile off at the band's edge,
+and the inputs the card declines (D > 128, float16).  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -207,6 +213,165 @@ def test_walk_sample_base2_takes_three_uniforms():
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+# degrees around the sampler's 8-lane tile, its 32-slot first tile, its
+# 16-byte chunks and its 256-slot window, on a C = 256 state
+DEGREES = (0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+           128, 129, 255, 256)
+WIDE_MODES = [(1, False), (2, False), (1, True), (2, True)]
+
+
+def _wide_state(fp, base_log2, V=512, C=256, bits=8, seed=21,
+                degrees=DEGREES):
+    """Vertex 0 a full hub row, vertices 1.. the ``degrees``, the rest of
+    degree 1–4; distinct neighbours, random biases (+ fractions in fp)."""
+    rng = np.random.default_rng(seed + 3 * base_log2 + fp)
+    deg = rng.integers(1, 5, V)
+    deg[0] = C
+    deg[1:1 + len(degrees)] = degrees
+    src = np.repeat(np.arange(V), deg).astype(np.int32)
+    dst = np.concatenate([rng.permutation(V)[:d] for d in deg]).astype(np.int32)
+    w = rng.integers(1, 1 << bits, src.size).astype(np.int32)
+    if fp:
+        w = w.astype(np.float32) + rng.random(src.size).astype(np.float32)
+    cfg = tdg.BingoConfig(num_vertices=V, capacity=C, bias_bits=bits,
+                          base_log2=base_log2, fp_bias=fp, lam=4.0)
+    st = tdg.from_edges(cfg, src, dst, w, device="cuda")
+    assert st.deg[1:1 + len(degrees)].tolist() == list(degrees)
+    return st, cfg
+
+
+def _wide_rows(B, V, seed, n=len(DEGREES)):
+    """Half the walkers on the hub row 0, the rest over the ``n`` rows
+    of the listed degrees and then anywhere."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randint(0, V, (B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    rows[: B // 2] = 0
+    rows[B // 2: B // 2 + 4 * n] = torch.arange(
+        4 * n, device="cuda", dtype=torch.int32) % n + 1
+    return rows
+
+
+@pytest.mark.parametrize("base_log2,fp", WIDE_MODES)
+@pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
+def test_wide_rows_walk_kernel_equals_plain(kind, base_log2, fp):
+    st, cfg = _wide_state(fp, base_log2)
+    B, L = 700, 16
+    starts = _wide_rows(B, cfg.num_vertices, 7)
+    kw = dict(base_log2=base_log2, stop_prob=0.1 if kind == "ppr" else 0.0,
+              uniform=kind == "simple")
+    args = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
+            st.frac if fp else None, starts)
+    before = ops.launch_counts()["walk_fused"]
+    got = ops.walk_fused(*args, 4242, length=L, **kw)
+    assert ops.launch_counts()["walk_fused"] == before + 1
+    want = walk_fused_ref(*args, seed=4242, length=L, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("base_log2,fp", WIDE_MODES)
+@pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
+def test_wide_rows_segment_kernel_equals_plain(kind, base_log2, fp):
+    """The segment entry on a relay view of the C = 256 state (rows
+    0..255 local, the rest remote), start steps spread, free slots."""
+    st, cfg = _wide_state(fp, base_log2)
+    view = relay_view(st, 0, 256)
+    B, L = 700, 16
+    g = torch.Generator(device="cuda").manual_seed(9)
+    starts = _wide_rows(B, 256, 9)
+    starts[-50:] = -1                                   # free slots
+    t0 = torch.randint(0, L + 2, (B,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    t0[: B // 2] = 0
+    wid = torch.randperm(B, generator=g, device="cuda").to(torch.int32)
+    kw = dict(base_log2=base_log2, stop_prob=0.1 if kind == "ppr" else 0.0,
+              uniform=kind == "simple", length=L)
+    args = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+            view.deg, view.frac if fp else None, starts, t0)
+    before = ops.launch_counts()["walk_segment"]
+    got = ops.walk_segment(*args, 99, None, wid, **kw)
+    assert ops.launch_counts()["walk_segment"] == before + 1
+    want = walk_segment_ref(*args, None, wid, seed=99, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert bool((got[1][:, 0] >= 0).any())
+
+
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("base_log2,fp", WIDE_MODES)
+def test_wide_rows_walk_sample_kernels_equal_plain(base_log2, fp, in_place):
+    st, cfg = _wide_state(fp, base_log2)
+    B = 3001
+    rows = _wide_rows(B, cfg.num_vertices, 11)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    u = torch.rand((B, 5), generator=g, device="cuda")
+    frac = st.frac if fp else None
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+    if in_place:
+        args, kw = tabs, dict(rows=rows)
+    else:
+        r = rows.long()
+        args, kw = tuple(x[r].contiguous() for x in tabs), {}
+        frac = None if frac is None else frac[r].contiguous()
+    before = dict(ops.launch_counts())
+    got = ops.walk_sample(*args, u, frac, base_log2=base_log2, **kw)
+    want = walk_sample_ref(*args, u, frac, base_log2=base_log2, **kw)
+    got_u = ops.walk_sample_uniform(args[3], args[4], u, **kw)
+    want_u = walk_sample_uniform_ref(args[3], args[4], u, **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["walk_sample"] == before["walk_sample"] + 1
+    assert after["walk_sample_uniform"] == before["walk_sample_uniform"] + 1
+    for a, b in zip(got + got_u, want + want_u):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert (got[1][: B // 2] >= 0).all()                # the hub row
+
+
+@pytest.mark.parametrize("base_log2,fp", [(1, False), (2, True)])
+@pytest.mark.parametrize("C", [37, 300])
+def test_unaligned_and_long_rows_equal_plain(C, base_log2, fp):
+    """Capacities the sampler's 16-byte loads cannot take (C = 37: rows
+    not 16-byte aligned) and rows past its 256-slot window (C = 300,
+    degrees up to 300): whole walks (deepwalk, simple), the segment entry
+    and the per-step samples (in place and gathered), bit for bit."""
+    degrees = tuple(d for d in (0, 1, 3, 4, 5, 15, 16, 17, 31, 32, 33, 36,
+                                37, 255, 256, 257, 299, 300) if d <= C)
+    st, cfg = _wide_state(fp, base_log2, V=640, C=C, degrees=degrees)
+    V, B, L = cfg.num_vertices, 600, 12
+    rows = _wide_rows(B, V, 13, n=len(degrees))
+    tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
+    frac = st.frac if fp else None
+    for uniform in (False, True):
+        kw = dict(base_log2=base_log2, uniform=uniform, length=L)
+        got = ops.walk_fused(*tabs, frac, rows, 77, **kw)
+        want = walk_fused_ref(*tabs, frac, rows, seed=77, **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    view = relay_view(st, 0, 320)
+    vtabs = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+             view.deg, view.frac if fp else None)
+    t0 = torch.zeros(B, dtype=torch.int32, device="cuda")
+    starts = rows % 320
+    got = ops.walk_segment(*vtabs, starts, t0, 78, length=L,
+                           base_log2=base_log2)
+    want = walk_segment_ref(*vtabs, starts, t0, length=L,
+                            base_log2=base_log2, seed=78)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    u = torch.rand((B, 5), generator=torch.Generator(device="cuda")
+                   .manual_seed(14), device="cuda")
+    r = rows.long()
+    for args, fr, kw in ((tabs, frac, dict(rows=rows)),
+                         (tuple(x[r].contiguous() for x in tabs),
+                          None if frac is None else frac[r].contiguous(), {})):
+        got = ops.walk_sample(*args, u, fr, base_log2=base_log2, **kw)
+        want = walk_sample_ref(*args, u, fr, base_log2=base_log2, **kw)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("mode", ["insert", "delete", "mixed"])
 @pytest.mark.parametrize("adaptive,fp,base_log2",
                          [(True, False, 1), (False, False, 1), (True, True, 1),
@@ -317,6 +482,16 @@ def test_flash_attention_limit_rejects_a_tile_shift(case):
     assert flash_limit(fault, plain, ref32) > 1
 
 
+def test_flash_attention_declines_what_the_card_has_no_kernel_for():
+    """D > 128 (xlstm-350m's 256) and float16 raise ``ValueError``."""
+    q = torch.zeros((1, 2, 64, 256), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 64, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
+        ops.flash_attention(q, q, q)
+
+
 def test_cuda_tensors_never_take_the_plain_path():
     """A CUDA state goes to the kernels: the launch counters move."""
     st, cfg = _state(16, 32, False, 1)
@@ -324,9 +499,11 @@ def test_cuda_tensors_never_take_the_plain_path():
     ops.update_fused(st, cfg, *[torch.from_numpy(x).cuda() for x in (
         np.array([True]), np.array([0], np.int32), np.array([3], np.int32),
         np.array([5], np.int32))])
-    ops.walk_fused(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
-                   None, torch.zeros(4, dtype=torch.int32, device="cuda"), 1,
-                   length=4)
+    for uniform in (False, True):          # tiles, and a thread a walker
+        ops.walk_fused(st.itable.prob, st.itable.alias, st.bias, st.nbr,
+                       st.deg, None,
+                       torch.zeros(4, dtype=torch.int32, device="cuda"), 1,
+                       length=4, uniform=uniform)
     ops.walk_sample(st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
                     torch.rand((4, 3), device="cuda"),
                     rows=torch.zeros(4, dtype=torch.int32, device="cuda"))
@@ -338,12 +515,13 @@ def test_cuda_tensors_never_take_the_plain_path():
                      None, zeros, zeros, 1, length=4)
     ops.radix_hist(st.bias, st.deg, num_k=cfg.num_radix)
     ops.alias_build(st.itable.prob)
-    q = torch.randn((1, 2, 8, 64), device="cuda")
-    ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
-    q = q.to(torch.bfloat16)
-    ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
-    assert ops.launch_counts() == {"walk_fused": 1, "walk_segment": 1,
+    for D in (64, 80):                      # 80: zero-padded to 128
+        q = torch.randn((1, 2, 8, D), device="cuda")
+        ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+        q = q.to(torch.bfloat16)
+        ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    assert ops.launch_counts() == {"walk_fused": 2, "walk_segment": 1,
                                    "update_fused": 1, "walk_sample": 1,
                                    "walk_sample_uniform": 1, "radix_hist": 1,
-                                   "alias_build": 1, "flash_attention": 1,
-                                   "flash_attention_sm90": 1}
+                                   "alias_build": 1, "flash_attention": 2,
+                                   "flash_attention_sm90": 2}
