@@ -7,11 +7,12 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel) and print the build time, ptxas's register and
-   spill lines and the card's name and power limit; census of the
-   tensor-core attention's library (``sm90_census``): no spill stores, and
-   HGMMA and UTMALDG instructions in its SASS; census of the walk kernels'
-   five instantiations (``walk_census``): registers, no spill stores, and
-   the resident blocks per SM (what the persistent grids are sized by).
+   spill lines and the card's name and power limit; census of the two
+   attention libraries (``sm90_census``): no spill stores, and tensor-core
+   (HGMMA or HMMA) and TMA (UTMALDG) instructions in their SASS; census of
+   the walk kernels' six instantiations (``walk_census``): registers, no
+   spill stores, and the resident blocks per SM (what the persistent grids
+   are sized by).
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
@@ -23,8 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
    holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256 and
    ``alias_build`` over K 2/5/16/17/33 (degrees 0 and C, empty and
    single-entry rows); ``flash_attention`` over ``FLASH_CASES``, each case
-   through the kernel of its type (float32: ``flash_attention.cu``,
-   bfloat16: ``flash_attention_sm90.cu``, the launch counters show which),
+   through the kernel of its type (float32: ``flash_attention.cu``, 3xTF32
+   wgmma, bfloat16: ``flash_attention_sm90.cu``, the launch counters show
+   which),
    at its limit (``flash_limit``: float32 entry by entry within 2e-5 of
    the plain version; bfloat16 row by row against the all-f32
    ``flash_attention_ref32``, at most twice the plain bf16 algorithm's
@@ -33,9 +35,11 @@ Phases (any failure exits non-zero and prints no result line):
    same limit, which must reject it: GQA 4:1 at Mixtral 8x7B's widths with
    its 4096 window at S = T = 8192 in bf16, D = 64 causal in f32 and
    bf16, S = 512 < T = 8192 in both, a ragged S = T = 1000 in bf16, a
-   non-causal batch of two in both, and in both types the head dims the
-   card runs zero-padded: hubert-xlarge's D = 80 (MHA, non-causal), 16
-   and 8 (the SMOKE configs'), the last with a window.
+   non-causal batch of two in both, in f32 a ragged S = 1000 < T = 3000 at
+   D = 80, a ragged window at D = 128 and a ragged non-causal S < T at
+   D = 64, and in both types hubert-xlarge's D = 80 (MHA, non-causal; its
+   own width in f32, zero-padded to 128 in bf16) and the head dims run
+   zero-padded, 16 and 8 (the SMOKE configs'), the last with a window.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -82,13 +86,15 @@ Phases (any failure exits non-zero and prints no result line):
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
-   (16 heads, MHA, D = 80, zero-padded to 128 by the wrapper, non-causal)
-   in bf16 and f32; the counters zeroed just before and read just after;
+   (16 heads, MHA, D = 80, non-causal) in bf16 (zero-padded to 128 by the
+   wrapper) and f32 (the 80-wide instantiation); the counters zeroed just before and read just after;
    256 query rows of each output held
    against the dense ``attention_ref`` in f32 and the whole output
    against the plain version, at the limits of phase 2, which must reject
    the planted fault at this size; kernel times (median of 3), the FLOP
-   bound (bf16 at the dense tensor-core rate, f32 at the float32 rate),
+   bound (bf16 at the dense tensor-core rate; f32 three TF32 products at
+   the dense TF32 rate, with the old bound at the float32 CUDA-core rate
+   printed for the record),
    and ``scaled_dot_product_attention`` on the same tensors as the
    library yardstick (a boolean mask for the window).
 4. Times on the card (CUDA events): each kernel at the main path's shapes
@@ -129,6 +135,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 OPS_PER_S = 67e12                  # H100 SXM float32 outside the tensor cores
 TC_BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
+TC_TF32_FLOPS = 494.7e12           # H100 SXM dense TF32 tensor-core rate
 WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
@@ -146,13 +153,18 @@ FLASH_CASES = [
     (2, 4, 1, 1536, 1536, 128, "bfloat16", False, 0),       # non-causal
     (1, 8, 2, 512, 8192, 128, "bfloat16", True, 0),         # S < T
     (1, 8, 2, 2048, 2048, 64, "bfloat16", True, 0),         # D = 64 causal
-    # head dims without a kernel of their own, run zero-padded to 64 / 128
+    # head dims without a kernel of their own, run zero-padded to the
+    # route's next width (bf16 64 / 128; f32 64 / 80 / 128)
     (1, 16, 16, 1024, 1024, 80, "bfloat16", False, 0),      # hubert-xlarge
-    (1, 16, 16, 1024, 1024, 80, "float32", False, 0),
+    (1, 16, 16, 1024, 1024, 80, "float32", False, 0),       # f32: its own width
     (1, 4, 2, 600, 600, 16, "bfloat16", True, 0),           # xlstm SMOKE
     (1, 4, 2, 600, 600, 16, "float32", True, 0),
     (2, 8, 8, 512, 512, 8, "bfloat16", True, 128),          # SMOKE configs
     (2, 8, 8, 512, 512, 8, "float32", True, 128),
+    # f32: ragged S < T at D = 80, a ragged window, ragged non-causal S < T
+    (1, 8, 2, 1000, 3000, 80, "float32", True, 0),
+    (1, 4, 2, 777, 777, 128, "float32", True, 300),
+    (2, 4, 4, 333, 1000, 64, "float32", False, 0),
 ]
 # float32: |kernel - plain| <= atol + rtol * |plain|, entry by entry, to
 # the accumulation order.  The bfloat16 entry is the limit of the CUDA-core
@@ -635,34 +647,43 @@ def kernel_resources(name):
 
 
 def sm90_census():
-    """What nvcc made of the tensor-core attention: per instantiation,
+    """What nvcc made of the two attention libraries (bf16
+    ``flash_attention_sm90``, f32 ``flash_attention``): per instantiation,
     registers and spill stores (``kernel_resources``), all spills 0; and
-    in ``cuobjdump -sass`` of the library the count of HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions, both non-zero."""
+    in ``cuobjdump -sass`` of each library the count of HGMMA (wgmma),
+    HMMA (mma.sync) and UTMALDG (TMA load) instructions: tensor-core
+    instructions (HGMMA, or HMMA) and TMA loads present."""
     from repro_torch.kernels import _build
-    res = kernel_resources("flash_attention_sm90")
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
-         str(_build._lib_path("flash_attention_sm90"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-    census = {"registers": [x.get("registers") for x in res],
-              "spill_stores": [x.get("spill_stores") for x in res],
-              "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
-    print(f"flash_attention_sm90 census: {census}", flush=True)
-    need(res and all(x.get("spill_stores") == 0 for x in res),
-         f"flash_attention_sm90: spill stores {census}")
-    need(census["HGMMA"] > 0 and census["UTMALDG"] > 0,
-         f"flash_attention_sm90: no wgmma or no TMA load in the SASS {census}")
-    return census
+    out = {}
+    for name in ("flash_attention_sm90", "flash_attention"):
+        res = kernel_resources(name)
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(_build._lib_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        census = {"registers": [x.get("registers") for x in res],
+                  "spill_stores": [x.get("spill_stores") for x in res],
+                  "HGMMA": sass.count("HGMMA"), "HMMA": sass.count("HMMA"),
+                  "UTMALDG": sass.count("UTMALDG")}
+        print(f"{name} census: {census}", flush=True)
+        need(res and all(x.get("spill_stores") == 0 for x in res),
+             f"{name}: spill stores {census}")
+        need(census["HGMMA"] + census["HMMA"] > 0 and census["UTMALDG"] > 0,
+             f"{name}: no tensor-core instruction or no TMA load in the "
+             f"SASS {census}")
+        out[name] = census
+    return out
 
 
 def walk_census():
-    """The walk kernels' instantiations (a tile of 16 lanes a walker; a
-    thread a walker for the whole walk's uniform pick): registers
-    and spill stores (``kernel_resources``), no spills; and the resident
-    blocks of 256 threads per SM (the libraries' occupancy entries, what
-    the persistent grids are sized by), as warps and as a share of the
-    SM's 64."""
+    """The walk kernels' six instantiations (whole walk and segment, each
+    a tile of lanes a biased walker and a thread a simple one; the per-step
+    sample and uniform pick): registers and spill stores
+    (``kernel_resources``), no spills; and the resident blocks of 256
+    threads per SM (the libraries' occupancy entries, what the persistent
+    grids are sized by), as warps and as a share of the SM's 64.  The
+    segment's preparation kernel (``segment_prep_kernel``) is not counted
+    here."""
     import re
     from repro_torch.kernels import _build
     fused, sample = _build.library("walk_fused"), _build.library("walk_sample")
@@ -691,7 +712,7 @@ def walk_census():
             f"({100 * r['occupancy']:.1f} % of 64)")
         print(f"walk census: {r['kernel']}: {r.get('registers')} registers, "
               f"{r.get('spill_stores')} bytes spill stores{occ}", flush=True)
-    need(len(rows) == 5 and all(r.get("spill_stores") == 0 for r in rows),
+    need(len(rows) == 6 and all(r.get("spill_stores") == 0 for r in rows),
          f"walk kernels: census {rows}")
     return rows
 
@@ -1361,7 +1382,9 @@ def segment_work(path, frontier, deg, uniform):
 class SegmentWork:
     """A backend that launches each relay segment through ``bk`` and then
     records the work the launch needed (``segment_work``, with host
-    syncs) and the launch's time on the card (CUDA events behind a spin
+    syncs), its live slots (start >= 0, 0 <= t0 <= L: the walkers it hands
+    to tiles) beside its alive steps and exits, and the launch's time on
+    the card (CUDA events behind a spin
     kernel of about 1 ms, so the wrapper's host work is not counted, as
     in ``cuda_ms``): for a replay of a relay batch outside its timed run,
     whose launches are the timed run's, one for one."""
@@ -1383,8 +1406,10 @@ class SegmentWork:
             state, cfg, starts, t0, seed, params, u=u, wid=wid)
         b.record()
         self.events.append((a, b))
-        self.works.append(segment_work(path, frontier, state.deg,
-                                       self.uniform))
+        work = segment_work(path, frontier, state.deg, self.uniform)
+        L = path.shape[1] - 1
+        work["live"] = int(((starts >= 0) & (t0 >= 0) & (t0 <= L)).sum())
+        self.works.append(work)
         return path, frontier
 
 
@@ -1447,6 +1472,8 @@ def sharded_path(engine, cfg, starts, stream, report):
         lb = sorted(x for b in per for x in b["bound_ms"])
         exch = sorted(x for b in per for x in b["exchange_ms"])
         red = sorted(x for b in per for x in b["reduce_ms"])
+        live = sorted(x for b in per for x in b["live"])
+        steps = sorted(x for b in per for x in b["alive_steps"])
         b0 = per[0]
         launches += sum(b["launches"] for b in per)
         out["batches"][name] = dict(
@@ -1459,6 +1486,9 @@ def sharded_path(engine, cfg, starts, stream, report):
             bound_ms_sum=sum(lb),
             over_1ms=[x for x in seg if x >= 1.0],
             pairs=[list(zip(b["segment_ms"], b["bound_ms"])) for b in per],
+            live_median=live[len(live) // 2], live_max=live[-1],
+            live_sum=sum(live), alive_steps_median=steps[len(steps) // 2],
+            alive_steps_sum=sum(steps),
             exchange_ms_median=exch[len(exch) // 2],
             exchange_ms_mean=statistics.mean(exch),
             reduce_ms_median=red[len(red) // 2],
@@ -1474,6 +1504,9 @@ def sharded_path(engine, cfg, starts, stream, report):
               f"{o['replay_ms_median']:.4f} ms (sum {o['replay_ms_sum']:.2f}); "
               f"bound per launch median "
               f"{o['bound_ms_median']:.5f} ms (sum {o['bound_ms_sum']:.3f}); "
+              f"live slots per launch median {o['live_median']} (max "
+              f"{o['live_max']}, sum {o['live_sum']}), alive steps median "
+              f"{o['alive_steps_median']} (sum {o['alive_steps_sum']}); "
               f"exchange per round median "
               f"{o['exchange_ms_median']:.2f} ms, mean "
               f"{o['exchange_ms_mean']:.2f} ms; closing all-reduce median "
@@ -1641,6 +1674,8 @@ def shard_rank(rank, n, backend, tmp):
                      f"rank {rank} {name}: the replay differs")
                 b["bound_ms"] = [bound(w["bytes"], w["ops"])[0]
                                  for w in rec.works]
+                for key in ("live", "alive_steps", "exits"):
+                    b[key] = [w[key] for w in rec.works]
                 b["replay_ms"] = [x.elapsed_time(y) for x, y in rec.events]
                 del home
         if rank == 0 and n > 1:
@@ -1869,11 +1904,12 @@ def sdpa_ms(q, k, v, **kw):
 def attention_phase(report):
     """Phase 3e: flash attention at full width over one 32,768-token
     sequence: Mixtral 8x7B's widths in bf16 windowed and full causal (the
-    tensor-core kernel), then f32 windowed (the CUDA-core kernel); then
-    hubert-xlarge's (16 heads, MHA, D = 80, non-causal) in bf16 and f32,
-    both run zero-padded to D = 128.  Returns the two kernels' lines
-    (bf16: Mixtral's full-causal case beside SDPA's ``is_causal``; f32: the
-    window beside SDPA with a mask)."""
+    bf16 wgmma kernel), then f32 windowed (the 3xTF32 wgmma kernel); then
+    hubert-xlarge's (16 heads, MHA, D = 80, non-causal) in bf16
+    (zero-padded to D = 128) and f32 (80 wide).  Returns the two kernels'
+    lines (bf16: Mixtral's full-causal case beside SDPA's ``is_causal``;
+    f32: the window beside SDPA with a mask, which no fused backend
+    takes)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -1960,10 +1996,14 @@ def attention_phase(report):
         pairs = H * attention_pairs(S, S, causal, w)
         flops = 4 * D * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        rate = TC_BF16_FLOPS if is16 else OPS_PER_S
-        b_ms = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
-        b_by = "operations" if flops / rate >= nbytes / HBM_BYTES_PER_S \
+        # f32 to f32 accuracy on the tensor cores is three TF32 products
+        work, rate = (flops, TC_BF16_FLOPS) if is16 else \
+            (3 * flops, TC_TF32_FLOPS)
+        b_ms = max(work / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        b_by = "operations" if work / rate >= nbytes / HBM_BYTES_PER_S \
             else "bytes"
+        old_b_ms = None if is16 else max(
+            flops / OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         try:        # the yardstick: a library fault does not fail the smoke
             if w:
                 pos = torch.arange(S, device="cuda")
@@ -1988,6 +2028,7 @@ def attention_phase(report):
                      "dense_rows_fault_excess": dense_fault,
                      "pairs": pairs, "flops": flops, "bytes": nbytes,
                      "bound_ms": b_ms, "bound_by": b_by,
+                     "cuda_core_bound_ms": old_b_ms,
                      "share_of_bound": b_ms / ms, "library_ms": lib_ms,
                      "library": how, "library_vs_kernel_err": lib_err,
                      "tflops": flops / ms / 1e9}
@@ -1996,8 +2037,11 @@ def attention_phase(report):
               f"{'causal' if causal else 'non-causal'}, window {w}): "
               f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
               f"{100 * b_ms / ms:.1f} % of the bound), {pairs / 1e9:.3f} G "
-              f"pairs -> bound {b_ms:.3f} ms ({b_by}, {flops / 1e12:.3f} "
-              f"TFLOP at {rate / 1e12:.0f} TFLOP/s); plain {plain_ms:.1f} ms, "
+              f"pairs -> bound {b_ms:.3f} ms ({b_by}, {work / 1e12:.3f} "
+              f"TFLOP at {rate / 1e12:.1f} TFLOP/s"
+              + ("" if old_b_ms is None else f"; at the f32 CUDA-core rate "
+                 f"{old_b_ms:.3f} ms, for the record")
+              + f"); plain {plain_ms:.1f} ms, "
               f"max abs {err:.5f}; share of the limit {excess:.3f} (planted "
               f"fault: max abs {fault_err:.5f}, {fault_excess:.1f} of the "
               f"limit), 256 rows vs dense attention_ref {dense:.3f} (fault "
@@ -2025,7 +2069,7 @@ def attention_phase(report):
                  "src/repro_torch/csrc/flash_attention_sm90.cu", "wgmma",
                  "causal"),
             line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                 "fma", "window f32")]
+                 "wgmma 3xtf32", "window f32")]
 
 
 def profiled(fn, trace, what, keep=True):

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (causal, sliding-window or non-causal GQA attention
-// with an online softmax) for bfloat16 inputs; float32 inputs keep the CUDA-core
-// kernel of csrc/flash_attention.cu.  Plain version:
+// with an online softmax) for bfloat16 inputs; float32 inputs go to the
+// 3xTF32 kernel of csrc/flash_attention.cu.  Plain version:
 // repro_torch/kernels/flash_attention.py:flash_attention_ref on bfloat16
 // tensors (``_plain16``), which rounds where this kernel rounds: the scores
 // are float32 sums of bfloat16 products, p = exp2(s * scale * log2(e) - m) in

@@ -42,7 +42,7 @@ _SIGNATURES = {
     "walk_fused": {
         "walk_fused_launch": ([_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
                               _I),
-        "walk_segment_launch": ([_P] * 12 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+        "walk_segment_launch": ([_P] * 13 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
                                 _I),
         "walk_fused_occupancy": ([_I, _I], _I),
     },

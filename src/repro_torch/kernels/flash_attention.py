@@ -24,15 +24,16 @@ and, with ``window > 0``, fewer than ``window`` positions before it.
   P V, which sums in float32.
 - ``flash_attention``: the wrapper.  CPU tensors run
   ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
-  (float32, CUDA cores, counted in ``flash_attention.launches``) or
-  ``csrc/flash_attention_sm90.cu`` (bfloat16, wgmma, counted in
-  ``flash_attention_sm90.launches``).  The kernels are built for head
-  dims 64 and 128; any D ≤ 128 runs zero-padded to the next of the two
-  (``pad_head_dim``), and the card declines D > 128 and other types
-  (``check_kernel_inputs``).  The float32 kernel agrees with its plain
-  version entry by entry within 2e-5; a bfloat16 output is held row by
-  row against ``flash_attention_ref32`` (the limit is ``chip_smoke.py``'s
-  ``flash_row_excess``).
+  (float32, three TF32 products on the tensor cores, counted in
+  ``flash_attention.launches``) or ``csrc/flash_attention_sm90.cu``
+  (bfloat16, wgmma, counted in ``flash_attention_sm90.launches``).  The
+  float32 kernel is built for head dims 64, 80 and 128, the bfloat16 one
+  for 64 and 128; any D ≤ 128 runs zero-padded to the next width of its
+  route (``kernel_head_dim``, ``pad_head_dim``), and the card declines
+  D > 128 and other types (``check_kernel_inputs``).  The float32 kernel
+  agrees with its plain version entry by entry within 2e-5; a bfloat16
+  output is held row by row against ``flash_attention_ref32`` (the limit
+  is ``chip_smoke.py``'s ``flash_row_excess``).
 """
 
 from __future__ import annotations
@@ -48,11 +49,12 @@ __all__ = ["attention_ref", "attention_ref_chunked", "flash_attention_ref32",
            "flash_attention_ref", "kernel_head_dim", "check_kernel_inputs",
            "pad_head_dim", "flash_attention"]
 
-_BLOCK_K = 64                # KV tile of the float32 kernel and of ref32
+_BLOCK_K = 64                # KV tile of ref32
 _BLOCK_K16 = 128             # KV tile of the bfloat16 kernel and of _plain16
 _BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}   # query rows a block
 _NEG_INF = -1e30
 _MAX_Q_TILES = 65535         # the kernels' grid height, in query tiles
+_WIDTHS = {torch.float32: (64, 80, 128), torch.bfloat16: (64, 128)}
 
 
 def _mask(S: int, T: int, q_offset: int, causal: bool, window: int,
@@ -187,16 +189,18 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
                                  scale=scale).to(q.dtype)
 
 
-def kernel_head_dim(D: int) -> int:
-    """The width the card's kernels run a head dim ``D`` at: 64 for
-    D ≤ 64, 128 for 64 < D ≤ 128 (the two widths they are built for).
+def kernel_head_dim(D: int, dtype=torch.bfloat16) -> int:
+    """The width the card's kernel for ``dtype`` runs a head dim ``D`` at:
+    the least width it is built for that holds D, 64 or 128 in bfloat16,
+    64, 80 or 128 in float32 (hubert-xlarge's D = 80 runs unpadded there).
     Raises ``ValueError`` above 128: no kernel is built that wide (the
     bf16 kernel's 128-wide Q, K and V panels and its P·V accumulator, and
-    the f32 kernel's shared-memory tiles, would all double)."""
+    the f32 kernel's hi and lo tiles, would all double)."""
     if not 1 <= D <= 128:
         raise ValueError(f"flash_attention: head dim {D} is outside 1..128, "
                          "the widths the card's kernels take")
-    return 64 if D <= 64 else 128
+    return next(w for w in _WIDTHS.get(dtype, _WIDTHS[torch.bfloat16])
+                if D <= w)
 
 
 def check_kernel_inputs(q, k, v) -> None:
@@ -217,14 +221,15 @@ def check_kernel_inputs(q, k, v) -> None:
 
 
 def pad_head_dim(fn, q, k, v, *, causal=True, window=0, scale=None):
-    """``fn(q, k, v, causal=, window=, scale=)`` at the kernels' width:
-    q, k and v zero-padded along D to ``kernel_head_dim(D)``, ``scale``
-    taken from the true D (default D^-0.5), the output cut back to D.
+    """``fn(q, k, v, causal=, window=, scale=)`` at the kernel's width:
+    q, k and v zero-padded along D to ``kernel_head_dim(D, q.dtype)``,
+    ``scale`` taken from the true D (default D^-0.5), the output cut back
+    to D.
     Zero columns add exact zeros to every q·k, and zero columns of V give
     output columns that are cut off, so the result is the same function
     of the unpadded inputs."""
     D = q.shape[-1]
-    width = kernel_head_dim(D)
+    width = kernel_head_dim(D, q.dtype)
     scale = float(D ** -0.5) if scale is None else float(scale)
     if width == D:
         return fn(q, k, v, causal=causal, window=window, scale=scale)
@@ -238,8 +243,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention forward, dispatched by the device and type of ``q``.
 
     q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32
-    or bfloat16 on the card), D ≤ 128 on the card (run zero-padded to 64
-    or 128, ``pad_head_dim``).  Returns (B, H, S, D) in q's type.
+    or bfloat16 on the card), D ≤ 128 on the card (run zero-padded to the
+    route's next width, ``pad_head_dim``).  Returns (B, H, S, D) in q's
+    type.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -262,7 +268,7 @@ def _aligned(q, k, v) -> None:
 
 def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
     """Launch ``csrc/flash_attention.cu`` on float32 CUDA tensors of width
-    64 or 128 that ``flash_attention`` has checked; counted in
+    64, 80 or 128 that ``flash_attention`` has checked; counted in
     ``flash_attention.launches``."""
     _aligned(q, k, v)
     B, H, S, D = q.shape

@@ -5,10 +5,11 @@ Port of ``repro/kernels/walk_fused.py`` (both entries of
 and ``walk_segment_ref``.  ``walk_fused`` and ``walk_segment`` are the
 wrappers: on CPU tensors they run the plain versions ``walk_fused_ref``
 and ``walk_segment_ref``; on CUDA tensors they launch ``csrc/walk_fused.cu``
-(a tile of lanes per walker, the step loop inside the kernel; the whole
-walk on a persistent grid that hands walkers out through a zeroed int32
-count, the segment entry a tile a slot) and count the launch in
-``walk_fused.launches`` / ``walk_segment.launches``.
+(a tile of lanes per biased walker, a thread per simple one, the step
+loop inside the kernel, on a persistent grid that hands walkers out
+through an int32 count; the segment entry first lists its live slots and
+writes every slot's row, then walks only the live ones) and count the
+launch in ``walk_fused.launches`` / ``walk_segment.launches``.
 
 The segment entry is the walker relay's per-round kernel
 (``distributed/relay.py``): walker b enters at step ``t0[b]``, draws the
@@ -282,17 +283,28 @@ def walk_segment(prob, alias, bias, nbr, deg, frac, starts, t0, seed, u=None,
     _build.check("wid", wid, torch.int32, (B,))
     path = torch.empty((B, length + 1), dtype=torch.int32, device=nbr.device)
     frontier = torch.empty((B, 2), dtype=torch.int32, device=nbr.device)
+    stream = torch.cuda.current_stream(nbr.device).cuda_stream
+    key = (nbr.device.index, stream)
+    work = _SEGMENT_WORK.get(key)
+    if work is None or work.numel() < B + 3:
+        work = _SEGMENT_WORK[key] = torch.zeros(B + 3, dtype=torch.int32,
+                                                device=nbr.device)
     lib = _build.library("walk_fused")
     ptrs = [_build.ptr(x) for x in (prob, alias, bias, nbr, deg, frac, starts,
-                                    t0, wid, u, path, frontier)]
+                                    t0, wid, u, path, frontier, work)]
     err = lib.walk_segment_launch(
         *ptrs, B, V, C, Kin, length, base_log2, ctypes.c_float(stop_prob),
         int(uniform), int(frac is not None), ucols, int(seed),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        ctypes.c_void_p(stream))
     if err != 0:
+        del _SEGMENT_WORK[key]          # its counters may not be zero
         raise RuntimeError(f"walk_segment launch failed: {_build.error_string(err)}")
     walk_segment.launches += 1
     return path, frontier
 
 
 walk_segment.launches = 0
+# (device index, stream) -> the segment entry's int32 scratch: three
+# counters, zero between launches (the kernel leaves them so), then the
+# live-slot list; one per stream, so launches on two streams never share it
+_SEGMENT_WORK: dict = {}

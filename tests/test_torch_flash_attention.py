@@ -15,8 +15,15 @@ SMOKE configs' D = 16 and 8.  In bfloat16 the plain
 version is the tensor-core kernel's algorithm (``_plain16``); the
 all-float32 ``flash_attention_ref32`` is held at 2e-5 in float32, and
 ``chip_smoke.py``'s row-wise bfloat16 limit must pass the plain bfloat16
-algorithm and reject it one KV tile off at the band's edge.
+algorithm and reject it one KV tile off at the band's edge.  The float32
+kernel's arithmetic, three TF32 products for each of Q K^T and P V
+(operands split into hi = rna(x) and lo = rna(x - hi), ten mantissa bits
+rounded to nearest, ties away, as ``cvt.rna.tf32.f32`` does), is emulated
+here over the kernel's KV tiles and held against JAX's dense reference at
+the float32 atol; one TF32 product alone misses it.
 """
+
+import math
 
 import sys
 from pathlib import Path
@@ -190,10 +197,14 @@ def test_padded_head_dims_match_jax(case, dtype):
 
 def test_kernel_head_dims_and_declined_inputs():
     """The card's domain: every D ≤ 128 in float32 and bfloat16, run at
-    64 or 128; D > 128 (xlstm-350m's 256) and float16 raise
-    ``ValueError``."""
-    assert [kernel_head_dim(D) for D in (1, 8, 16, 63, 64, 65, 80, 128)] \
-        == [64] * 5 + [128] * 3
+    64 or 128 in bfloat16 and at 64, 80 or 128 in float32; D > 128 and
+    float16 raise ``ValueError``."""
+    dims = (1, 8, 16, 63, 64, 65, 80, 81, 128)
+    assert [kernel_head_dim(D) for D in dims] == [64] * 5 + [128] * 4
+    assert [kernel_head_dim(D, torch.bfloat16) for D in dims] \
+        == [64] * 5 + [128] * 4
+    assert [kernel_head_dim(D, torch.float32) for D in dims] \
+        == [64] * 5 + [80] * 2 + [128] * 2
     for D in (0, 129, 256):
         with pytest.raises(ValueError, match="head dim"):
             kernel_head_dim(D)
@@ -208,3 +219,99 @@ def test_kernel_head_dims_and_declined_inputs():
         check_kernel_inputs(*qkv(64, torch.float16))
     with pytest.raises(ValueError, match="head dim"):
         pad_head_dim(flash_attention_ref, *qkv(256, torch.float32))
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: add half an ulp of TF32 to the magnitude bits and
+    clear the 13 bits below it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, terms):
+    """``einsum(eq, a, b)`` on the tensor cores' TF32 operands: with three
+    terms lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), where hi = tf32(x) and
+    lo = tf32(x - hi); with one, hi(a) hi(b).  A product of two TF32
+    values is exact in float32, the sums are float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _flash_tf32(q, k, v, *, causal, window, terms=3):
+    """The float32 kernel's algorithm on the CPU: KV tiles of 64 keys (D =
+    64) or 32 (D = 80, 128), scores and P V as TF32 products
+    (``_tf32_product``), the scale folded into an exp2, l the sum of the
+    float32 p, masked scores at -1e30."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    block = 64 if D <= 64 else 32
+    c = torch.tensor(D ** -0.5 * math.log2(math.e), dtype=torch.float32)
+    qf = q.reshape(B, Hkv, rep, S, D)
+    m = torch.full((B, Hkv, rep, S, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, rep, S, D))
+    qpos = torch.arange(S)[:, None] + (T - S)
+    for j0 in range(0, T, block):
+        kt, vt = k[:, :, j0:j0 + block], v[:, :, j0:j0 + block]
+        s = _tf32_product("bkrsd,bktd->bkrst", qf, kt, terms) * c
+        kpos = torch.arange(j0, j0 + kt.shape[2])[None, :]
+        ok = torch.ones((S, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _tf32_product("bkrst,bktd->bkrsd", p, vt, terms)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).reshape(B, H, S, D)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits, rounds halfway cases away from
+    zero in both signs, and leaves TF32 values as they are."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + ulp,
+                      -(1 + ulp / 2), 3.0 + 3 * ulp / 2], dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 3.0 + 2 * ulp]
+    assert _tf32(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=1000)
+                         .astype(np.float32))
+    h = _tf32(y)
+    assert torch.equal(_tf32(h), h)
+    assert bool(((y - h).abs() <= h.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("case", PLAIN_CASES + [
+    (1, 16, 16, 128, 128, 80, False, 0)], ids=lambda c: "-".join(
+        str(x) for x in c))
+def test_three_tf32_products_meet_the_f32_limit(case):
+    """The float32 kernel's arithmetic (3xTF32 over its KV tiles, D = 80
+    at its own width) against JAX's dense reference in float32, within
+    2e-5."""
+    B, H, Hkv, S, T, D, causal, window = case
+    jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), "float32", S + T + H)
+    want = ref.attention_ref(*jx, causal=causal, window=window)
+    got = _flash_tf32(*tx, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL["float32"])
+
+
+def test_one_tf32_product_misses_the_f32_limit():
+    """One TF32 product per operand pair, the rest as above, is off by
+    more than the float32 atol on a seeded case: 3xTF32 is needed."""
+    B, H, Hkv, S, T, D = 1, 2, 1, 256, 256, 128
+    jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), "float32", 17)
+    want = _f32(ref.attention_ref(*jx, causal=True))
+    one = _f32(_flash_tf32(*tx, causal=True, window=0, terms=1))
+    three = _f32(_flash_tf32(*tx, causal=True, window=0))
+    assert np.abs(three - want).max() <= ATOL["float32"]
+    assert np.abs(one - want).max() > 5 * ATOL["float32"]

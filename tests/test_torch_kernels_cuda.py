@@ -19,7 +19,9 @@ single-entry rows), bit for bit; flash attention at ``chip_smoke.py``'s
 phase-2 cases and limits (``FLASH_CASES``, head dims 8, 16, 64, 80 and
 128; ``flash_limit``: ``FLASH_TOL`` in f32, the row-wise ``FLASH_ROW`` in
 bf16), which must also reject the kernel one tile off at the band's edge,
-and the inputs the card declines (D > 128, float16).  A CUDA kernel has no
+and the inputs the card declines (D > 128, float16).  The segment
+entry runs at four occupancies of its slots (mixed, all free, about 5 %
+live, all live).  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -131,24 +133,42 @@ def test_walk_kernel_equals_plain(kind, base_log2, fp, fed):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.parametrize("occupancy", ["mixed", "all free", "sparse",
+                                       "all live"])
 @pytest.mark.parametrize("fed", [True, False])
 @pytest.mark.parametrize("base_log2,fp", [(1, False), (2, False), (1, True),
                                           (2, True)])
 @pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
-def test_segment_kernel_equals_plain(kind, base_log2, fp, fed):
-    """The segment entry on a relay view (remote neighbours -(g+2)), start
-    steps over [0, L+1] with L and L+1 present, free slots and a permuted
-    slot → walker id map."""
+def test_segment_kernel_equals_plain(kind, base_log2, fp, fed, occupancy):
+    """The segment entry on a relay view (remote neighbours -(g+2)) with a
+    permuted slot → walker id map, at four occupancies: mixed (free slots,
+    start steps over [0, L+1] with L and L+1 present), all free, sparse
+    (about 5 % live at scattered slots with scattered start steps, t0 = L
+    among them) and all live at step 0."""
     st, cfg = _state(40, 64, fp, base_log2)
     view = relay_view(st, 10, 20)
     assert bool((view.nbr <= -2).any())
-    B, L = 301, 12
+    B, L = 2000, 12
     g = torch.Generator(device="cuda").manual_seed(5)
     starts = torch.randint(-1, 20, (B,), generator=g, device="cuda",
                            dtype=torch.int32)
     t0 = torch.randint(0, L + 2, (B,), generator=g, device="cuda",
                        dtype=torch.int32)
     t0[:2] = torch.tensor([L, L + 1], dtype=torch.int32)
+    if occupancy == "all free":
+        starts[:] = -1
+    elif occupancy == "sparse":
+        live = torch.randperm(B, generator=g, device="cuda")[: B // 20]
+        starts[:] = -1
+        starts[live] = torch.randint(0, 20, (len(live),), generator=g,
+                                     device="cuda", dtype=torch.int32)
+        t0[:] = L + 1
+        t0[live] = torch.randint(0, L + 1, (len(live),), generator=g,
+                                 device="cuda", dtype=torch.int32)
+        t0[live[::7]] = L
+    elif occupancy == "all live":
+        starts = starts.clamp(min=0)
+        t0[:] = 0
     wid = torch.randperm(B, generator=g, device="cuda").to(torch.int32) + 3
     u = torch.rand((L, B, 6), generator=g, device="cuda") if fed else None
     kw = dict(base_log2=base_log2, stop_prob=0.15 if kind == "ppr" else 0.0,
@@ -162,7 +182,10 @@ def test_segment_kernel_equals_plain(kind, base_log2, fp, fed):
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
-    assert bool((got[1][:, 0] >= 0).any())
+    if occupancy == "all free":
+        assert bool((got[0] == -1).all()) and bool((got[1] == -1).all())
+    else:
+        assert bool((got[1][:, 0] >= 0).any())
 
 
 @pytest.mark.parametrize("in_place", [True, False])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time this tree's walk kernels against other trees' on one GPU.
 
-    python3 tools/walk_ab.py [--tree NAME=DIR ...] [--scale 20] [--out PATH]
+    python3 tools/walk_ab.py [--tree NAME=DIR ...] [--scale 20] [--flash]
+                             [--out PATH]
 
 Builds ``walk_fused.cu`` and ``walk_sample.cu`` of this tree's ``csrc``
 and of each ``--tree`` (another tree's ``csrc`` directory, for example a
@@ -14,15 +15,27 @@ times, after one untimed pass, in four turns (each tree in order, then in
 reverse, twice; ``chip_smoke.cuda_ms``, median of 3 each turn): the
 whole-walk kernel on the main path's deepwalk (262,144 × 80), ppr (max
 400, stop 1/80) and simple batches; the segment entry on the deepwalk
-batch as one shard (every ``t0 = 0``) and on three relay-shaped launches
-of shard 0 of 4 (98,304 slots: round 1's, and later rounds' with one slot
-in twelve or in a hundred live); the per-step sample of all 262,144
-walkers in place, of 16,384 of them (a late node2vec trial's size), and
-of 262,144 walkers all on full hub rows (degree 256).  Every tree's
-output must equal this tree's, bit for bit, and its deepwalk, samples and
-round-1 segment must equal the plain versions.  Prints one line per case
-and, with ``--out``, writes every time and each tree's registers
-(``cuobjdump -res-usage``) and resident blocks per SM to a JSON file.
+batch as one shard (every ``t0 = 0``) and on relay-shaped launches of
+shard 0 of 4 (98,304 slots): round 1's (deepwalk and simple), later
+rounds' with one slot in twelve live (deepwalk and simple), one in a
+hundred, 5 % live at scattered slots with scattered start steps (``t0 =
+L`` among them), and all free (also at ppr's length, beside one PyTorch
+``fill_`` of as many words, the write rate's yardstick); the per-step
+sample of all 262,144 walkers in place, of 16,384 of them (a late
+node2vec trial's size), and of 262,144 walkers all on full hub rows
+(degree 256).  Every tree's output must equal this tree's, bit for bit,
+and its deepwalk, samples and round-1, late-round and 5 % segments must
+equal the plain versions.  A tree whose segment entry predates its
+scratch argument (``work``) is called without it.  With ``--flash``,
+each tree whose
+``flash_attention.cu`` has the 80-wide float32 instantiation
+(``Geometry<80>``) is built too, and its float32 attention is timed in the
+same turns at hubert-xlarge's widths (16 heads, D = 80, non-causal) and
+Mixtral 8x7B's (32 heads over 8 KV heads, D = 128, window 4096) over
+8,192 tokens, each tree's output within ``chip_smoke.FLASH_TOL`` of the
+plain version.  Prints one line per case and, with ``--out``, writes
+every time and each tree's registers (``cuobjdump -res-usage``) and
+resident blocks per SM to a JSON file.
 """
 
 import argparse
@@ -44,13 +57,26 @@ sys.path.insert(0, str(ROOT))
 SOURCES = ("walk_fused", "walk_sample")
 
 
-def build(trees, build_dir):
-    """One nvcc per (tree, source), all at once; returns the libraries by
-    tree, loaded with the entry points' signatures, and their paths."""
+def takes_work(csrc):
+    """Whether a tree's segment entry takes the scratch argument ``work``."""
+    return "int* work" in (csrc / "walk_fused.cu").read_text()
+
+
+def takes_d80(csrc):
+    """Whether a tree's float32 attention has an 80-wide instantiation."""
+    return "Geometry<80>" in (csrc / "flash_attention.cu").read_text()
+
+
+def build(trees, build_dir, flash=False):
+    """One nvcc per (tree, source), all at once (``flash_attention.cu``
+    too where ``flash`` and ``takes_d80``); returns the libraries by tree,
+    loaded with the entry points' signatures (a segment entry without
+    ``work`` with one pointer fewer), and their paths."""
     from repro_torch.kernels import _build
     procs = []
     for name, csrc in trees.items():
-        for src in SOURCES:
+        extra = ("flash_attention",) if flash and takes_d80(csrc) else ()
+        for src in SOURCES + extra:
             out = build_dir / name / f"lib{src}.so"
             out.parent.mkdir(parents=True, exist_ok=True)
             cmd = [_build._nvcc(), *_build._flags(src), "-o", str(out),
@@ -66,6 +92,8 @@ def build(trees, build_dir):
         lib = ctypes.CDLL(str(out))
         for fn, (argtypes, restype) in _build._SIGNATURES[src].items():
             f = getattr(lib, fn)
+            if fn == "walk_segment_launch" and not takes_work(trees[name]):
+                argtypes = argtypes[:12] + argtypes[13:]
             f.argtypes, f.restype = argtypes, restype
         err = lib.kernels_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
@@ -111,11 +139,39 @@ def main_state(scale):
     return st, cfg
 
 
+def walk_segment(lib, work, prob, alias, bias, nbr, deg, starts, t0, seed,
+                 wid, length, uniform=False):
+    """``ops.walk_segment`` (hashed uniforms, integer biases, base 2) on a
+    tree's library, passing the scratch ``work`` (zeroed once, int32, at
+    least B + 3) only to an entry that takes it (``work`` not None);
+    returns ``(path, frontier)``."""
+    import torch
+    from repro_torch.kernels import _build
+    B, (V, C) = starts.shape[0], nbr.shape
+    Kin = 1 if uniform else prob.shape[1]
+    if uniform:
+        prob = alias = bias = None
+    dev = nbr.device
+    path = torch.empty((B, length + 1), dtype=torch.int32, device=dev)
+    frontier = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    ptrs = [_build.ptr(x) for x in (prob, alias, bias, nbr, deg, None, starts,
+                                    t0, wid, None, path, frontier)
+            + (() if work is None else (work,))]
+    err = lib.walk_segment_launch(
+        *ptrs, B, V, C, Kin, length, 1, ctypes.c_float(0.0), int(uniform), 0,
+        0, int(seed), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"walk_segment launch failed: {err}")
+    return path, frontier
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[],
                     metavar="NAME=DIR", help="another tree's csrc directory")
     ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--flash", action="store_true",
+                    help="also time the trees' float32 attention")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every time, register count and occupancy "
                          "to this JSON file")
@@ -125,7 +181,9 @@ def main():
     if not torch.cuda.is_available():
         print("walk_ab: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import WALK_LEN, PPR_LEN, PPR_STOP, card_line, cuda_ms
+    from chip_smoke import (WALK_LEN, PPR_LEN, PPR_STOP, card_line, cuda_ms,
+                            flash_excess)
+    from repro_torch.kernels.flash_attention import flash_attention_ref32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
     from repro_torch.kernels.walk_sample import walk_sample_ref
@@ -134,7 +192,7 @@ def main():
         name, _, path = spec.partition("=")
         trees[name] = Path(path).resolve()
     t0 = time.perf_counter()
-    libs, paths = build(trees, ROOT / "build" / "walk_ab")
+    libs, paths = build(trees, ROOT / "build" / "walk_ab", args.flash)
     report = {"card": card_line(), "build_s": time.perf_counter() - t0,
               "trees": {}}
     print(f"{report['card']}; built {list(trees)} in "
@@ -144,8 +202,9 @@ def main():
         occ = {"whole biased": fl.walk_fused_occupancy(0, 0),
                "whole uniform": fl.walk_fused_occupancy(0, 1),
                "segment biased": fl.walk_fused_occupancy(1, 0),
+               "segment uniform": fl.walk_fused_occupancy(1, 1),
                "sample": sl.walk_sample_occupancy()}
-        regs = {src: res_usage(paths[name][src]) for src in SOURCES}
+        regs = {src: res_usage(path) for src, path in paths[name].items()}
         report["trees"][name] = {"blocks_per_sm": occ, "res_usage": regs}
         print(f"{name}: blocks/SM {occ}; registers (local bytes) by kernel "
               + "; ".join(f"{src} " + ", ".join(
@@ -166,53 +225,105 @@ def main():
     few = starts[: 16384].contiguous()
     # relay-shaped segment launches on shard 0 of 4 (a neighbour past
     # V / 4 is remote): round 1's 98,304 slots (its walkers start at
-    # step 0, a third of the slots free), and later rounds' (one slot in
-    # twelve, or in a hundred, live at steps 1..L-1)
+    # step 0, a third of the slots free); later rounds' (one slot in
+    # twelve, or in a hundred, live at steps 1..L-1); 5 % live at
+    # scattered slots with start steps over 0..L; and none live
     from repro_torch.distributed import relay_view
     view = relay_view(st, 0, V // 4)
     vtabs = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
-             view.deg, None)
+             view.deg)
     slots = 98_304
     local = starts[starts < V // 4]
     seg1 = torch.full((slots,), -1, dtype=torch.int32, device="cuda")
     seg1[: len(local)] = local
     perm = torch.randperm(slots, generator=g, device="cuda")
-    seg2, seg3 = torch.full_like(seg1, -1), torch.full_like(seg1, -1)
-    for seg, live in ((seg2, perm[: slots // 12]), (seg3, perm[: slots // 100])):
+    seg2, seg3, seg5 = (torch.full_like(seg1, -1) for _ in range(3))
+    for seg, live in ((seg2, perm[: slots // 12]), (seg3, perm[: slots // 100]),
+                      (seg5, perm[-slots // 20:])):
         seg[live] = torch.randint(0, V // 4, (len(live),), generator=g,
                                   device="cuda", dtype=torch.int32)
     t02 = torch.randint(1, WALK_LEN, (slots,), generator=g, device="cuda",
                         dtype=torch.int32)
+    t05 = torch.randint(0, WALK_LEN + 1, (slots,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    t05[perm[-slots // 20:][::50]] = WALK_LEN
     t01 = torch.zeros_like(seg1)
+    free = torch.full_like(seg1, -1)
     wid = torch.arange(slots, dtype=torch.int32, device="cuda")
+    wid_all = torch.arange(len(starts), dtype=torch.int32, device="cuda")
+    current = {}          # the tree in turn: its library, takes work
+    scratch = {}          # (tree, slots) -> its segment entry's zeroed work
+
+    def seg(tabs_, s_, t_, seed, w_, uniform=False, length=WALK_LEN):
+        work = None
+        if current["work"]:
+            work = scratch.setdefault(
+                (current["name"], len(s_)),
+                torch.zeros(len(s_) + 3, dtype=torch.int32, device="cuda"))
+        return walk_segment(current["lib"], work, *tabs_, s_, t_, seed, w_,
+                            length, uniform)
+    segments = {          # case: (starts, t0, uniform, length), shard view
+        "walk_segment round 1": (seg1, t01, False, WALK_LEN),
+        "walk_segment late round": (seg2, t02, False, WALK_LEN),
+        "walk_segment sparse round": (seg3, t02, False, WALK_LEN),
+        "walk_segment 5% live": (seg5, t05, False, WALK_LEN),
+        "walk_segment all free": (free, t01, False, WALK_LEN),
+        "walk_segment all free, ppr length": (free, t01, False, PPR_LEN),
+        "walk_segment simple round 1": (seg1, t01, True, WALK_LEN),
+        "walk_segment simple late round": (seg2, t02, True, WALK_LEN),
+    }
+    # the yardstick of an all-free ppr launch: one PyTorch fill of as many
+    # int32 words as its path block (timed here, used nowhere in the port)
+    block = torch.empty(slots * (PPR_LEN + 1), dtype=torch.int32,
+                        device="cuda")
     cases = {
         "walk_fused deepwalk": lambda: ops.walk_fused(*args_w, 7, length=WALK_LEN),
         "walk_fused ppr": lambda: ops.walk_fused(
             *args_w, 8, length=PPR_LEN, stop_prob=PPR_STOP),
         "walk_fused simple": lambda: ops.walk_fused(
             *args_w, 9, length=WALK_LEN, uniform=True),
-        "walk_segment deepwalk": lambda: ops.walk_segment(
-            *args_w, zeros, 7, length=WALK_LEN)[0],
-        "walk_segment round 1": lambda: ops.walk_segment(
-            *vtabs, seg1, t01, 7, None, wid, length=WALK_LEN),
-        "walk_segment late round": lambda: ops.walk_segment(
-            *vtabs, seg2, t02, 7, None, wid, length=WALK_LEN),
-        "walk_segment sparse round": lambda: ops.walk_segment(
-            *vtabs, seg3, t02, 7, None, wid, length=WALK_LEN),
+        "walk_segment deepwalk": lambda: seg(tabs, starts, zeros, 7,
+                                             wid_all)[0],
+        **{case: (lambda a=a: seg(vtabs, a[0], a[1], 7, wid, a[2], a[3]))
+           for case, a in segments.items()},
+        "fill -1, ppr path block (torch fill_)": lambda: block.fill_(-1),
         "walk_sample 262144": lambda: ops.walk_sample(*tabs, u, rows=starts),
         "walk_sample 16384": lambda: ops.walk_sample(
             *tabs, u[: 16384].contiguous(), rows=few),
         "walk_sample hubs": lambda: ops.walk_sample(*tabs, u, rows=hub_rows),
     }
+    flash = {}            # case: (q, k, v, causal, window), float32
+    if args.flash:
+        from repro_torch.kernels.flash_attention import flash_attention_f32
+        for case, (H, Hkv, D, causal, window) in (
+                ("flash f32 hubert 8k", (16, 16, 80, False, 0)),
+                ("flash f32 window 8k", (32, 8, 128, True, 4096))):
+            flash[case] = tuple(torch.randn(
+                (1, h, 8192, D), generator=g, device="cuda")
+                for h in (H, Hkv, Hkv)) + (causal, window)
+            cases[case] = (lambda a=flash[case]: flash_attention_f32(
+                *a[:3], causal=a[3], window=a[4],
+                scale=a[0].shape[-1] ** -0.5))
     # one untimed pass over every tree first (clocks, caches), then the
     # timed turns
     order = list(trees) + 2 * (list(trees) + list(trees)[::-1])
-    times = {c: {n: [] for n in trees} for c in cases}
-    first = {}
+    times = {c: {n: [] for n in trees
+                 if c not in flash or "flash_attention" in libs[n]}
+             for c in cases}
+    first, outs = {}, {}
     for k, name in enumerate(order):
         _build._LIBS.update(libs[name])
+        current.update(name=name, lib=libs[name]["walk_fused"],
+                       work=takes_work(trees[name]))
         for case, fn in cases.items():
+            if name not in times[case]:
+                continue
             ms, out = cuda_ms(fn)
+            if case in flash:        # held to the limit, not to the first tree
+                if k >= len(trees):
+                    times[case][name].append(ms)
+                outs[(case, name)] = out
+                continue
             if k >= len(trees):
                 times[case][name].append(ms)
             if case not in first:
@@ -226,16 +337,27 @@ def main():
     want = walk_fused_ref(*args_w, seed=7, length=WALK_LEN)
     if not torch.equal(first["walk_fused deepwalk"], want):
         raise SystemExit("walk_fused deepwalk != plain")
-    want = walk_segment_ref(*vtabs, seg1, t01, None, wid, seed=7,
-                            length=WALK_LEN)
-    if not all(torch.equal(a, b) for a, b in zip(first["walk_segment round 1"],
-                                                  want)):
-        raise SystemExit("walk_segment round 1 != plain")
+    for case in ("walk_segment round 1", "walk_segment late round",
+                 "walk_segment 5% live", "walk_segment simple late round"):
+        s_, t_, uniform, length = segments[case]
+        want = walk_segment_ref(*vtabs, None, s_, t_, None, wid, seed=7,
+                                length=length, uniform=uniform)
+        if not all(torch.equal(a, b) for a, b in zip(first[case], want)):
+            raise SystemExit(f"{case} != plain")
     for case, rows, uu in (("walk_sample 262144", starts, u),
                            ("walk_sample hubs", hub_rows, u)):
         want = walk_sample_ref(*tabs, uu, rows=rows)
         if not all(torch.equal(a, b) for a, b in zip(first[case], want)):
             raise SystemExit(f"{case} != plain")
+    report["flash_excess"] = {}
+    for case, (q, k, v, causal, window) in flash.items():
+        want = flash_attention_ref32(q, k, v, causal=causal, window=window)
+        for name in times[case]:
+            excess = flash_excess(outs[(case, name)], want, "float32")
+            report["flash_excess"][f"{case} {name}"] = excess
+            print(f"{case} {name}: {excess:.3f} of the f32 limit", flush=True)
+            if excess > 1:
+                raise SystemExit(f"{case}: {name} outside the f32 limit")
     report["times_ms"] = times
     report["median_ms"] = {c: {n: statistics.median(v) for n, v in t.items()}
                            for c, t in times.items()}
@@ -243,8 +365,8 @@ def main():
     for case, t in report["median_ms"].items():
         print(f"{case}: " + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
               + " ms (median of the turns' medians)", flush=True)
-    print(f"all trees equal, bit for bit, and equal to the plain versions; "
-          f"{len(hubs)} full hub rows", flush=True)
+    print(f"all trees' walks and samples equal, bit for bit, and equal to "
+          f"the plain versions; {len(hubs)} full hub rows", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
