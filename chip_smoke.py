@@ -12,18 +12,22 @@ Phases (any failure exits non-zero and prints no result line):
    (HGMMA or HMMA) and TMA (UTMALDG) instructions in their SASS; census of
    the walk kernels' six instantiations (``walk_census``): registers, no
    spill stores, and the resident blocks per SM (what the persistent grids
-   are sized by).
+   are sized by); census of ``update_fused.cu`` and ``alias_build.cu``
+   (``table_census``): every kernel with a 0-byte stack and no spills.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
    over the same sweep, with start steps spread over [0, L+1], free slots,
    remote neighbours encoded -(g+2) and a permuted slot → walker id map;
    ``update_fused`` over insert/delete/mixed × five config rows, plus a
-   batch wider than 2·C; ``walk_sample`` and ``walk_sample_uniform`` over
+   batch wider than 2·C, and on ``streamed_state``'s states (through
+   ``stream_updates`` first: a full row, an emptied row, stale member
+   lists, a DENSE -> ONE rebuild) at C = 37, 256 and 300 × the five rows,
+   with its prep kernels against ``plan_round``'s torch ops; ``walk_sample`` and ``walk_sample_uniform`` over
    base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
-   holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256 and
-   ``alias_build`` over K 2/5/16/17/33 (degrees 0 and C, empty and
-   single-entry rows); ``flash_attention`` over ``FLASH_CASES``, each case
+   holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256
+   (degrees 0 and C) and ``alias_build`` over ``ALIAS_KS`` (K 1 to 64;
+   all-zero, single-entry, equal and near-1e-30 rows); ``flash_attention`` over ``FLASH_CASES``, each case
    through the kernel of its type (float32: ``flash_attention.cu``, 3xTF32
    wgmma, bfloat16: ``flash_attention_sm90.cu``, the launch counters show
    which),
@@ -45,8 +49,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
    100,000 updates, 262,144 deepwalk walkers of length 80 after each
    round, then one ppr batch (max 400, stop 1/80) and one simple batch.
-   Launch counters are zeroed just before and read just after.  Round 1's
-   state is held against ``batched_update`` on a copy.
+   Launch counters are zeroed just before and read just after (the
+   update's prep kernels too, ``plan_round.launches``: one a round).
+   Round 1's state is held against ``batched_update`` on a copy; round 10
+   is replayed on a copy of round 9's state: its prepass against
+   ``plan_round``'s torch ops, then through ``batched_update`` and, under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises),
+   through ``ops.update_fused`` (``no_sync_round``), both equal to the
+   main path's state and stats.
 3d. Right after the main path, on its final state, the counters zeroed
    just before and read just after: ``radix_hist(state.bias, state.deg,
    num_k=16)`` must equal ``(state.digitsum, state.gsize)`` and
@@ -109,8 +119,10 @@ Needs one card, the CUDA toolkit (nvcc) and nothing from the network.
 The sharded phase spawns its ranks with the ``spawn`` start method and
 stops them all, whatever happens.  ``--scale`` cuts the graph for a
 quicker run; ``--report`` writes every number measured to a JSON file;
-``--profile DIR`` adds one profiled round (``torch.profiler``) and writes
-its trace there.
+``--profile DIR`` adds, after the per-step paths, one profiled round
+(``torch.profiler``; the ingest's host ops, device events and host syncs
+by ``trace_counts``) and one profiled batch of each per-step path, and
+writes the round's trace there.
 """
 
 import argparse
@@ -414,6 +426,109 @@ def check_sample_kernels(rng):
     return n
 
 
+# (adaptive, fp_bias, base_log2): the update kernel's five config rows
+UPDATE_CONFIGS = [(True, False, 1), (False, False, 1), (True, True, 1),
+                  (True, False, 2), (True, True, 2)]
+STREAMED_CAPACITIES = (37, 256, 300)   # not a multiple of 32, the main
+                                       # path's, past it
+ALIAS_KS = (1, 2, 5, 16, 17, 31, 32, 33, 63, 64)
+
+
+def streamed_inputs(C, fp, seed):
+    """The numpy inputs of ``streamed_state``: the graph ``(src, dst, w)``
+    of 16 vertices (degrees 1..C/2, 6-bit biases) and a stream ``(ins, u,
+    v, w)`` of single-edge updates: row 0 filled to C (two inserts
+    rejected), row 1 emptied, row 2 a group 0 turned DENSE by an insert
+    (its list left stale) and emptied by deletes (DENSE -> EMPTY keeps the
+    list), row 3 a group 0 DENSE -> ONE (a rebuild), row 4 the same as row
+    2 with a two-entry stale list, appended to once (ONE, an entry past
+    gsize), then 60 random updates on rows 5-7.  Member bias 1 has digit 1
+    in group 0 only; bias 0 is in no group; in fp mode a bias b is given
+    as (b + 0.5) / 4 (lam 4), the same integer part."""
+    V = 16
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, C // 2 + 1, V)
+    src = np.repeat(np.arange(V), deg).astype(np.int32)
+    dst = rng.integers(0, V, src.size).astype(np.int32)
+    w = rng.integers(1, 64, src.size).astype(np.int32)
+    nbr = [dst[src == r] for r in range(V)]
+    seq = [(True, 0, 1000 + i, int(rng.integers(1, 60)))
+           for i in range(C - deg[0] + 2)]
+    for r in (1, 2, 3, 4):
+        seq += [(False, r, int(x), 0) for x in nbr[r]]
+    seq += [(True, 2, 50, 0), (True, 2, 51, 0), (True, 2, 52, 1),
+            (True, 2, 53, 1)] + [(False, 2, 50 + i, 0) for i in range(4)]
+    seq += [(True, 3, 60, 1), (True, 3, 61, 0), (True, 3, 62, 0)]
+    seq += [(True, 4, 70 + i, int(i >= 3)) for i in range(6)]
+    seq += [(False, 4, 70 + i, 0) for i in range(6)]
+    seq += [(True, 4, 80 + i, 0) for i in range(3)] + [(True, 4, 90, 1)]
+    for _ in range(60):
+        r = int(rng.integers(5, 8))
+        if rng.random() < 0.55:
+            seq.append((True, r, int(rng.integers(0, 8)),
+                        int(rng.choice([0, 1, 2, 3, 5, 7]))))
+        else:
+            seq.append((False, r, int(rng.integers(0, 8)), 0))
+    ins, uu, vv, ww = (np.array(x) for x in zip(*seq))
+    uu, vv = uu.astype(np.int32), vv.astype(np.int32)
+    if fp:
+        w = ((w + 0.5) / 4.0).astype(np.float32)
+        ww = ((ww + 0.5) / 4.0).astype(np.float32)
+    else:
+        ww = ww.astype(np.int32)
+    return (src, dst, w), (ins, uu, vv, ww)
+
+
+def streamed_config(C, adaptive, fp, base_log2):
+    """``streamed_state``'s configuration: its keyword arguments of
+    ``BingoConfig``."""
+    return dict(num_vertices=16, capacity=C, bias_bits=6, base_log2=base_log2,
+                fp_bias=fp, lam=4.0, adaptive=adaptive)
+
+
+def streamed_state(C, adaptive, fp, base_log2, seed, device="cuda"):
+    """A state that went through ``stream_updates`` after ``from_edges``
+    (``streamed_inputs``), and its config."""
+    import torch
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.updates import stream_updates
+    cfg = dg.BingoConfig(**streamed_config(C, adaptive, fp, base_log2))
+    graph, stream = streamed_inputs(C, fp, seed)
+    st = dg.from_edges(cfg, *graph, device=device)
+    st, _ = stream_updates(st, cfg, *[torch.from_numpy(x).to(device)
+                                      for x in stream])
+    return st, cfg
+
+
+def stale_lists(st, cfg):
+    """Whether ``streamed_state`` left what it promises: row 0 full, row
+    1 empty, and (adaptive mode) member lists that gsize and gtype do not
+    describe: row 2's EMPTY group 0 with an entry, row 4's ONE group 0
+    with an entry past gsize."""
+    from repro_torch.core import dyngraph as dg
+    gm, gt, gs = (x.cpu().numpy() for x in (st.gmem, st.gtype, st.gsize))
+    return (int(st.deg[0]) == cfg.capacity and int(st.deg[1]) == 0
+            and (not cfg.adaptive
+                 or (gt[2, 0] == dg.EMPTY and gm[2, 0, 0] >= 0
+                     and gt[4, 0] == dg.ONE and gs[4, 0] == 1
+                     and gm[4, 0, 1] >= 0)))
+
+
+def alias_weights(rng, V, K):
+    """Weight rows (V, K) for ``alias_build``: random rows, an all-zero
+    row, single-entry rows (first and last entry), equal weights, and
+    totals near the 1e-30 floor of the scaled weights."""
+    w = (rng.random((V, K)) * rng.integers(1, 100, (V, K))).astype(np.float32)
+    w[0] = 0.0
+    w[1, 1:] = 0.0
+    w[2, :-1] = 0.0
+    w[3] = 7.0
+    w[4] = 1e-30 / K
+    w[5] = rng.random(K).astype(np.float32) * 1e-31
+    w[6, ::2] = 1e-30
+    return w
+
+
 def check_update_kernel(rng):
     import torch
     from repro_torch.core import dyngraph as dg
@@ -444,9 +559,7 @@ def check_update_kernel(rng):
         return st_k, st_p
 
     V, C, Bn = 4096, 64, 4096
-    for adaptive, fp, base_log2 in [(True, False, 1), (False, False, 1),
-                                    (True, True, 1), (True, False, 2),
-                                    (True, True, 2)]:
+    for adaptive, fp, base_log2 in UPDATE_CONFIGS:
         src, dst, w = random_graph(rng, V, C // 2, 6)
         wv = w.astype(np.float32) + rng.random(w.size).astype(np.float32) \
             if fp else w
@@ -470,13 +583,40 @@ def check_update_kernel(rng):
     st_p = clone_state(st_k)
     batch = round_of(4, (src[src < 4], dst[src < 4]), Bn, "mixed", False)
     compare(st_k, st_p, cfg, batch, "B > 2C")
-    return n + 1
+    n += 1
+    # states that went through stream_updates (stale member lists, full
+    # and emptied rows), then a round touching every streamed row; and
+    # the prep kernels against plan_round's torch ops on the CPU
+    from repro_torch.kernels.update_fused import plan_round
+    for C in STREAMED_CAPACITIES:
+        for adaptive, fp, base_log2 in UPDATE_CONFIGS:
+            what = (f"after streaming, C={C}, adaptive={adaptive}, fp={fp}, "
+                    f"base 2^{base_log2}")
+            st_k, cfg = streamed_state(C, adaptive, fp, base_log2,
+                                       seed=C + base_log2)
+            need(stale_lists(st_k, cfg), f"{what}: not the streamed state "
+                 "promised")
+            nbr = st_k.nbr.cpu().numpy()
+            live = nbr >= 0
+            edges = (np.nonzero(live)[0].astype(np.int32), nbr[live])
+            batch = round_of(16, edges, 64, "mixed", fp)
+            batch[1][:24] = torch.arange(8, dtype=torch.int32,
+                                         device="cuda").repeat_interleave(3)
+            want = plan_round(cfg, *[x.cpu() for x in batch])
+            got = plan_round(cfg, *batch)
+            for f, a, b in zip(want._fields, got, want):
+                need(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                     f"{what}: plan_round field {f} != its torch ops")
+            compare(st_k, clone_state(st_k), cfg, batch, what)
+            n += 1
+    return n
 
 
 def check_table_kernels(rng):
     """``radix_hist`` and ``alias_build`` == their plain versions, bit for
-    bit: K 4/16/31 × C 8/256 with degrees 0 and C present; K 2/5/16/17/33
-    with an empty and a single-entry row."""
+    bit: K 4/16/31 × C 8/256 with degrees 0 and C present; K over
+    ``ALIAS_KS`` on ``alias_weights``' rows, 4,097 of them (a last warp
+    part full)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.alias_build import alias_build_ref
@@ -495,10 +635,8 @@ def check_table_kernels(rng):
             need(all(torch.equal(a, b) for a, b in zip(got, want)),
                  f"radix_hist != plain (K={K}, C={C})")
             n += 1
-    for K in (2, 5, 16, 17, 33):
-        w = (rng.random((V, K)) * rng.integers(1, 100, (V, K))).astype(np.float32)
-        w[0], w[1, 1:] = 0.0, 0.0
-        w = torch.from_numpy(w).cuda()
+    for K in ALIAS_KS:
+        w = torch.from_numpy(alias_weights(rng, V + 1, K)).cuda()
         got = ops.alias_build(w)
         want = alias_build_ref(w)
         torch.cuda.synchronize()
@@ -616,9 +754,9 @@ def check_flash_kernel(rng):
 
 def kernel_resources(name):
     """Per kernel function of the library of ``csrc/<name>.cu``: ptxas's
-    registers and spill stores (from this run's build log; from
-    ``cuobjdump -res-usage``'s REG and LOCAL when the library was built
-    before), in the order ptxas reports them."""
+    registers, stack frame and spill stores (from this run's build log;
+    from ``cuobjdump -res-usage``'s REG, STACK and LOCAL when the library
+    was built before), in the order ptxas reports them."""
     import re
     from repro_torch.kernels import _build
     log = _build.BUILD_LOG.get(name)
@@ -632,6 +770,8 @@ def kernel_resources(name):
             elif fn is not None and "spill stores" in line:
                 fn["spill_stores"] = int(re.search(r"(\d+) bytes spill stores",
                                                    line).group(1))
+                fn["stack"] = int(re.search(r"(\d+) bytes stack frame",
+                                            line).group(1))
             elif fn is not None and "Used" in line and "registers" in line:
                 fn["registers"] = int(re.search(r"Used (\d+) registers",
                                                 line).group(1))
@@ -640,10 +780,31 @@ def kernel_resources(name):
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "-res-usage",
          str(_build._lib_path(name))], capture_output=True, text=True,
         timeout=300, check=True).stdout
-    return [{"function": f, "registers": int(r), "spill_stores": int(lo)}
-            for f, r, lo in re.findall(
-                r"Function ([^:\s]+):\s*REG:(\d+) STACK:\d+ SHARED:\d+ "
+    return [{"function": f, "registers": int(r), "stack": int(sk),
+             "spill_stores": int(lo)}
+            for f, r, sk, lo in re.findall(
+                r"Function ([^:\s]+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ "
                 r"LOCAL:(\d+)", res)]
+
+
+def table_census():
+    """Every kernel function of ``update_fused.cu`` (the round and its two
+    prep kernels and the mark of U) and ``alias_build.cu`` (its four
+    row widths): registers, stack frame and spill stores
+    (``kernel_resources``); no stack and no spills, so nothing of the
+    warp-wide Vose row lives in local memory."""
+    out = {}
+    for name in ("update_fused", "alias_build"):
+        res = kernel_resources(name)
+        for x in res:
+            print(f"{name} census: {x['function'][-60:]}: "
+                  f"{x.get('registers')} registers, {x.get('stack')} bytes "
+                  f"stack, {x.get('spill_stores')} bytes spill stores",
+                  flush=True)
+        need(res and all(x.get("stack") == 0 and x.get("spill_stores") == 0
+                         for x in res), f"{name}: stack or spills {res}")
+        out[name] = res
+    return out
 
 
 def sm90_census():
@@ -812,8 +973,8 @@ def update_work(plan, old, new, cfg):
     max(old, new degree); write each group's member list up to the
     larger of its old and new kept length (ginv below max degree in
     baseline mode); write the O(K) counters and the Kin alias row.  Per
-    lane the kernel reads its sorted insert or delete lane and writes
-    the delete flag; per row its five segment words.  Operations: the
+    lane the kernel reads its sorted insert or delete lane (value and
+    rank); per row its five segment words.  Operations: the
     rebuild's digit extract, test and add per group and slot, one compare
     per delete lane and slot, Kin^2 Vose steps.
     """
@@ -838,7 +999,7 @@ def update_work(plan, old, new, cfg):
              + int(torch.maximum(kept(old), kept(new)).sum())
              + (0 if cfg.adaptive else K * int(dmax.sum()))
              + rows * (2 * K + 1 + 2 * Kin) + 5 * rows
-             + cols * int(n_ins.sum()) + 3 * int(n_del.sum()))
+             + cols * int(n_ins.sum()) + 2 * int(n_del.sum()))
     nbytes = 4 * words + rows * K                                  # gtype
     post = (d0 + n_ins).clamp(max=C)
     ops = (3 * K * int(d1.sum()) + int((n_del * post).sum())
@@ -899,6 +1060,7 @@ def main_path(args, report):
     applied = 0
     upd_err = 0.0
     ops.reset_launch_counts()
+    plan_round.launches = 0
     torch.cuda.synchronize()
     t_main = time.perf_counter()
     t_r = t_main
@@ -930,8 +1092,10 @@ def main_path(args, report):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     report["launches"] = counts
-    print(f"main path launches: {counts}", flush=True)
+    print(f"main path launches: {counts}; update prep kernels (plan_round) "
+          f"{plan_round.launches} rounds", flush=True)
     need(counts["update_fused"] == rounds, "update_fused launches != rounds")
+    need(plan_round.launches == rounds, "plan_round's kernels != rounds")
     need(counts["walk_fused"] == rounds + 2, "walk_fused launches != walks")
 
     # outputs: the paths are real walks on the current state
@@ -979,7 +1143,13 @@ def main_path(args, report):
               f"{walks[kind]['step_bytes_ms']:.3f} ms", flush=True)
 
     last = dev_round(rounds - 1)
-    plan = plan_round(pre_last, cfg, *last)
+    plan = plan_round(cfg, *last)
+    plain_plan = plan_round(cfg, *[x.cpu() for x in last])
+    for f, a, b in zip(plan._fields, plan, plain_plan):
+        need(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+             f"round 10: plan_round field {f} != its torch ops")
+    del plain_plan
+    plan_ms, _ = cuda_ms(lambda: plan_round(cfg, *last))
     upd_ms, _ = cuda_ms(lambda s: launch_round(s, cfg, plan),
                         setup=lambda: clone_state(pre_last))
     round_wrapper_ms, _ = cuda_ms(lambda s: ops.update_fused(s, cfg, *last),
@@ -989,6 +1159,7 @@ def main_path(args, report):
         setup=lambda: clone_state(pre_last))
     upd_err = max(upd_err, state_diff(plain_last, st, "round 10 vs batched_update"))
     del plain_last
+    no_sync_round(pre_last, cfg, last, st, round_stats[-1])
     uwork = update_work(plan, pre_last, st, cfg)
     u_ms, u_by = bound(uwork["bytes"], uwork["ops"])
     dw = walks["deepwalk"]
@@ -1011,24 +1182,50 @@ def main_path(args, report):
     report.update(
         walks=walks,
         update=dict(uwork, kernel_ms=upd_ms, round_ms=round_wrapper_ms,
+                    plan_ms=plan_ms,
                     plain_ms=upd_plain_ms, bound_ms=u_ms, bound_by=u_by,
                     batch=batch, updates_per_s=batch / round_wrapper_ms * 1e3),
         kernels=kernels)
-    print(f"update_fused: kernel {upd_ms:.3f} ms, whole round "
-          f"{round_wrapper_ms:.3f} ms ({batch / round_wrapper_ms * 1e3:.0f} "
+    print(f"update_fused: kernel {upd_ms:.4f} ms, prepass (plan_round) "
+          f"{plan_ms:.4f} ms, whole round "
+          f"{round_wrapper_ms:.4f} ms ({batch / round_wrapper_ms * 1e3:.0f} "
           f"updates/s), {uwork['affected_rows']} rows; plain {upd_plain_ms:.1f} "
-          f"ms, states equal after rounds 1 and 10; needs "
+          f"ms, states equal after rounds 1 and 10 (and the prepass to its "
+          f"torch ops); needs "
           f"{uwork['bytes'] / 1e9:.4f} GB and {uwork['ops'] / 1e9:.3f} G ops "
           f"-> bound {u_ms:.4f} ms ({u_by})", flush=True)
+    profile = None
     if args.profile:
-        try:        # a diagnostic: a profiler fault does not fail the smoke
-            report["profile"] = profile_round(clone_state(pre_last), cfg,
-                                              last, starts, args.profile)
-        except Exception as e:              # noqa: BLE001
-            traceback.print_exc()
-            print(f"profiled round: failed ({e!r})", flush=True)
-            report["profile"] = {"error": repr(e)}
-    return kernels, engine, cfg, starts, stream
+        def profile():
+            try:    # a diagnostic: a profiler fault does not fail the smoke
+                report["profile"] = profile_round(pre_last, cfg, last, starts,
+                                                  args.profile)
+            except Exception as e:          # noqa: BLE001
+                traceback.print_exc()
+                print(f"profiled round: failed ({e!r})", flush=True)
+                report["profile"] = {"error": repr(e)}
+    return kernels, engine, cfg, starts, stream, profile
+
+
+def no_sync_round(pre, cfg, lanes, want, want_stats):
+    """The main path's last round once more through ``ops.update_fused``
+    under ``torch.cuda.set_sync_debug_mode("error")``: any host sync in
+    the round raises; its state and stats must equal the main path's."""
+    import torch
+    from repro_torch.kernels import ops
+    st = clone_state(pre)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, stats = ops.update_fused(st, cfg, *lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    state_diff(want, st, "round 10 under sync debug mode")
+    need(stats_list(stats) == want_stats,
+         "round 10 under sync debug mode: stats != the main path's")
+    print("update_fused: round 10 again under set_sync_debug_mode('error'): "
+          "no host sync, state and stats equal", flush=True)
 
 
 def stats_list(stats):
@@ -1212,7 +1409,7 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
     from repro_torch.serve import DynamicWalkEngine
     st = engine.state
     V = cfg.num_vertices
-    out = {}
+    out, engines = {}, {}
     cases = (
         ("whole deepwalk", WalkParams("deepwalk", WALK_LEN), None),
         ("node2vec", WalkParams("node2vec", WALK_LEN, p=N2V_P, q=N2V_Q), None),
@@ -1286,15 +1483,18 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
                   f"launch), kernel {sl['kernel_ms_sum']:.3f} ms in all "
                   f"(profiler)", flush=True)
             out[name]["walk_sample"] = sl
-        if profile_dir is not None:
-            try:    # a diagnostic: a profiler fault does not fail the smoke
-                out[name]["profile"] = profiled(
-                    lambda: eng.walk(starts),
-                    profile_dir / f"{name.replace(' ', '_')}_trace.json", name,
-                    keep=False)
-            except Exception as e:          # noqa: BLE001
-                traceback.print_exc()
-                out[name]["profile"] = {"error": repr(e)}
+        engines[name] = eng
+    # profiled last: a profiler run before sample_launches' has cost
+    # that trace kernel events
+    for name, eng in engines.items() if profile_dir is not None else ():
+        try:        # a diagnostic: a profiler fault does not fail the smoke
+            out[name]["profile"] = profiled(
+                lambda: eng.walk(starts),
+                profile_dir / f"{name.replace(' ', '_')}_trace.json", name,
+                keep=False)
+        except Exception as e:              # noqa: BLE001
+            traceback.print_exc()
+            out[name]["profile"] = {"error": repr(e)}
     report["per_step"] = out
 
     # one per-step sample of every walker at the starts, kernel vs plain,
@@ -2116,18 +2316,87 @@ def profiled(fn, trace, what, keep=True):
     return out
 
 
+def trace_counts(events, span=None):
+    """What a ``torch.profiler`` Chrome trace holds: top-level host ops,
+    device events (kernels, memsets, memcpys) and host syncs (count and
+    ms waiting), the host span and the device's busy ms and idle share
+    over its own span.  With ``span`` (t0, t1) in the trace's µs: only
+    host calls inside it and the device events they launched."""
+    t0, t1 = span if span else (float("-inf"), float("inf"))
+    inside = [e for e in events if t0 <= float(e.get("ts", 0)) <= t1]
+    host = sorted((e for e in inside if e.get("cat") == "cpu_op"),
+                  key=lambda e: float(e["ts"]))
+    top, end = [], float("-inf")
+    for e in host:
+        if float(e["ts"]) >= end:
+            top.append(e)
+            end = float(e["ts"]) + float(e.get("dur", 0))
+    rt = [e for e in inside if e.get("cat") == "cuda_runtime"]
+    corr = {e.get("args", {}).get("correlation") for e in rt}
+    dev = sorted((e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+                  and e.get("args", {}).get("correlation") in corr),
+                 key=lambda e: float(e["ts"]))
+    syncs = [e for e in rt if "Synchronize" in e.get("name", "")]
+    busy, last = 0.0, float("-inf")
+    for e in dev:
+        a, b = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        busy += max(0.0, b - max(a, last))
+        last = max(last, b)
+    dspan = (last - float(dev[0]["ts"])) if dev else 0.0
+    return {"host_ops": len(top),
+            "device_events": len(dev),
+            "kernels": sum(e["cat"] == "kernel" for e in dev),
+            "memsets": sum(e["cat"] == "gpu_memset" for e in dev),
+            "memcpys": sum(e["cat"] == "gpu_memcpy" for e in dev),
+            "syncs": len(syncs),
+            "sync_ms": sum(float(e.get("dur", 0)) for e in syncs) / 1e3,
+            "host_ms": ((max(float(e["ts"]) + float(e.get("dur", 0))
+                             for e in top) - float(top[0]["ts"])) / 1e3
+                        if top else 0.0),
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / dspan if dspan else None}
+
+
+def annotation_span(events, name):
+    """(t0, t1) of the first ``record_function(name)`` span of a trace, in
+    its µs, or None."""
+    ann = [e for e in events if e.get("name") == name
+           and e.get("cat") == "user_annotation"]
+    if not ann:
+        return None
+    t0 = float(ann[0]["ts"])
+    return t0, t0 + float(ann[0]["dur"])
+
+
 def profile_round(state, cfg, lanes, starts, out_dir):
     """One serving round (``ingest`` of the last round's lanes, then a
-    deepwalk batch) under ``torch.profiler``, after a warm-up walk."""
+    deepwalk batch) under ``torch.profiler``, after a warm-up round; the
+    ingest's own counts (``trace_counts`` over its ``record_function``
+    span) beside the round's."""
+    import torch
     from repro_torch.core.walks import WalkParams
     from repro_torch.serve import DynamicWalkEngine
-    eng = DynamicWalkEngine(state, cfg, WalkParams("deepwalk", WALK_LEN), seed=1)
+    eng = DynamicWalkEngine(clone_state(state), cfg,
+                            WalkParams("deepwalk", WALK_LEN), seed=1)
+    eng.ingest(*lanes)
     eng.walk(starts)
+    eng = DynamicWalkEngine(state, cfg, WalkParams("deepwalk", WALK_LEN),
+                            seed=1)
 
     def round_():
-        eng.ingest(*lanes)
+        with torch.profiler.record_function("ingest"):
+            eng.ingest(*lanes)
         eng.walk(starts)
-    return profiled(round_, out_dir / "round_trace.json", "round")
+    trace = out_dir / "round_trace.json"
+    out = profiled(round_, trace, "round")
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    span = annotation_span(events, "ingest")
+    if span:
+        out["ingest"] = trace_counts(events, span)
+        print(f"profiled round, ingest of {int(lanes[0].shape[0])} updates: "
+              f"{out['ingest']}", flush=True)
+    return out
 
 
 def main():
@@ -2159,6 +2428,7 @@ def main():
         print(f"  {name}: {'; '.join(regs)}", flush=True)
     report["sm90"] = sm90_census()
     report["walk_census"] = walk_census()
+    report["table_census"] = table_census()
     card = card_line()
     report["card"] = card
     torch.cuda.init()
@@ -2190,11 +2460,14 @@ def main():
                  f"{old[0]:.3f}, fault {old[1]:.1f}"), flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
-    kernels, engine, cfg, starts, stream = main_path(args, report)
+    kernels, engine, cfg, starts, stream, profile = main_path(args, report)
     # ---- phase 3d: the table kernels on the final state
     tables = table_phase(engine, cfg, report)
     # ---- phase 3b: the per-step paths
     kernels += per_step_paths(engine, cfg, starts, report, args.profile)
+    if profile is not None:         # after the profiler-counted replays
+        profile()
+        profile = None              # frees the round's saved state
     # ---- phase 3c: the sharded path, then the streaming updates
     kernels.insert(1, sharded_path(engine, cfg, starts, stream, report))
     streaming(engine, cfg, report, rng)

@@ -6,7 +6,7 @@ its K radix groups (+1 decimal group in fp mode).  ``build_alias`` runs
 reference's order: the first small entry is retired against the first
 large one, and ``scaled[l] + (scaled[s] - 1.0)`` keeps its parentheses,
 so the float32 results are bit-identical to ``alias._build_row``.  The
-update kernel (``csrc/update_fused.cu``) runs the same loop per row.
+CUDA kernels (``csrc/alias_row.cuh``) pick the same pairs per row.
 """
 
 from __future__ import annotations

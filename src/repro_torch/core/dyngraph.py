@@ -236,7 +236,7 @@ def _segment_rank(keys):
     first = torch.zeros(B, dtype=torch.bool, device=dev)
     for k in keys:
         first[1:] = first[1:] | (k[1:] != k[:-1])
-    first[0] = True
+    first[:1] = True            # a fill: no host copy, and B may be 0
     return idx - torch.cummax(torch.where(first, idx, -1), dim=0).values
 
 

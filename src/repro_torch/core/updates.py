@@ -354,13 +354,15 @@ def sort_deletes(cfg, u, v, dele):
 def round_stats(cfg, U, old_gtype, new_gtype, active, lane_ok, ins, dele,
                 n_ins, n_del) -> UpdateStats:
     """``UpdateStats`` of a round from its affected rows' old/new group
-    types and the applied counts."""
+    types and the applied counts.  Every op keeps its shape, so on CUDA
+    tensors nothing waits on the host."""
     V = cfg.num_vertices
+    i32 = torch.int32
     valid_row = (U < V)[:, None]
     pair = old_gtype.to(torch.int64) * 5 + new_gtype.to(torch.int64)
     changed = (old_gtype != new_gtype) & valid_row
-    trans = torch.bincount(pair[changed], minlength=25)[:25].reshape(5, 5)
-    i32 = torch.int32
+    trans = torch.zeros(25, dtype=i32, device=U.device).scatter_add_(
+        0, pair.reshape(-1), changed.reshape(-1).to(i32)).reshape(5, 5)
     rejected = torch.zeros(NUM_REASONS, dtype=i32, device=U.device)
     rejected[R_VERTEX] = (active & ~lane_ok).sum(dtype=i32)
     rejected[R_CAPACITY] = ins.sum(dtype=i32) - n_ins

@@ -47,7 +47,10 @@ _SIGNATURES = {
         "walk_fused_occupancy": ([_I, _I], _I),
     },
     "update_fused": {
-        "update_fused_launch": ([_P] * 23 + [_I] * 8 + [_F, _F] + [_P], _I),
+        "update_prep_lanes_launch": ([_P] * 10 + [_I] * 2 + [_F, _P], _I),
+        "update_first_flags_launch": ([_P] * 2 + [_I] * 2 + [_P], _I),
+        "update_prep_rows_launch": ([_P] * 16 + [_I] * 2 + [_P], _I),
+        "update_fused_launch": ([_P] * 23 + [_I] * 9 + [_F, _F] + [_P], _I),
     },
     "walk_sample": {
         "walk_sample_launch": ([_P] * 10 + [_I] * 6 + [_P], _I),

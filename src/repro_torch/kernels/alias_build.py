@@ -5,10 +5,10 @@ oracle ``kernels/ref.py:alias_build_ref``.  The plain version is the
 port's ``core/alias.py:build_alias``, which follows the reference's
 ``alias._build_row`` in its float order.  ``alias_build`` is the wrapper:
 on CPU tensors it runs ``alias_build_ref``; on CUDA tensors it launches
-``csrc/alias_build.cu`` (one thread per row, the row loop of
-``csrc/alias_row.cuh`` that the update kernel shares) and counts the
-launch in ``alias_build.launches``.  Kernel and plain version are equal
-bit for bit.
+``csrc/alias_build.cu`` (a row to a group of 8, 16 or 32 lanes, the
+warp-wide Vose row of ``csrc/alias_row.cuh`` that the update kernel
+shares) and counts the launch in ``alias_build.launches``.  Kernel and
+plain version are equal bit for bit.
 """
 
 from __future__ import annotations

@@ -7,9 +7,14 @@ run it on the CPU), JAX's ``core.alias.build_alias`` (the oracle
 tensors (its plain version).  Against ``build_alias`` the port is
 bit-equal; against the Pallas kernel, which adds ``scaled + sval - 1`` in
 another order, prob agrees at ``atol=1e-5`` and alias exactly, as the JAX
-package's own test holds its kernel.  On a port state the tables equal
-``state.itable`` bit for bit.
+package's own test holds its kernel.  Every row width of
+``chip_smoke.ALIAS_KS`` on its special rows is bit-equal to
+``build_alias``.  On a port state the tables equal ``state.itable`` bit
+for bit.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +30,9 @@ from repro_torch.core.alias import AliasTable, alias_probs
 from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
 from tests.conftest import random_graph
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import ALIAS_KS, alias_weights  # noqa: E402
 
 
 def _rows(V, K):
@@ -49,6 +57,19 @@ def test_alias_build_matches_jax(V, K):
     np.testing.assert_array_equal(alias.numpy(), np.asarray(jt.alias))
     np.testing.assert_allclose(prob.numpy(), np.asarray(p_k), atol=1e-5)
     np.testing.assert_array_equal(alias.numpy(), np.asarray(a_k))
+
+
+@pytest.mark.parametrize("K", ALIAS_KS)
+def test_alias_build_rows_of_every_width_match_jax(K):
+    """The widths the card's kernel lays out differently (8-, 16- and
+    32-lane groups, two entries a lane past 32) on ``chip_smoke``'s rows:
+    all-zero, single-entry, equal weights, totals near the 1e-30 floor;
+    bit-equal to JAX's ``build_alias``."""
+    w = alias_weights(np.random.default_rng(K), 40, K)
+    jt = jalias.build_alias(jnp.asarray(w))
+    prob, alias = ops.alias_build(torch.from_numpy(w))
+    np.testing.assert_array_equal(prob.numpy(), np.asarray(jt.prob))
+    np.testing.assert_array_equal(alias.numpy(), np.asarray(jt.alias))
 
 
 def test_alias_build_encodes_distribution():

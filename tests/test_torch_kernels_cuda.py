@@ -13,9 +13,15 @@ C = 256 on rows whose degrees sit around the sampler's 8-lane tile, its
 shared by many walkers, and at C = 37 (rows not 16-byte aligned) and
 C = 300 (rows past the window); update rounds
 (insert/delete/mixed × the five config rows, chained, plus a batch wider
-than 2·C); the radix histogram (K 4/16/31 × C 8/256, degrees 0 and C
-present) and batched alias tables (K 2/5/16/17/33, empty and
-single-entry rows), bit for bit; flash attention at ``chip_smoke.py``'s
+than 2·C; mixed rounds at C = 37, 256 and 300; a round on
+``chip_smoke.streamed_state``'s states, which went through
+``stream_updates`` first: a full row, an emptied row, stale member lists,
+a DENSE -> ONE rebuild), the prep kernels against ``plan_round``'s torch
+ops on the CPU, and a round under ``set_sync_debug_mode("error")``; the
+radix histogram (K 4/16/31 × C 8/256, degrees 0 and C present) and
+batched alias tables (``chip_smoke.ALIAS_KS``: K 1 to 64 over the warp
+layouts, on ``alias_weights``' all-zero, single-entry, equal and
+near-1e-30 rows), bit for bit; flash attention at ``chip_smoke.py``'s
 phase-2 cases and limits (``FLASH_CASES``, head dims 8, 16, 64, 80 and
 128; ``flash_limit``: ``FLASH_TOL`` in f32, the row-wise ``FLASH_ROW`` in
 bf16), which must also reject the kernel one tile off at the band's edge,
@@ -48,8 +54,10 @@ from repro_torch.kernels.walk_sample import (walk_sample_ref,
                                             walk_sample_uniform_ref)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (FLASH_CASES, flash_inputs, flash_limit,  # noqa: E402
-                        flash_refs, flash_route, shifted_window)
+from chip_smoke import (ALIAS_KS, FLASH_CASES,  # noqa: E402
+                        STREAMED_CAPACITIES, UPDATE_CONFIGS, alias_weights,
+                        flash_inputs, flash_limit, flash_refs, flash_route,
+                        shifted_window, stale_lists, streamed_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -438,6 +446,89 @@ def test_update_kernel_batch_wider_than_twice_capacity():
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+def _same_stats(s_ref, s_got):
+    for a, b in zip(s_ref[:4], s_got[:4]):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("C", [37, 256, 300])
+@pytest.mark.parametrize("adaptive,fp,base_log2", UPDATE_CONFIGS)
+def test_update_kernel_unaligned_and_wide_rows(C, adaptive, fp, base_log2):
+    """Mixed rounds at a capacity that is not a multiple of 32, at the
+    main path's 256 and past it; rows of degree up to C // 2 + a round."""
+    V = 24
+    st, cfg = _state(V, C, fp, base_log2, adaptive=adaptive, seed=C)
+    ref = _clone(st)
+    rng = np.random.default_rng(C + base_log2 * 7 + fp * 3 + adaptive)
+    nbr = st.nbr.cpu().numpy()
+    edges = [(u, int(v)) for u in range(V) for v in nbr[u][nbr[u] >= 0]]
+    for _ in range(2):
+        batch = [torch.from_numpy(x).cuda()
+                 for x in make_round(rng, V, edges, 3 * C, "mixed", fp)]
+        ref, s_ref = batched_update(ref, cfg, *batch)
+        st, s_got = ops.update_fused(st, cfg, *batch)
+        assert_same(ref, st)
+        _same_stats(s_ref, s_got)
+
+
+@pytest.mark.parametrize("C", STREAMED_CAPACITIES)
+@pytest.mark.parametrize("adaptive,fp,base_log2", UPDATE_CONFIGS)
+def test_update_kernel_after_streaming_equals_plain(C, adaptive, fp,
+                                                    base_log2):
+    st, cfg = streamed_state(C, adaptive, fp, base_log2, seed=C + base_log2)
+    assert stale_lists(st, cfg)     # full and empty rows, stale lists
+    ref = _clone(st)
+    rng = np.random.default_rng(C)
+    nbr = st.nbr.cpu().numpy()
+    edges = [(u, int(v)) for u in range(16) for v in nbr[u][nbr[u] >= 0]]
+    ins, uu, vv, ww = make_round(rng, 16, edges, 64, "mixed", fp)
+    uu[:24] = np.repeat(np.arange(8), 3)         # every streamed row
+    batch = [torch.from_numpy(x).cuda() for x in (ins, uu, vv, ww)]
+    ref, s_ref = batched_update(ref, cfg, *batch)
+    st, s_got = ops.update_fused(st, cfg, *batch)
+    assert_same(ref, st)
+    _same_stats(s_ref, s_got)
+    assert int(s_got.transitions.sum()) > 0
+
+
+@pytest.mark.parametrize("adaptive,fp,base_log2", UPDATE_CONFIGS)
+def test_update_plan_kernels_equal_plain(adaptive, fp, base_log2):
+    """The prep kernels against plan_round's torch ops on the CPU."""
+    from repro_torch.kernels.update_fused import plan_round
+    V = 24
+    st, cfg = _state(V, 32, fp, base_log2, adaptive=adaptive, seed=4)
+    rng = np.random.default_rng(9)
+    nbr = st.nbr.cpu().numpy()
+    edges = [(u, int(v)) for u in range(V) for v in nbr[u][nbr[u] >= 0]]
+    ins, uu, vv, ww = make_round(rng, V, edges, 300, "mixed", fp)
+    uu[:20] = rng.integers(-3, V + 3, 20)        # out-of-range lanes
+    vv[20:30] = -1
+    act = rng.random(300) < 0.9
+    lanes = [torch.from_numpy(x) for x in (ins, uu, vv, ww, act)]
+    want = plan_round(cfg, *lanes)
+    got = plan_round(cfg, *[x.cuda() for x in lanes])
+    for f, a, b in zip(want._fields, got, want):
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy(), err_msg=f)
+
+
+def test_update_round_makes_no_host_sync():
+    st, cfg = _state(64, 37, True, 2, seed=3)
+    rng = np.random.default_rng(2)
+    nbr = st.nbr.cpu().numpy()
+    edges = [(u, int(v)) for u in range(64) for v in nbr[u][nbr[u] >= 0]]
+    batch = [torch.from_numpy(x).cuda()
+             for x in make_round(rng, 64, edges, 500, "mixed", True)]
+    ops.update_fused(_clone(st), cfg, *batch)   # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.update_fused(st, cfg, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("C", [8, 256])
 @pytest.mark.parametrize("K", [4, 16, 31])
 def test_radix_hist_kernel_equals_plain(K, C):
@@ -457,14 +548,10 @@ def test_radix_hist_kernel_equals_plain(K, C):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("K", [2, 5, 16, 17, 33])
+@pytest.mark.parametrize("K", ALIAS_KS)
 def test_alias_build_kernel_equals_plain(K):
     rng = np.random.default_rng(K)
-    V = 4096
-    w = (rng.random((V, K)) * rng.integers(1, 100, (V, K))).astype(np.float32)
-    w[0] = 0.0                                   # an empty row
-    w[1, 1:] = 0.0                               # a single-entry row
-    w = torch.from_numpy(w).cuda()
+    w = torch.from_numpy(alias_weights(rng, 4097, K)).cuda()
     before = ops.launch_counts()["alias_build"]
     got = ops.alias_build(w)
     assert ops.launch_counts()["alias_build"] == before + 1

@@ -2,7 +2,7 @@
 """Time this tree's walk kernels against other trees' on one GPU.
 
     python3 tools/walk_ab.py [--tree NAME=DIR ...] [--scale 20] [--flash]
-                             [--out PATH]
+                             [--update] [--alias] [--out PATH]
 
 Builds ``walk_fused.cu`` and ``walk_sample.cu`` of this tree's ``csrc``
 and of each ``--tree`` (another tree's ``csrc`` directory, for example a
@@ -33,13 +33,27 @@ each tree whose
 same turns at hubert-xlarge's widths (16 heads, D = 80, non-causal) and
 Mixtral 8x7B's (32 heads over 8 KV heads, D = 128, window 4096) over
 8,192 tokens, each tree's output within ``chip_smoke.FLASH_TOL`` of the
-plain version.  Prints one line per case and, with ``--out``, writes
-every time and each tree's registers (``cuobjdump -res-usage``) and
-resident blocks per SM to a JSON file.
+plain version.  With ``--update``, each tree's own ``repro_torch``
+package (the ``src`` directory above its ``csrc``, imported beside this
+tree's, each building its own sources) runs the main path's round 10 on
+a copy of the state after round 9 in the same turns: the whole round
+(``ops.update_fused``), its prepass (``plan_round``) and its kernel
+alone (``launch_round`` on a prepared plan); the states and stats after
+the round must equal this tree's, bit for bit, and the plain version's;
+then one profiled round a tree (``chip_smoke.trace_counts`` over its
+``record_function`` span: host ops, device events, host syncs; the
+traces next to ``--out``).  With ``--alias``, each tree's
+``ops.alias_build`` on the state's group weights, equal to this tree's
+and to ``state.itable``.  Prints one line per case and, with ``--out``,
+writes every time and each tree's registers (``cuobjdump -res-usage``)
+and resident blocks per SM to a JSON file.
 """
 
 import argparse
+import contextlib
 import ctypes
+import importlib
+import inspect
 import json
 import re
 import statistics
@@ -102,6 +116,88 @@ def build(trees, build_dir, flash=False):
     return libs, paths
 
 
+def _ours(name):
+    return name == "repro_torch" or name.startswith("repro_torch.")
+
+
+def load_package(src):
+    """Another tree's ``repro_torch`` package imported from ``src`` (its
+    modules by name), leaving this tree's in ``sys.modules``."""
+    saved = {k: m for k, m in sys.modules.items() if _ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, str(src))
+    try:
+        for mod in ("kernels.ops", "kernels.update_fused", "kernels._build",
+                    "kernels.alias_build", "core.dyngraph"):
+            importlib.import_module(f"repro_torch.{mod}")
+        return {k: m for k, m in sys.modules.items() if _ours(k)}
+    finally:
+        sys.path.remove(str(src))
+        for k in [k for k in sys.modules if _ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def using(package):
+    """Run with ``package``'s modules as ``repro_torch`` (the lazy imports
+    inside its functions resolve to them); None: this tree's, as they
+    are."""
+    if package is None:
+        yield
+        return
+    saved = {k: m for k, m in sys.modules.items() if _ours(k)}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules.update(package)
+    try:
+        yield
+    finally:
+        for k in [k for k in sys.modules if _ours(k)]:
+            del sys.modules[k]
+        sys.modules.update(saved)
+
+
+def flat(state, stats=None):
+    """A state's tensors (and a round's four stats), in order, as a tuple."""
+    out = [x for f, x in zip(state._fields, state)
+           if f != "itable" and x is not None]
+    out += [state.itable.prob, state.itable.alias]
+    return tuple(out) + (tuple(stats[:4]) if stats is not None else ())
+
+
+def round_cases(packages, pre, cfg, lanes, clone):
+    """The ``--update`` cases of each tree's package: whole round,
+    prepass and kernel alone, each returning the state after the round
+    (and the round's stats where the entry returns them)."""
+    cases = {}
+    for name, pkg in packages.items():
+        upd, ops_ = pkg["repro_torch.kernels.update_fused"], \
+            pkg["repro_torch.kernels.ops"]
+        takes_state = "state" in inspect.signature(upd.plan_round).parameters
+
+        def plan(upd=upd, takes_state=takes_state):
+            return (upd.plan_round(pre, cfg, *lanes) if takes_state
+                    else upd.plan_round(cfg, *lanes))
+
+        def whole(s, ops_=ops_):
+            s, stats = ops_.update_fused(s, cfg, *lanes)
+            return flat(s, stats)
+
+        def kernel(arg, upd=upd):
+            s, p = arg
+            upd.launch_round(s, cfg, p)
+            return flat(s)
+        cases[name] = {
+            "update round (ops.update_fused)": (whole, clone),
+            "update prepass (plan_round)": (plan, None),
+            "update kernel (launch_round)": (kernel, lambda plan=plan: (
+                clone(), plan())),
+        }
+    return cases
+
+
 def res_usage(path):
     """Registers and local-memory bytes per kernel function of a library."""
     from repro_torch.kernels import _build
@@ -115,8 +211,10 @@ def res_usage(path):
             for f, r, st, _, lo in found}
 
 
-def main_state(scale):
-    """The state after chip_smoke.py's main path's 10 update rounds."""
+def main_state(scale, keep_last=False):
+    """The state after chip_smoke.py's main path's 10 update rounds; with
+    ``keep_last`` also a copy of the state after round 9 and round 10's
+    lanes."""
     import torch
     from repro_torch.core import dyngraph as dg
     from repro_torch.graph.rmat import degree_bias, rmat_edges
@@ -131,12 +229,16 @@ def main_state(scale):
     cfg = dg.BingoConfig(num_vertices=V, capacity=256, bias_bits=16)
     st = dg.from_edges(cfg, stream.init_src, stream.init_dst, stream.init_w,
                        device="cuda")
+    pre = None
     for r in range(rounds):
         lanes = [torch.from_numpy(np.ascontiguousarray(a[r])).cuda()
                  for a in (stream.is_insert, stream.u, stream.v, stream.w)]
+        if keep_last and r == rounds - 1:
+            from chip_smoke import clone_state
+            pre = clone_state(st)
         st, _ = ops.update_fused(st, cfg, *lanes)
     torch.cuda.synchronize()
-    return st, cfg
+    return (st, cfg, pre, lanes) if keep_last else (st, cfg)
 
 
 def walk_segment(lib, work, prob, alias, bias, nbr, deg, starts, t0, seed,
@@ -172,6 +274,11 @@ def main():
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--flash", action="store_true",
                     help="also time the trees' float32 attention")
+    ap.add_argument("--update", action="store_true",
+                    help="also time each tree's update round (its own "
+                         "package)")
+    ap.add_argument("--alias", action="store_true",
+                    help="also time each tree's alias_build")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every time, register count and occupancy "
                          "to this JSON file")
@@ -181,8 +288,9 @@ def main():
     if not torch.cuda.is_available():
         print("walk_ab: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (WALK_LEN, PPR_LEN, PPR_STOP, card_line, cuda_ms,
-                            flash_excess)
+    from chip_smoke import (WALK_LEN, PPR_LEN, PPR_STOP, annotation_span,
+                            card_line, clone_state, cuda_ms, flash_excess,
+                            trace_counts)
     from repro_torch.kernels.flash_attention import flash_attention_ref32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
@@ -211,7 +319,13 @@ def main():
                   f"{v['registers']} ({v['local']})" for v in r.values())
                   for src, r in regs.items()), flush=True)
 
-    st, cfg = main_state(args.scale)
+    packages = {}
+    if args.update or args.alias:
+        packages = {name: (load_package(csrc.parent.parent) if name != "tree"
+                           else {k: m for k, m in sys.modules.items()
+                                 if _ours(k)})
+                    for name, csrc in trees.items()}
+    st, cfg, pre, last = main_state(args.scale, keep_last=True)
     V = cfg.num_vertices
     starts = torch.arange(0, V, 4, dtype=torch.int32, device="cuda")
     tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
@@ -292,6 +406,21 @@ def main():
             *tabs, u[: 16384].contiguous(), rows=few),
         "walk_sample hubs": lambda: ops.walk_sample(*tabs, u, rows=hub_rows),
     }
+    per_tree = {}         # case: {tree: (fn, setup)}, run in its package
+    if args.update:
+        for name, tc in round_cases(packages, pre, cfg, last,
+                                    lambda: clone_state(pre)).items():
+            for case, fs in tc.items():
+                per_tree.setdefault(case, {})[name] = fs
+    if args.alias:
+        from repro_torch.core.radix import group_weights
+        gw = group_weights(st.digitsum, cfg.base_log2)
+        per_tree["alias_build (ops.alias_build)"] = {
+            name: (lambda ops_=pkg["repro_torch.kernels.ops"]:
+                   ops_.alias_build(gw), None)
+            for name, pkg in packages.items()}
+    for case, fs in per_tree.items():
+        cases[case] = fs
     flash = {}            # case: (q, k, v, causal, window), float32
     if args.flash:
         from repro_torch.kernels.flash_attention import flash_attention_f32
@@ -318,7 +447,14 @@ def main():
         for case, fn in cases.items():
             if name not in times[case]:
                 continue
-            ms, out = cuda_ms(fn)
+            if case in per_tree:
+                f, setup = fn[name]
+                with using(None if name == "tree" else packages[name]):
+                    ms, out = cuda_ms(f, setup=setup)
+                if case.startswith("update prepass"):
+                    out = None       # the trees' plans differ in layout
+            else:
+                ms, out = cuda_ms(fn)
             if case in flash:        # held to the limit, not to the first tree
                 if k >= len(trees):
                     times[case][name].append(ms)
@@ -326,6 +462,8 @@ def main():
                 continue
             if k >= len(trees):
                 times[case][name].append(ms)
+            if out is None:
+                continue
             if case not in first:
                 first[case] = out
             else:
@@ -334,6 +472,41 @@ def main():
                 if not same:
                     raise SystemExit(f"{case}: {name} differs from {order[0]}")
     # this tree against the plain versions (the rest equal it)
+    if args.update:
+        from repro_torch.core.updates import batched_update
+        s, stats = batched_update(clone_state(pre), cfg, *last)
+        want = flat(s, stats)
+        for case in ("update round (ops.update_fused)",
+                     "update kernel (launch_round)"):
+            got = first[case]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"{case} != plain (batched_update)")
+        del s, want
+        report["update_profile"] = {}
+        out_dir = args.out.parent if args.out else ROOT / "build" / "walk_ab"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name, pkg in packages.items():
+            trace = out_dir / f"update_round_{name}.json"
+            s = clone_state(pre)
+            torch.cuda.synchronize()
+            with using(None if name == "tree" else pkg), \
+                    torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                with torch.profiler.record_function("round"):
+                    pkg["repro_torch.kernels.ops"].update_fused(s, cfg, *last)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+            counts = trace_counts(events, annotation_span(events, "round"))
+            report["update_profile"][name] = counts
+            print(f"update round profiled, {name}: {counts}", flush=True)
+            del s
+    if args.alias:
+        got = first["alias_build (ops.alias_build)"]
+        if not (torch.equal(got[0], st.itable.prob)
+                and torch.equal(got[1], st.itable.alias)):
+            raise SystemExit("alias_build != state.itable")
     want = walk_fused_ref(*args_w, seed=7, length=WALK_LEN)
     if not torch.equal(first["walk_fused deepwalk"], want):
         raise SystemExit("walk_fused deepwalk != plain")
@@ -366,7 +539,10 @@ def main():
         print(f"{case}: " + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
               + " ms (median of the turns' medians)", flush=True)
     print(f"all trees' walks and samples equal, bit for bit, and equal to "
-          f"the plain versions; {len(hubs)} full hub rows", flush=True)
+          f"the plain versions; {len(hubs)} full hub rows"
+          + ("; update rounds equal to batched_update" if args.update else "")
+          + ("; alias tables equal to state.itable" if args.alias else ""),
+          flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))
