@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    (HGMMA or HMMA) and TMA (UTMALDG) instructions in their SASS; census of
    the walk kernels' six instantiations (``walk_census``): registers, no
    spill stores, and the resident blocks per SM (what the persistent grids
-   are sized by); census of ``update_fused.cu`` and ``alias_build.cu``
-   (``table_census``): every kernel with a 0-byte stack and no spills.
+   are sized by); census of ``update_fused.cu``, ``alias_build.cu`` and
+   ``radix_hist.cu`` (``table_census``): every kernel with a 0-byte stack
+   and no spills.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
@@ -25,9 +26,9 @@ Phases (any failure exits non-zero and prints no result line):
    lists, a DENSE -> ONE rebuild) at C = 37, 256 and 300 × the five rows,
    with its prep kernels against ``plan_round``'s torch ops; ``walk_sample`` and ``walk_sample_uniform`` over
    base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
-   holding degree-0 rows; ``radix_hist`` over K 4/16/31 × C 8/256
-   (degrees 0 and C) and ``alias_build`` over ``ALIAS_KS`` (K 1 to 64;
-   all-zero, single-entry, equal and near-1e-30 rows); ``flash_attention`` over ``FLASH_CASES``, each case
+   holding degree-0 rows; ``radix_hist`` over K 4/16/31/32 × C 8/37/256
+   (``hist_inputs``: degrees on both sides of its 32-slot short rows) and
+   ``alias_build`` over ``ALIAS_KS`` (K 1 to 64; all-zero, single-entry, equal and near-1e-30 rows); ``flash_attention`` over ``FLASH_CASES``, each case
    through the kernel of its type (float32: ``flash_attention.cu``, 3xTF32
    wgmma, bfloat16: ``flash_attention_sm90.cu``, the launch counters show
    which),
@@ -62,7 +63,9 @@ Phases (any failure exits non-zero and prints no result line):
    num_k=16)`` must equal ``(state.digitsum, state.gsize)`` and
    ``alias_build(group_weights(state.digitsum))`` must equal
    ``state.itable`` (written by ``update_fused`` in ten rounds), bit for
-   bit, and so must the plain versions; times (median of 3) and bounds.
+   bit, and so must the plain versions; times (median of 3) and bounds;
+   the rows by degree (0, 1-8, 9-32, 33-255, 256: ``radix_hist.cu``
+   counts a row of degree up to 32 in one lane, a longer one by 8).
 3b. The per-step paths on the main path's final state, each with the
    counters zeroed just before and read just after: a node2vec batch
    (``WalkParams("node2vec", 80, p=0.5, q=2.0)``), a per-step deepwalk and
@@ -73,10 +76,17 @@ Phases (any failure exits non-zero and prints no result line):
    touched vertices.  Each batch is checked as the main path's are, and
    the per-step deepwalk and node2vec batches against their exact
    next-vertex distributions (TV bound derived from the sample count).
-   node2vec and per-step deepwalk then run once more untimed under
-   ``torch.profiler`` (``sample_launches``): the walkers in each
-   ``walk_sample`` launch, its kernel's device time, and their sums on
-   each path.
+   node2vec, per-step deepwalk and per-step simple then run once more
+   untimed in one ``torch.profiler`` session (``sample_launches``): the walkers in
+   each ``walk_sample`` (``walk_sample_uniform`` on the simple path)
+   launch, its kernel's device time, and their sums on each path.  Then
+   each per-step kernel samples every walker once with fed uniforms,
+   against its plain version: ``walk_sample`` at the starts,
+   ``walk_sample_uniform`` at the starts and at the simple walk's
+   frontier (its paths' column ``FRONTIER_STEP``, clamped at 0 as
+   ``scan_walk`` clamps it), with the one uniform column its path
+   passes; beside the uniform pick's word bound, the bytes it moves at
+   32 bytes a sector (``uniform_sectors``).
 3c. The sharded path, before the streaming updates: the parent writes the
    graph, the 10-round stream, SHA-256 digests of the 4 vertex slices of
    the main path's final state, its per-round ``UpdateStats`` and digests
@@ -137,6 +147,7 @@ import sys
 import tempfile
 import time
 import traceback
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -149,6 +160,7 @@ OPS_PER_S = 67e12                  # H100 SXM float32 outside the tensor cores
 TC_BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 TC_TF32_FLOPS = 494.7e12           # H100 SXM dense TF32 tensor-core rate
 WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
+FRONTIER_STEP = 40                 # B4b timed on this column of simple paths
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
 STREAM_UPDATES = 2000
@@ -612,9 +624,29 @@ def check_update_kernel(rng):
     return n
 
 
+# degrees on both sides of the histogram kernel's 32-slot short rows (a
+# lane a row up to 32, 8 lanes a row past it) and its 16-byte words
+HIST_DEGREES = (0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                127, 128, 129, 255, 256)
+
+
+def hist_inputs(rng, V, C, K):
+    """``radix_hist`` inputs on the card: (V, C) biases below 2^K (K = 32:
+    every int32) and degrees 0..C, each of ``HIST_DEGREES`` below C and C
+    itself in every lane position of a warp's 32 rows."""
+    import torch
+    bias = rng.integers(0, 1 << K, (V, C), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    deg = rng.integers(0, C + 1, V).astype(np.int32)
+    listed = np.array([x for x in HIST_DEGREES if x < C] + [C], np.int32)
+    i = np.arange(32 * len(listed))
+    deg[i] = listed[(i + i // 32) % len(listed)]
+    return torch.from_numpy(bias).cuda(), torch.from_numpy(deg).cuda()
+
+
 def check_table_kernels(rng):
     """``radix_hist`` and ``alias_build`` == their plain versions, bit for
-    bit: K 4/16/31 × C 8/256 with degrees 0 and C present; K over
+    bit: K 4/16/31/32 × C 8/37/256 on ``hist_inputs``' 4,097 rows; K over
     ``ALIAS_KS`` on ``alias_weights``' rows, 4,097 of them (a last warp
     part full)."""
     import torch
@@ -622,13 +654,9 @@ def check_table_kernels(rng):
     from repro_torch.kernels.alias_build import alias_build_ref
     from repro_torch.kernels.radix_hist import radix_hist_ref
     V, n = 4096, 0
-    for K in (4, 16, 31):
-        for C in (8, 256):
-            deg = rng.integers(0, C + 1, V).astype(np.int32)
-            deg[:2] = 0, C
-            bias = torch.from_numpy(
-                rng.integers(0, 1 << K, (V, C)).astype(np.int32)).cuda()
-            deg = torch.from_numpy(deg).cuda()
+    for K in (4, 16, 31, 32):
+        for C in (8, 37, 256):
+            bias, deg = hist_inputs(rng, V + 1, C, K)
             got = ops.radix_hist(bias, deg, num_k=K)
             want = radix_hist_ref(bias, deg, K)
             torch.cuda.synchronize()
@@ -789,12 +817,13 @@ def kernel_resources(name):
 
 def table_census():
     """Every kernel function of ``update_fused.cu`` (the round and its two
-    prep kernels and the mark of U) and ``alias_build.cu`` (its four
-    row widths): registers, stack frame and spill stores
+    prep kernels and the mark of U), ``alias_build.cu`` (its row widths)
+    and ``radix_hist.cu``: registers, stack frame and spill stores
     (``kernel_resources``); no stack and no spills, so nothing of the
-    warp-wide Vose row lives in local memory."""
+    warp-wide Vose row or of the histogram's bit planes and 16-byte row
+    words lives in local memory."""
     out = {}
-    for name in ("update_fused", "alias_build"):
+    for name in ("update_fused", "alias_build", "radix_hist"):
         res = kernel_resources(name)
         for x in res:
             print(f"{name} census: {x['function'][-60:]}: "
@@ -1234,6 +1263,15 @@ def stats_list(stats):
 
 
 # --------------------------------------------------------------- phase 3d
+def degree_histogram(deg, C):
+    """Rows by degree (clamped to C): 0, 1-8, 9-32 (``radix_hist.cu``
+    counts a row up to 32 in its own lane), 33 to C-1 (8 lanes a row) and
+    C (full rows)."""
+    d = deg.clamp(min=0, max=C)
+    return {f"{lo}-{hi}" if lo < hi else str(lo): int(((d >= lo) & (d <= hi)).sum())
+            for lo, hi in ((0, 0), (1, 8), (9, 32), (33, C - 1), (C, C))}
+
+
 def table_phase(engine, cfg, report):
     """Phase 3d: ``radix_hist`` and ``alias_build`` on the main path's
     final state, through ``ops``, the counters zeroed just before and read
@@ -1272,6 +1310,9 @@ def table_phase(engine, cfg, report):
     same_hist((ds, gs), "radix_hist")
     same_itable((prob, alias), "alias_build")
     del ds, gs, prob, alias
+    hist = degree_histogram(st.deg, C)
+    report["degree_histogram"] = hist
+    print(f"rows by degree on the final state: {hist}", flush=True)
     edges = int(st.deg.clamp(max=C).sum())
     lines = []
     for name, fn, ref, same, nbytes, nops, replaces in (
@@ -1354,43 +1395,67 @@ def first_order_probs(st, cfg, v):
         0, st.nbr[v, :d].long(), p[:d].double())
 
 
-def sample_launches(fn, trace):
-    """Run ``fn()`` once under ``torch.profiler`` (device activity only),
-    each ``ops.walk_sample`` call (the per-step paths reach the kernel
-    through it) counting its walkers: per launch the walkers and the device
-    ms of its kernel (the trace's ``walk_sample_kernel`` events, in order),
-    for an untimed replay of a batch."""
+def launch_events(runs, trace):
+    """Run each ``(fn, kernel)`` of ``runs`` once, in order, in one
+    ``torch.profiler`` session (device activity only), each ``ops.<kernel>``
+    call (``walk_sample`` or ``walk_sample_uniform``: the per-step paths
+    reach the kernels through them) counting its walkers.  Returns, a run
+    each, the walkers of its launches and the device ms of the trace's
+    ``<kernel>_kernel`` events that fall to it: a kernel's events in time
+    order, handed out to its runs by their launch counts (each run is
+    synchronized before the next starts).  Checks nothing: a trace may
+    hold fewer events than launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
-    inner, walkers = ops.walk_sample, []
+    walkers = [[] for _ in runs]
 
-    def counted(*args, **kw):
-        out = inner(*args, **kw)
-        walkers.append(out[0].shape[0])
-        return out
+    def counted(inner, i):
+        def call(*args, **kw):
+            out = inner(*args, **kw)
+            walkers[i].append(out[0].shape[0])
+            return out
+        return call
     trace.parent.mkdir(parents=True, exist_ok=True)
-    ops.walk_sample = counted
-    try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        ops.walk_sample = inner
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, (fn, kernel) in enumerate(runs):
+            inner = getattr(ops, kernel)
+            setattr(ops, kernel, counted(inner, i))
+            try:
+                fn()
+                torch.cuda.synchronize()
+            finally:
+                setattr(ops, kernel, inner)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text()).get("traceEvents", [])
     trace.unlink()
-    ms = [float(e.get("dur", 0)) / 1e3 for e in sorted(
+    ms = {kernel: [float(e.get("dur", 0)) / 1e3 for e in sorted(
         (e for e in events if e.get("cat") == "kernel"
-         and "walk_sample_kernel" in e.get("name", "")),
-        key=lambda e: float(e["ts"]))]
-    need(0 < len(ms) == len(walkers), f"sample_launches: {len(ms)} kernel events "
-         f"for {len(walkers)} launches")
-    return {"launches": len(ms), "walkers": walkers, "ms": ms,
-            "walkers_sum": sum(walkers), "kernel_ms_sum": sum(ms),
-            "walkers_max": max(walkers, default=0),
-            "walkers_median": statistics.median(walkers) if ms else 0}
+         and f"{kernel}_kernel" in e.get("name", "")),
+        key=lambda e: float(e["ts"]))] for _, kernel in runs}
+    out = []
+    for (_, kernel), w in zip(runs, walkers):
+        out.append((w, ms[kernel][:len(w)]))
+        ms[kernel] = ms[kernel][len(w):]
+    return out
+
+
+def sample_launches(runs, trace):
+    """``launch_events`` of ``runs``, each run's launches all in the trace
+    or the smoke fails: per run the walkers and the device ms of each of
+    its launches, for an untimed replay of a batch.  One session for all
+    runs: a later profiler session in a process has lost kernel events
+    (PERF.md §7)."""
+    res = []
+    for (_, kernel), (walkers, ms) in zip(runs, launch_events(runs, trace)):
+        need(0 < len(ms) == len(walkers), f"sample_launches: {len(ms)} "
+             f"{kernel} kernel events for {len(walkers)} launches")
+        res.append({"launches": len(ms), "walkers": walkers, "ms": ms,
+                    "walkers_sum": sum(walkers), "kernel_ms_sum": sum(ms),
+                    "walkers_max": max(walkers),
+                    "walkers_median": statistics.median(walkers)})
+    return res
 
 
 def per_step_paths(engine, cfg, starts, report, profile_dir=None):
@@ -1470,20 +1535,28 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
                  f"{counts['walk_sample_uniform']} != {WALK_LEN}")
             need(counts["walk_fused"] == counts["walk_sample"] == 0,
                  f"{name}: launches of other kernels")
+            # a frontier of the per-step simple walk, as scan_walk clamps it
+            frontier = p[:, FRONTIER_STEP].clamp(min=0).to(
+                torch.int32).contiguous()
         del p
-        if name in ("node2vec", "per-step deepwalk"):
-            # B4a's time on the paths, which the kernel queue ranks by: a
-            # trace that misses a launch fails the smoke
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-                sl = sample_launches(lambda: eng.walk(starts),
-                                     Path(d) / "trace.json")
-            print(f"{name} replay, walk_sample: {sl['launches']} "
-                  f"launches, {sl['walkers_sum']} walkers (median "
-                  f"{sl['walkers_median']}, max {sl['walkers_max']} a "
-                  f"launch), kernel {sl['kernel_ms_sum']:.3f} ms in all "
-                  f"(profiler)", flush=True)
-            out[name]["walk_sample"] = sl
         engines[name] = eng
+    # B4a's and B4b's time on the paths, which the kernel queue ranks by:
+    # the three per-step paths replayed in one profiler session, the
+    # process's first; a trace that misses a launch fails the smoke
+    replays = [(name, "walk_sample_uniform" if name == "per-step simple"
+                else "walk_sample") for name in engines
+               if name != "whole deepwalk"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        sls = sample_launches(
+            [(partial(engines[name].walk, starts), kernel)
+             for name, kernel in replays], Path(d) / "trace.json")
+    for (name, kernel), sl in zip(replays, sls):
+        print(f"{name} replay, {kernel}: {sl['launches']} "
+              f"launches, {sl['walkers_sum']} walkers (median "
+              f"{sl['walkers_median']}, max {sl['walkers_max']} a "
+              f"launch), kernel {sl['kernel_ms_sum']:.3f} ms in all "
+              f"(profiler)", flush=True)
+        out[name][kernel] = sl
     # profiled last: a profiler run before sample_launches' has cost
     # that trace kernel events
     for name, eng in engines.items() if profile_dir is not None else ():
@@ -1497,34 +1570,51 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
             out[name]["profile"] = {"error": repr(e)}
     report["per_step"] = out
 
-    # one per-step sample of every walker at the starts, kernel vs plain,
-    # with the uniforms fed
+    # one per-step sample of every walker, kernel vs plain, with the
+    # uniforms fed: B4a at the starts; B4b at the starts and at the simple
+    # walk's frontier, with the one uniform column its path passes
     g = torch.Generator(device="cuda").manual_seed(5)
     u = torch.rand((len(starts), 3), generator=g, device="cuda")
+    u1 = u[:, :1].contiguous()
     tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
     lines = []
-    for name, uniform, fn, ref in (
-            ("walk_sample", False,
-             lambda: ops.walk_sample(*tabs, u, rows=starts),
-             lambda: walk_sample_ref(*tabs, u, rows=starts)),
-            ("walk_sample_uniform", True,
-             lambda: ops.walk_sample_uniform(st.nbr, st.deg, u, rows=starts),
-             lambda: walk_sample_uniform_ref(st.nbr, st.deg, u, rows=starts))):
+    for name, where, rows, uu in (
+            ("walk_sample", "starts", starts, u),
+            ("walk_sample_uniform", "starts", starts, u1),
+            ("walk_sample_uniform", "frontier", frontier, u1)):
+        uniform = name == "walk_sample_uniform"
+        if uniform:
+            fn = partial(ops.walk_sample_uniform, st.nbr, st.deg, uu, rows=rows)
+            ref = partial(walk_sample_uniform_ref, st.nbr, st.deg, uu, rows=rows)
+        else:
+            fn = partial(ops.walk_sample, *tabs, uu, rows=rows)
+            ref = partial(walk_sample_ref, *tabs, uu, rows=rows)
         ms, got = cuda_ms(fn, reps=5)
         plain_ms, want = cuda_ms(ref, reps=1)
-        err = max(path_diff(x, y, f"{name} on all walkers")
+        err = max(path_diff(x, y, f"{name} on all walkers ({where})")
                   for x, y in zip(got, want))
-        work = sample_work(starts, got[0], st.deg, u.shape[1] if not uniform
-                           else 1, uniform)
+        work = sample_work(rows, got[0], st.deg, uu.shape[1], uniform)
         b_ms, b_by = bound(work["bytes"], work["ops"])
         launches = sum(out[k]["launches"][name] for k in out)
-        print(f"{name}: {ms:.4f} ms for {len(starts)} walkers in place; plain "
-              f"{plain_ms:.2f} ms, equal on all walkers; needs "
-              f"{work['bytes'] / 1e6:.3f} MB and {work['ops'] / 1e6:.3f} M ops "
-              f"-> bound {b_ms:.5f} ms ({b_by}); launches on the per-step "
-              f"paths {launches}", flush=True)
-        report[name] = dict(work, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, launches=launches)
+        sectors = ""
+        if uniform:
+            work["sector_bytes"] = uniform_sectors(
+                rows, got[1], st.nbr.shape[1], uu.shape[1])
+            work["sector_ms"] = work["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+            sectors = (f"; at 32 B a sector {work['sector_bytes'] / 1e6:.3f} MB "
+                       f"-> {work['sector_ms']:.5f} ms")
+        print(f"{name}: {ms:.4f} ms for {len(rows)} walkers in place at the "
+              f"{where}, u (B, {uu.shape[1]}); plain {plain_ms:.2f} ms, equal "
+              f"on all walkers; needs {work['bytes'] / 1e6:.3f} MB and "
+              f"{work['ops'] / 1e6:.3f} M ops -> bound {b_ms:.5f} ms "
+              f"({b_by}){sectors}; launches on the per-step paths {launches}",
+              flush=True)
+        rec = dict(work, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, launches=launches)
+        if where == "frontier":
+            report[name]["frontier"] = rec
+            continue
+        report[name] = rec
         lines.append({"name": name, "route": "cuda",
                       "source": "src/repro_torch/csrc/walk_sample.cu",
                       "replaces": "src/repro/kernels/walk_sample.py:"
@@ -1533,6 +1623,22 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
                       "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": None})
     return lines
+
+
+def uniform_sectors(rows, slot, C, ucols):
+    """The bytes one uniform pick of every walker moves at 32 bytes a
+    sector: each distinct sector of the deg and nbr words it reads (a
+    random word brings its whole sector), the sectors of ``u`` holding
+    column 0 of a (B, ucols) layout, and the rows read and nxt and slot
+    written as streams.  A diagnostic beside the word bound, which counts
+    each word once."""
+    import torch
+    r = rows.long()
+    B, live = r.numel(), slot >= 0
+    deg_s = torch.unique(r // 8).numel()
+    nbr_s = torch.unique((r[live] * C + slot[live].long()) // 8).numel()
+    u_s = torch.unique(torch.arange(B, device=r.device) * ucols // 8).numel()
+    return 32 * (deg_s + nbr_s + u_s + 3 * ((B + 7) // 8))
 
 
 # ---------------------------------------------------------------- phase 3c

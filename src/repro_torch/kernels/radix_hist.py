@@ -7,8 +7,10 @@ base-2 digits ``(bias >> k) & 1`` (``digitsum``) and the count of those
 that are nonzero (``gsize``).  In base 2 the two coincide; both are
 computed as the reference defines them.  ``radix_hist`` is the wrapper:
 on CPU tensors it runs ``radix_hist_ref``; on CUDA tensors it launches
-``csrc/radix_hist.cu`` (one warp per row, a ballot and a warp reduction
-per digit) and counts the launch in ``radix_hist.launches``.
+``csrc/radix_hist.cu`` (32 rows a warp: a row of degree at most 32
+counted by its own lane in carry-save bit planes, a longer row by 8
+lanes whose counts a butterfly sums, one count written to both tables)
+and counts the launch in ``radix_hist.launches``.
 """
 
 from __future__ import annotations

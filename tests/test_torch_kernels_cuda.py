@@ -18,7 +18,11 @@ than 2·C; mixed rounds at C = 37, 256 and 300; a round on
 ``stream_updates`` first: a full row, an emptied row, stale member lists,
 a DENSE -> ONE rebuild), the prep kernels against ``plan_round``'s torch
 ops on the CPU, and a round under ``set_sync_debug_mode("error")``; the
-radix histogram (K 4/16/31 × C 8/256, degrees 0 and C present) and
+radix histogram (K 1/4/16/31/32 × C 8/37/256, degrees on both sides of
+its 32-slot short rows in every lane position; an R-MAT scale-12 state
+against its own counters), the uniform pick (B 1, 3, 4, 5 and 262,147 ×
+1/3/5 uniform columns × rows in place or gathered, degree-0 rows first,
+last and at each residue of four) and
 batched alias tables (``chip_smoke.ALIAS_KS``: K 1 to 64 over the warp
 layouts, on ``alias_weights``' all-zero, single-entry, equal and
 near-1e-30 rows), bit for bit; flash attention at ``chip_smoke.py``'s
@@ -57,7 +61,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (ALIAS_KS, FLASH_CASES,  # noqa: E402
                         STREAMED_CAPACITIES, UPDATE_CONFIGS, alias_weights,
                         flash_inputs, flash_limit, flash_refs, flash_route,
-                        shifted_window, stale_lists, streamed_state)
+                        hist_inputs, shifted_window, stale_lists,
+                        streamed_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -529,15 +534,12 @@ def test_update_round_makes_no_host_sync():
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("C", [8, 256])
-@pytest.mark.parametrize("K", [4, 16, 31])
+@pytest.mark.parametrize("C", [8, 37, 256])
+@pytest.mark.parametrize("K", [1, 4, 16, 31, 32])
 def test_radix_hist_kernel_equals_plain(K, C):
-    rng = np.random.default_rng(K * C)
-    V = 4096
-    bias = rng.integers(0, 1 << K, (V, C)).astype(np.int32)
-    deg = rng.integers(0, C + 1, V).astype(np.int32)
-    deg[:2] = 0, C
-    bias, deg = torch.from_numpy(bias).cuda(), torch.from_numpy(deg).cuda()
+    """4,099 rows (the last warp's rows part full): each listed degree in
+    every lane position, C = 37 unaligned rows."""
+    bias, deg = hist_inputs(np.random.default_rng(K * C), 4099, C, K)
     before = ops.launch_counts()["radix_hist"]
     got = ops.radix_hist(bias, deg, num_k=K)
     assert ops.launch_counts()["radix_hist"] == before + 1
@@ -546,6 +548,66 @@ def test_radix_hist_kernel_equals_plain(K, C):
     for a, b in zip(got, want):
         assert a.dtype == torch.int32
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+def test_radix_hist_kernel_on_a_power_law_state():
+    """R-MAT scale 12 degrees (hub rows at C = 256 beside many short
+    ones): the kernel equals the state's own counters and the plain
+    version."""
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    V = 1 << 12
+    src, dst = rmat_edges(12, 8, seed=3)
+    cfg = tdg.BingoConfig(num_vertices=V, capacity=256, bias_bits=16)
+    st = tdg.from_edges(cfg, src, dst, degree_bias(src, dst, V, bias_bits=16),
+                        device="cuda")
+    assert int(st.deg.max()) > 32 and bool((st.deg <= 32).any())
+    before = ops.launch_counts()["radix_hist"]
+    got = ops.radix_hist(st.bias, st.deg, num_k=cfg.num_radix)
+    assert ops.launch_counts()["radix_hist"] == before + 1
+    want = radix_hist_ref(st.bias, st.deg, cfg.num_radix)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, (st.digitsum, st.gsize)):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+        np.testing.assert_array_equal(a.cpu().numpy(), c.cpu().numpy())
+
+
+def _uniform_inputs(B, ucols, in_place, seed):
+    """A C = 64 state with degree-0 rows; walker rows with a degree-0 row
+    at positions 0, 5, 10 and 15 (each residue of four) and last; the
+    (nbr, deg) tables and keyword arguments of the in-place or gathered
+    entry."""
+    st, cfg = _state(300, 64, False, 1, seed=seed)
+    st.deg[::9] = 0
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = torch.randint(0, cfg.num_vertices, (B,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    for b in (0, 5, 10, 15, B - 1):
+        if b < B:
+            rows[b] = 9
+    u = torch.rand((B, ucols), generator=g, device="cuda")
+    if in_place:
+        return (st.nbr, st.deg), u, {"rows": rows}
+    r = rows.long()
+    return (st.nbr[r].contiguous(), st.deg[r].contiguous()), u, {}
+
+
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("ucols", [1, 3, 5])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 262_147])
+def test_walk_sample_uniform_kernel_equals_plain(B, ucols, in_place):
+    """Batches from one walker to a last part-full block, one or several
+    uniform columns, rows read in place or gathered."""
+    (nbr, deg), u, kw = _uniform_inputs(B, ucols, in_place, B + ucols)
+    before = ops.launch_counts()["walk_sample_uniform"]
+    got = ops.walk_sample_uniform(nbr, deg, u, **kw)
+    assert ops.launch_counts()["walk_sample_uniform"] == before + 1
+    want = walk_sample_uniform_ref(nbr, deg, u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    d = deg[kw["rows"].long()] if in_place else deg
+    assert (got[1][d == 0] == -1).all() and bool((d == 0).any())
 
 
 @pytest.mark.parametrize("K", ALIAS_KS)

@@ -95,6 +95,30 @@ def test_walk_sample_uniform_matches_pallas_interpret():
     assert (ts.numpy()[deg == 0] == -1).all()
 
 
+@pytest.mark.parametrize("ucols", [1, 3, 5])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 9])
+def test_walk_sample_uniform_batches_match_pallas_interpret(B, ucols):
+    """Batches that fill no, one or a part of a group of four walkers, one
+    or more uniform columns (column 0 is the pick's), degree-0 rows first
+    and last: JAX's kernel on the gathered rows, the port's entry on the
+    rows in place and gathered."""
+    rng = np.random.default_rng(B * 10 + ucols)
+    V, C = 40, 12
+    nbr = rng.integers(0, V, (V, C)).astype(np.int32)
+    deg = rng.integers(0, C + 1, V).astype(np.int32)
+    deg[::5] = 0
+    rows = rng.integers(0, V, B).astype(np.int32)
+    rows[0] = rows[-1] = 5
+    u = rng.random((B, ucols)).astype(np.float32)
+    jn, js = walk_sample_uniform_pallas(
+        *map(jnp.asarray, (nbr[rows], deg[rows], u)), interpret=True)
+    for got in (walk_sample_uniform(t(nbr), t(deg), t(u), rows=t(rows)),
+                walk_sample_uniform(t(nbr[rows]), t(deg[rows]), t(u))):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(js))
+    assert got[1][0] == got[1][-1] == -1
+
+
 def test_extended_paths_need_five_uniforms():
     """Base > 2 and fp mode read the acceptance coin and ITS position:
     (B, 3) uniforms are refused, as the reference's ``ops.walk_sample``

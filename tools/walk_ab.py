@@ -2,7 +2,8 @@
 """Time this tree's walk kernels against other trees' on one GPU.
 
     python3 tools/walk_ab.py [--tree NAME=DIR ...] [--scale 20] [--flash]
-                             [--update] [--alias] [--out PATH]
+                             [--update] [--alias] [--hist] [--uniform]
+                             [--out PATH]
 
 Builds ``walk_fused.cu`` and ``walk_sample.cu`` of this tree's ``csrc``
 and of each ``--tree`` (another tree's ``csrc`` directory, for example a
@@ -44,7 +45,19 @@ then one profiled round a tree (``chip_smoke.trace_counts`` over its
 ``record_function`` span: host ops, device events, host syncs; the
 traces next to ``--out``).  With ``--alias``, each tree's
 ``ops.alias_build`` on the state's group weights, equal to this tree's
-and to ``state.itable``.  Prints one line per case and, with ``--out``,
+and to ``state.itable``.  With ``--hist``, each tree's ``radix_hist.cu``
+is built too and ``ops.radix_hist`` runs on it over the state's bias
+rows (K = 16), equal to this tree's and to the state's ``digitsum`` and
+``gsize``; the rows by degree are printed.  With ``--uniform``, each
+tree's uniform pick (``ops.walk_sample_uniform``) on all 262,144 walkers:
+at the starts with (B, 3) uniforms (the biased sample's layout) and with
+(B, 1), and at the per-step simple walk's frontier (its column
+``chip_smoke.FRONTIER_STEP``, clamped at 0) with (B, 1), as the path
+calls it; equal to the plain version, with the 32-byte sector figure
+beside the word bound; then one per-step simple walk a tree, all in
+one ``torch.profiler`` session (``chip_smoke.sample_launches``: the kernel's launches
+and device time on the path), its paths equal across trees.  Prints one
+line per case and, with ``--out``,
 writes every time and each tree's registers (``cuobjdump -res-usage``)
 and resident blocks per SM to a JSON file.
 """
@@ -60,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -81,15 +95,17 @@ def takes_d80(csrc):
     return "Geometry<80>" in (csrc / "flash_attention.cu").read_text()
 
 
-def build(trees, build_dir, flash=False):
+def build(trees, build_dir, flash=False, hist=False):
     """One nvcc per (tree, source), all at once (``flash_attention.cu``
-    too where ``flash`` and ``takes_d80``); returns the libraries by tree,
-    loaded with the entry points' signatures (a segment entry without
-    ``work`` with one pointer fewer), and their paths."""
+    too where ``flash`` and ``takes_d80``, ``radix_hist.cu`` where
+    ``hist``); returns the libraries by tree, loaded with the entry
+    points' signatures (a segment entry without ``work`` with one pointer
+    fewer), and their paths."""
     from repro_torch.kernels import _build
     procs = []
     for name, csrc in trees.items():
         extra = ("flash_attention",) if flash and takes_d80(csrc) else ()
+        extra += ("radix_hist",) if hist else ()
         for src in SOURCES + extra:
             out = build_dir / name / f"lib{src}.so"
             out.parent.mkdir(parents=True, exist_ok=True)
@@ -279,6 +295,12 @@ def main():
                          "package)")
     ap.add_argument("--alias", action="store_true",
                     help="also time each tree's alias_build")
+    ap.add_argument("--hist", action="store_true",
+                    help="also build and time each tree's radix_hist")
+    ap.add_argument("--uniform", action="store_true",
+                    help="also time each tree's uniform pick at the starts "
+                         "and at a frontier, and profile it on the "
+                         "per-step simple walk")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every time, register count and occupancy "
                          "to this JSON file")
@@ -288,19 +310,24 @@ def main():
     if not torch.cuda.is_available():
         print("walk_ab: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (WALK_LEN, PPR_LEN, PPR_STOP, annotation_span,
-                            card_line, clone_state, cuda_ms, flash_excess,
-                            trace_counts)
+    from chip_smoke import (FRONTIER_STEP, HBM_BYTES_PER_S, WALK_LEN,
+                            PPR_LEN, PPR_STOP, annotation_span, bound,
+                            card_line, clone_state, cuda_ms,
+                            degree_histogram, flash_excess, sample_launches,
+                            sample_work, trace_counts, uniform_sectors)
     from repro_torch.kernels.flash_attention import flash_attention_ref32
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
-    from repro_torch.kernels.walk_sample import walk_sample_ref
+    from repro_torch.kernels.walk_sample import (walk_sample_ref,
+                                                walk_sample_uniform_ref)
     trees = {"tree": _build.CSRC}
     for spec in args.tree:
         name, _, path = spec.partition("=")
         trees[name] = Path(path).resolve()
     t0 = time.perf_counter()
-    libs, paths = build(trees, ROOT / "build" / "walk_ab", args.flash)
+    libs, paths = build(trees, ROOT / "build" / "walk_ab", args.flash,
+                        args.hist)
+    _build._LIBS.update(libs["tree"])
     report = {"card": card_line(), "build_s": time.perf_counter() - t0,
               "trees": {}}
     print(f"{report['card']}; built {list(trees)} in "
@@ -421,6 +448,26 @@ def main():
             for name, pkg in packages.items()}
     for case, fs in per_tree.items():
         cases[case] = fs
+    if args.hist:
+        report["degree_histogram"] = degree_histogram(st.deg, cfg.capacity)
+        print(f"rows by degree: {report['degree_histogram']}", flush=True)
+        cases["radix_hist (ops.radix_hist)"] = lambda: ops.radix_hist(
+            st.bias, st.deg, num_k=cfg.num_radix)
+    picks = {}            # case: (rows, u) of the uniform pick
+    if args.uniform:
+        from repro_torch.core.walks import WalkParams
+        from repro_torch.serve import DynamicWalkEngine
+        simple = DynamicWalkEngine(st, cfg, WalkParams("simple", WALK_LEN),
+                                   whole_walk=False)
+        frontier = simple.walk(starts, seed=13)[:, FRONTIER_STEP].clamp(
+            min=0).to(torch.int32).contiguous()
+        u1 = u[:, :1].contiguous()
+        picks = {"walk_sample_uniform starts, u (B, 3)": (starts, u),
+                 "walk_sample_uniform starts, u (B, 1)": (starts, u1),
+                 "walk_sample_uniform frontier, u (B, 1)": (frontier, u1)}
+        for case, (rows, uu) in picks.items():
+            cases[case] = (lambda rows=rows, uu=uu: ops.walk_sample_uniform(
+                st.nbr, st.deg, uu, rows=rows))
     flash = {}            # case: (q, k, v, causal, window), float32
     if args.flash:
         from repro_torch.kernels.flash_attention import flash_attention_f32
@@ -522,6 +569,45 @@ def main():
         want = walk_sample_ref(*tabs, uu, rows=rows)
         if not all(torch.equal(a, b) for a, b in zip(first[case], want)):
             raise SystemExit(f"{case} != plain")
+    if args.hist:
+        got = first["radix_hist (ops.radix_hist)"]
+        if not (torch.equal(got[0], st.digitsum)
+                and torch.equal(got[1], st.gsize)):
+            raise SystemExit("radix_hist != (state.digitsum, state.gsize)")
+    report["uniform"] = {}
+    for case, (rows, uu) in picks.items():
+        got = first[case]
+        want = walk_sample_uniform_ref(st.nbr, st.deg, uu, rows=rows)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"{case} != plain")
+        work = sample_work(rows, got[0], st.deg, uu.shape[1], True)
+        b_ms, _ = bound(work["bytes"], work["ops"])
+        sb = uniform_sectors(rows, got[1], st.nbr.shape[1], uu.shape[1])
+        report["uniform"][case] = dict(work, bound_ms=b_ms, sector_bytes=sb)
+        print(f"{case}: word bound {work['bytes'] / 1e6:.3f} MB -> "
+              f"{b_ms:.5f} ms; at 32 B a sector {sb / 1e6:.3f} MB -> "
+              f"{sb / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+    if args.uniform:
+        # the kernel on its path: one per-step simple walk a tree, all
+        # in one profiler session
+        report["uniform_path"], paths = {}, {}
+        out_dir = args.out.parent if args.out else ROOT / "build" / "walk_ab"
+
+        def walk_once(name):
+            _build._LIBS.update(libs[name])
+            paths[name] = simple.walk(starts, seed=14)
+        sls = sample_launches([(partial(walk_once, name),
+                                "walk_sample_uniform") for name in trees],
+                              out_dir / "simple_walks.json")
+        for name, sl in zip(trees, sls):
+            if not torch.equal(paths[name], paths["tree"]):
+                raise SystemExit(f"per-step simple walk: {name} differs")
+            report["uniform_path"][name] = sl
+            print(f"per-step simple walk, {name}: {sl['launches']} "
+                  f"walk_sample_uniform launches, kernel "
+                  f"{sl['kernel_ms_sum']:.4f} ms in all (profiler), median "
+                  f"{statistics.median(sl['ms']):.4f} a launch", flush=True)
+        _build._LIBS.update(libs["tree"])
     report["flash_excess"] = {}
     for case, (q, k, v, causal, window) in flash.items():
         want = flash_attention_ref32(q, k, v, causal=causal, window=window)
@@ -541,7 +627,11 @@ def main():
     print(f"all trees' walks and samples equal, bit for bit, and equal to "
           f"the plain versions; {len(hubs)} full hub rows"
           + ("; update rounds equal to batched_update" if args.update else "")
-          + ("; alias tables equal to state.itable" if args.alias else ""),
+          + ("; alias tables equal to state.itable" if args.alias else "")
+          + ("; histograms equal to the state's counters" if args.hist
+             else "")
+          + ("; uniform picks equal to the plain version" if args.uniform
+             else ""),
           flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
