@@ -17,13 +17,15 @@ Phases (any failure exits non-zero and prints no result line):
    and no spills.
 2. Hold each kernel against its plain PyTorch version on the card, bit
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
-   × fed/hashed uniforms; ``walk_segment`` (the relay's segment entry)
+   × fed/hashed uniforms at C = 128 and 512 (``WALK_CAPACITIES``; 512 is
+   the serving ladder's regrown width); ``walk_segment`` (the relay's segment entry)
    over the same sweep, with start steps spread over [0, L+1], free slots,
    remote neighbours encoded -(g+2) and a permuted slot → walker id map;
    ``update_fused`` over insert/delete/mixed × five config rows, plus a
    batch wider than 2·C, and on ``streamed_state``'s states (through
    ``stream_updates`` first: a full row, an emptied row, stale member
-   lists, a DENSE -> ONE rebuild) at C = 37, 256 and 300 × the five rows,
+   lists, a DENSE -> ONE rebuild) at C = 37, 256, 300 and 512 × the five
+   rows,
    with its prep kernels against ``plan_round``'s torch ops; ``walk_sample`` and ``walk_sample_uniform`` over
    base 2/4 × fp on/off × gathered rows / in-place ``rows``, on batches
    holding degree-0 rows; ``radix_hist`` over K 4/16/31/32 × C 8/37/256
@@ -103,6 +105,38 @@ Phases (any failure exits non-zero and prints no result line):
    alone, without the wrapper's host work (``SegmentWork``), giving a
    bound per launch beside the times of the same launch.  Then one rank over NCCL runs the same deepwalk batch,
    and times the whole-walk and the segment kernels on it in turns.
+3f. After the streaming updates, the main path's engine freed: the
+   serving layer at full width (``serving_phase``).  A fresh engine on the
+   main path's initial edges, ``BingoConfig(2**20, capacity=256,
+   bias_bits=16, capacity_ladder=(256, 512))``, deepwalk 80,
+   ``guard=GuardPolicy(retry_batch=65536)``, ``walk_buckets=(16384, 65536,
+   262144)``, behind ``ServingScheduler(update_lanes=100_000,
+   max_update_delay=4, guard_drain_rounds=8, regrow_watermark=0.95)`` with
+   unbounded queues, takes seeded open-loop bursts of 1-3 requests a tick:
+   the main path's 10 mixed rounds, then four insert-only windows of
+   100,000 edges that a capacity-256 build drops from rows of degree at
+   most 512 (``growth_edges``), and 40 walk requests of 1-65,536 starts.
+   ``ServingProbe`` times each window (host ingest; the classifier by CUDA
+   events beside its bytes bound), each drain and the migration (beside
+   old tables read once + new written once at 3.35 TB/s), and pins the
+   migrated state.  Checks: (a) a fresh engine replaying the admission
+   trace returns every cohort's rows and ends in the live state (SHA-256
+   ``digest``s) and guard books; (b) the migrated state's digest equals
+   ``from_edges`` at 512 over its edges in row order; (c) both
+   conservation laws, no ``R_CAPACITY`` quarantine before the regrow and
+   each later one at a full row; (d) ``audit(pressure=True)`` at both
+   tiers with every corruption rule zero (``at_capacity`` counts the full
+   rows exactly while inserts wait) and ``check_state`` on ~4,096 seeded
+   rows; (e) window ``NO_SYNC_WINDOW`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")``; (f) with the counters
+   zeroed just before the run and read just after, ``walk_fused``
+   launches equal the cohorts and ``update_fused`` launches the windows
+   plus the retry rounds.  Then ``recovery_phase`` at 2^17 vertices, the
+   same widths: ``RecoverableEngine(checkpoint_every=3)`` over 10 guarded
+   rounds and walks, a regrow record logged and the engine dropped before
+   it migrates; ``restore`` + WAL replay must give the uninterrupted run's
+   state digest and next walk batch.  Prints cohort latency p50/p99, walk
+   steps/s and updates/s over the phase, snapshot and restore times.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -127,8 +161,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 Needs one card, the CUDA toolkit (nvcc) and nothing from the network.
 The sharded phase spawns its ranks with the ``spawn`` start method and
-stops them all, whatever happens.  ``--scale`` cuts the graph for a
-quicker run; ``--report`` writes every number measured to a JSON file;
+stops them all, whatever happens.  Each phase's seconds and the total
+are printed before the result lines.  ``--scale`` cuts the graph for a
+quicker run (phase 3f's growth windows then shrink to the hub-row edges
+there are);
+``--report`` writes every number measured to a JSON file;
 ``--profile DIR`` adds, after the per-step paths, one profiled round
 (``torch.profiler``; the ingest's host ops, device events and host syncs
 by ``trace_counts``) and one profiled batch of each per-step path, and
@@ -137,6 +174,7 @@ writes the round's trace there.
 
 import argparse
 import datetime
+import gc
 import hashlib
 import json
 import math
@@ -298,16 +336,29 @@ def random_graph(rng, V, C, bits):
 
 
 # ---------------------------------------------------------------- phase 2
+WALK_CAPACITIES = (128, 512)        # phase 2's walk sweep; 512 is the
+                                    # serving ladder's regrown width
+
+
 def check_walk_kernel(rng):
+    V, bits, B, L = 4096, 12, 2048, 24
+    n = 0
+    for C in WALK_CAPACITIES:
+        src, dst, w = random_graph(rng, V, C, bits)
+        keep = rng.random(V) >= 0.02                   # some dead ends
+        keep = keep[src]
+        n += walk_sweep(rng, V, C, bits, B, L, src[keep], dst[keep],
+                        w[keep])
+    return n
+
+
+def walk_sweep(rng, V, C, bits, B, L, src, dst, w):
+    """``walk_fused`` == plain over deepwalk/ppr/simple × base 2/4 × fp
+    on/off × fed/hashed uniforms on one graph of capacity C."""
     import torch
     from repro_torch.core import dyngraph as dg
     from repro_torch.kernels import ops
     from repro_torch.kernels.walk_fused import walk_fused_ref
-    V, C, bits, B, L = 4096, 128, 12, 2048, 24
-    src, dst, w = random_graph(rng, V, C, bits)
-    keep = rng.random(V) >= 0.02                       # some dead ends
-    keep = keep[src]
-    src, dst, w = src[keep], dst[keep], w[keep]
     n = 0
     for base_log2 in (1, 2):
         for fp in (False, True):
@@ -330,8 +381,8 @@ def check_walk_kernel(rng):
                     want = walk_fused_ref(*args, u, seed=seed, length=L, **kw)
                     torch.cuda.synchronize()
                     need(torch.equal(got, want),
-                         f"walk_fused != plain ({kind}, base 2^{base_log2}, "
-                         f"fp={fp}, fed={fed})")
+                         f"walk_fused != plain ({kind}, C={C}, base "
+                         f"2^{base_log2}, fp={fp}, fed={fed})")
                     n += 1
     return n
 
@@ -441,8 +492,9 @@ def check_sample_kernels(rng):
 # (adaptive, fp_bias, base_log2): the update kernel's five config rows
 UPDATE_CONFIGS = [(True, False, 1), (False, False, 1), (True, True, 1),
                   (True, False, 2), (True, True, 2)]
-STREAMED_CAPACITIES = (37, 256, 300)   # not a multiple of 32, the main
-                                       # path's, past it
+STREAMED_CAPACITIES = (37, 256, 300, 512)   # not a multiple of 32, the
+                                            # main path's, past it, the
+                                            # serving ladder's regrown width
 ALIAS_KS = (1, 2, 5, 16, 17, 31, 32, 33, 63, 64)
 
 
@@ -1233,7 +1285,7 @@ def main_path(args, report):
                 traceback.print_exc()
                 print(f"profiled round: failed ({e!r})", flush=True)
                 report["profile"] = {"error": repr(e)}
-    return kernels, engine, cfg, starts, stream, profile
+    return kernels, engine, cfg, starts, stream, (src, dst, w), profile
 
 
 def no_sync_round(pre, cfg, lanes, want, want_stats):
@@ -1642,13 +1694,27 @@ def uniform_sectors(rows, slot, C, ucols):
 
 
 # ---------------------------------------------------------------- phase 3c
-def digest(tensors, rows=1 << 16):
-    """SHA-256 of tensors' bytes, in order (None leaves skipped), copied to
-    the host ``rows`` rows at a time."""
-    h = hashlib.sha256()
+def digest(tensors, block_bytes=1 << 26):
+    """SHA-256 over the SHA-256 of each block of rows (about
+    ``block_bytes``) of the tensors, in order (None leaves skipped).  The
+    blocks are copied to the host and hashed on a pool of threads, so a
+    20 GiB state takes seconds; equal tensors of equal shapes give equal
+    digests."""
+    from concurrent.futures import ThreadPoolExecutor
+    blocks = []
     for x in tensors:
-        for i in range(0, 0 if x is None else x.shape[0], rows):
-            h.update(x[i:i + rows].contiguous().cpu().numpy())
+        if x is None or x.shape[0] == 0:
+            continue
+        row = max(1, x[0].numel() * x.element_size())
+        step = max(1, block_bytes // row)
+        blocks += [x[i:i + step] for i in range(0, x.shape[0], step)]
+
+    def one(b):
+        return hashlib.sha256(b.contiguous().cpu().numpy()).digest()
+    h = hashlib.sha256()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for d in pool.map(one, blocks):
+            h.update(d)
     return h.hexdigest()
 
 
@@ -2185,6 +2251,558 @@ def streaming(engine, cfg, report, rng):
           f"counters and alias rows equal to a rebuild", flush=True)
 
 
+# --------------------------------------------------------------- phase 3f
+SERVE_SEED = 20
+SERVE_LADDER = (256, 512)
+SERVE_WALK_BUCKETS = (16384, 65536, 262144)
+SERVE_RETRY_BATCH = 65536
+SERVE_WALKS, SERVE_MAX_REQ = 40, 65536
+GROWTH_WINDOWS = 4
+NO_SYNC_WINDOW = 1                 # this window runs under sync debug "error"
+CHECK_VERTICES = 4096
+RECOVERY_SCALE = 17
+
+
+def growth_edges(src, dst, w, V, C, n, rng):
+    """Up to ``n`` edges, in a seeded order, that a capacity-``C`` build of
+    the whole graph drops (rank >= C in row order) from rows whose degree
+    in the whole graph is at most 2C: growth traffic on hub rows that fits
+    the next rung (scale 20 has 402,402 such edges; a smaller graph fewer,
+    and its growth windows are cut to what there is)."""
+    order = np.argsort(src, kind="stable")
+    s = src[order]
+    first = np.r_[True, s[1:] != s[:-1]]
+    idx = np.arange(len(s))
+    rank = idx - np.maximum.accumulate(np.where(first, idx, -1))
+    deg = np.bincount(src, minlength=V)
+    pick = order[(rank >= C) & (deg[s] <= 2 * C)]
+    need(len(pick) >= GROWTH_WINDOWS, f"growth traffic: {len(pick)} dropped "
+         f"edges on rows of degree <= {2 * C}")
+    pick = rng.permutation(pick)[:n]
+    return src[pick], dst[pick], w[pick]
+
+
+def serving_events(rng, n_updates, n_walks, V, max_req):
+    """Open-loop bursts of 1-3 requests a tick (as ``benchmarks/
+    bench_serving.py:_events``): the updates in order, ``n_walks`` walk
+    requests of 1..``max_req`` random starts, in a seeded order."""
+    kinds = rng.permutation(np.array([0] * n_updates + [1] * n_walks))
+    bursts, i, nxt = [], 0, 0
+    while i < len(kinds):
+        burst = []
+        for kind in kinds[i:i + int(rng.integers(1, 4))]:
+            if kind == 0:
+                burst.append(("update", nxt))
+                nxt += 1
+            else:
+                n = int(rng.integers(1, max_req + 1))
+                burst.append(("walk", rng.integers(0, V, n).astype(np.int32)))
+            i += 1
+        bursts.append(burst)
+    return bursts
+
+
+def row_edges(st):
+    """The state's edges in row order as host arrays ``(src, dst, bias)``
+    (integer mode)."""
+    import torch
+    live = (torch.arange(st.nbr.shape[1], device=st.nbr.device)[None, :]
+            < st.deg[:, None])
+    src = torch.repeat_interleave(
+        torch.arange(st.nbr.shape[0], dtype=torch.int32,
+                     device=st.nbr.device), st.deg.long())
+    return (src.cpu().numpy(), st.nbr[live].cpu().numpy(),
+            st.bias[live].cpu().numpy())
+
+
+class ServingProbe:
+    """The instruments of phase 3f's live run, wrapped around one engine:
+    per window the ingest's host time and the classifier's device time
+    (CUDA events) with the bytes its lanes need, the drains' host time,
+    the migration's time and its pins (the state right after it, by
+    digest, and the edges in row order for ``from_edges`` at C'), the
+    audits at both tiers, and each ``R_CAPACITY`` quarantine checked
+    against its row.  Time spent in the pins is kept in ``paused`` and
+    left out of the scheduler's clock and the phase's rates."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.paused = 0.0
+        self.windows, self.classify_log, self.drains = [], [], []
+        self.migration = None
+        self.audits = []
+        self.capacity_quarantines = 0
+        self._in_window = None
+        engine.ingest = self.wrap_ingest(engine.ingest)
+        engine.drain_guard = self.wrap_drain(engine.drain_guard)
+        engine._migrate = self.wrap_migrate(engine._migrate)
+        self.wrap_guard()
+
+    def clock(self):
+        return time.monotonic() - self.paused
+
+    def pause(self, t0):
+        self.paused += time.perf_counter() - t0
+
+    def wrap_guard(self):
+        g = self.engine.guard
+        inner, settle, regrow = g.classify, g.settle_retry, g.regrow
+        V = self.engine.cfg.num_vertices
+
+        def classify(state, ins, u, v, w):
+            import torch
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            r = inner(state, ins, u, v, w)
+            b.record()
+            dele = ~ins & (u >= 0) & (u < V) & (v >= 0) & (v < V)
+            slots = torch.where(dele, state.deg[u.clamp(0, V - 1).long()],
+                                0).sum()
+            self.classify_log.append((self._in_window, a, b, u.shape[0],
+                                      slots))
+            return r
+
+        def settle_retry(rnd, entries, reasons):
+            import torch
+            from repro_torch.core.updates import R_CAPACITY
+            q0 = len(g.quarantine)
+            n = settle(rnd, entries, reasons)
+            t0 = time.perf_counter()
+            new = [q.u for q in g.quarantine[q0:] if q.reason == R_CAPACITY]
+            if new:
+                eng = self.engine
+                need(eng.tier > 0, "an R_CAPACITY quarantine before the "
+                     "regrow")
+                deg = eng.state.deg[torch.tensor(new, device="cuda")]
+                need(bool((deg == eng.cfg.capacity).all()),
+                     "an R_CAPACITY quarantine names a row below capacity")
+                self.capacity_quarantines += len(new)
+            self.pause(t0)
+            return n
+
+        def regrow_(cfg_next):
+            regrow(cfg_next)
+            self.wrap_guard()
+
+        g.classify, g.settle_retry, g.regrow = classify, settle_retry, regrow_
+
+    def wrap_ingest(self, inner):
+        def ingest(*a, **k):
+            import torch
+            i = len(self.windows)
+            self._in_window = i
+            t0 = time.perf_counter()
+            if i == NO_SYNC_WINDOW:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(*a, **k)
+            finally:
+                if i == NO_SYNC_WINDOW:
+                    torch.cuda.set_sync_debug_mode(0)
+                self._in_window = None
+            self.windows.append({"ingest_ms": (time.perf_counter() - t0) * 1e3,
+                                 "lanes": int(k.get("n_valid") or len(a[1]))})
+            return out
+        return ingest
+
+    def wrap_drain(self, inner):
+        def drain_guard():
+            t0 = time.perf_counter()
+            n = inner()
+            if n:
+                self.drains.append({"rounds": n, "tier": self.engine.tier,
+                                    "ms": (time.perf_counter() - t0) * 1e3})
+            return n
+        return drain_guard
+
+    def audit(self):
+        """``audit(pressure=True)``: every corruption rule zero, and
+        ``at_capacity`` the rows at deg == C exactly when inserts wait."""
+        import torch
+        from repro_torch.core.invariants import DEVICE_RULES
+        eng = self.engine
+        t0 = time.perf_counter()
+        a = eng.audit(pressure=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        full = int((eng.state.deg == eng.cfg.capacity).sum()) \
+            if a["pending_depth"] else 0
+        bad = {r: a[r] for r in DEVICE_RULES if r != "at_capacity" and a[r]}
+        need(not bad, f"audit at tier {eng.tier}: {bad}")
+        need(a["at_capacity"] == full, f"audit at tier {eng.tier}: "
+             f"at_capacity {a['at_capacity']} != {full} full rows")
+        self.audits.append(dict(a, ms=ms))
+        return a
+
+    def wrap_migrate(self, inner):
+        def migrate():
+            import torch
+            from repro_torch.core.updates import R_CAPACITY
+            eng = self.engine
+            t0 = time.perf_counter()
+            need(not any(q.reason == R_CAPACITY for q in eng.guard.quarantine),
+                 "an R_CAPACITY quarantine before the regrow")
+            self.audit()
+            old = sum(x.numel() * x.element_size() for x in
+                      state_leaves(eng.state) if x is not None)
+            torch.cuda.synchronize()
+            self.pause(t0)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            a.record()
+            inner()
+            b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            t0 = time.perf_counter()
+            new = sum(x.numel() * x.element_size() for x in
+                      state_leaves(eng.state) if x is not None)
+            self.migration = {
+                "ms": a.elapsed_time(b), "wall_ms": wall,
+                "old_bytes": old, "new_bytes": new,
+                "bound_ms": (old + new) / HBM_BYTES_PER_S * 1e3,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "digest": digest(state_leaves(eng.state)),
+                "edges": row_edges(eng.state),
+                "pin_s": None}
+            self.migration["pin_s"] = time.perf_counter() - t0
+            self.pause(t0)
+        return migrate
+
+    def window_report(self, trace):
+        """Per window: its kind, lanes, host ingest ms, classifier device
+        ms beside its bytes bound; and the retry rounds' classifier ms."""
+        from repro_torch.serve.scheduler import UpdateOp
+        cls = {}
+        retry = []
+        for w, a, b, B, slots in self.classify_log:
+            nbytes = B * (1 + 4 + 4 + 4 + 4 + 4) + 4 * int(slots)
+            row = {"ms": a.elapsed_time(b), "bytes": nbytes,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            (retry.append(row) if w is None else cls.__setitem__(w, row))
+        ops_ = [op for op in trace if isinstance(op, UpdateOp)]
+        for i, (win, op) in enumerate(zip(self.windows, ops_)):
+            win.update(kind="growth" if i >= len(ops_) - GROWTH_WINDOWS
+                       else "mixed", classify=cls[i])
+        return retry
+
+
+def serving_phase(args, report, graph, stream):
+    """Phase 3f: the serving layer at full width (module docstring)."""
+    import torch
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.invariants import check_state
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.update_fused import plan_round
+    from repro_torch.serve import DynamicWalkEngine, GuardPolicy
+    from repro_torch.serve.scheduler import (DrainOp, RegrowOp,
+                                             SchedulerConfig,
+                                             ServingScheduler, UpdateOp,
+                                             WalkOp, replay_admission_trace)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    src, dst, w = graph
+    V = 1 << args.scale
+    rounds, batch = stream.is_insert.shape
+    cfg = dg.BingoConfig(num_vertices=V, capacity=SERVE_LADDER[0],
+                         bias_bits=16, capacity_ladder=SERVE_LADDER)
+    rng = np.random.default_rng(SERVE_SEED)
+    gsrc, gdst, gw = growth_edges(src, dst, w, V, cfg.capacity,
+                                  GROWTH_WINDOWS * batch, rng)
+    updates = [tuple(a[r] for a in (stream.is_insert, stream.u, stream.v,
+                                    stream.w)) for r in range(rounds)]
+    gwin = len(gsrc) // GROWTH_WINDOWS
+    for k in range(GROWTH_WINDOWS):
+        sl = slice(k * gwin, (k + 1) * gwin)
+        updates.append((np.ones(gwin, bool), gsrc[sl], gdst[sl], gw[sl]))
+    bursts = serving_events(rng, len(updates), SERVE_WALKS, V,
+                            min(SERVE_MAX_REQ, V))
+    params = WalkParams("deepwalk", WALK_LEN)
+    sched_cfg = SchedulerConfig(
+        update_lanes=batch, max_update_delay=4, max_walk_queue=1 << 40,
+        max_update_queue=1 << 40, guard_drain_rounds=8,
+        regrow_watermark=0.95)
+
+    def make_engine():
+        st = dg.from_edges(cfg, stream.init_src, stream.init_dst,
+                           stream.init_w, device="cuda")
+        return DynamicWalkEngine(
+            st, cfg, params, seed=SERVE_SEED,
+            guard=GuardPolicy(retry_batch=SERVE_RETRY_BATCH),
+            walk_buckets=SERVE_WALK_BUCKETS)
+
+    # ---- the live run
+    engine = make_engine()
+    probe = ServingProbe(engine)
+    probe.audit()                                   # tier 0, before traffic
+    sched = ServingScheduler(engine, sched_cfg, clock=probe.clock)
+    results = {}
+    ops.reset_launch_counts()
+    plan_round.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for burst in bursts:
+        for kind, x in burst:
+            if kind == "update":
+                need(sched.submit_update(*updates[x]), "update refused")
+            else:
+                need(sched.submit_walk(x) is not None, "walk refused")
+        sched.tick()
+        results.update((r.rid, r) for r in sched.poll())
+    results.update((r.rid, r) for r in sched.close())
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0 - probe.paused
+    counts = ops.launch_counts()
+    trace = sched.trace
+    n_walk_ops = sum(isinstance(op, WalkOp) for op in trace)
+    n_upd_ops = sum(isinstance(op, UpdateOp) for op in trace)
+    regrows = [i for i, op in enumerate(trace) if isinstance(op, RegrowOp)]
+    print(f"serving: {len(bursts)} ticks, {n_upd_ops} update windows "
+          f"({engine.retry_rounds} retry rounds), {n_walk_ops} walk cohorts "
+          f"for {len(results)} requests, "
+          f"{sum(isinstance(op, DrainOp) for op in trace)} drains, regrow at "
+          f"trace ops {regrows}; launches {counts}", flush=True)
+    # (f) the kernels ran on the card, once a cohort / window / retry round
+    need(counts["walk_fused"] == n_walk_ops,
+         f"serving: walk_fused launches {counts['walk_fused']} != "
+         f"{n_walk_ops} cohorts")
+    need(counts["update_fused"] == n_upd_ops + engine.retry_rounds
+         == plan_round.launches,
+         f"serving: update_fused launches {counts['update_fused']} != "
+         f"{n_upd_ops} windows + {engine.retry_rounds} retry rounds")
+    need(len(regrows) == 1 and engine.tier == 1 and probe.migration,
+         f"serving: expected one regrow to {SERVE_LADDER[1]}, got {regrows}")
+    need(len(results) == SERVE_WALKS, "serving: a walk request was lost")
+    # (c) conservation
+    engine.guard.check_conservation()
+    sched.check_conservation()
+    # (d) invariants at the new tier, and the full check on seeded rows
+    probe.audit()
+    deg = engine.state.deg.cpu().numpy()
+    crng = np.random.default_rng(SERVE_SEED + 1)
+    wide = np.flatnonzero(deg > SERVE_LADDER[0])
+    verts = np.unique(np.concatenate([
+        crng.choice(V, CHECK_VERTICES // 2, replace=False),
+        crng.choice(wide, min(len(wide), CHECK_VERTICES // 2),
+                    replace=False)]))
+    t1 = time.perf_counter()
+    check_state(engine.state, engine.cfg, vertices=verts)
+    check_s = time.perf_counter() - t1
+    retry = probe.window_report(trace)
+    lat = sorted(r.latency_s for r in results.values())
+    steps = sum(int((r.paths[:, 1:] >= 0).sum()) for r in results.values())
+    lanes = sum(op.n_valid for op in trace if isinstance(op, UpdateOp))
+    guard_books = engine.guard.snapshot()
+    t1 = time.perf_counter()
+    live_digest = digest(state_leaves(engine.state))
+    digest_s = time.perf_counter() - t1
+    live_paths = {rid: r.paths for rid, r in results.items()}
+    pin = probe.migration
+    out = {
+        "ticks": len(bursts), "windows": probe.windows, "drains": probe.drains,
+        "retry_rounds": engine.retry_rounds, "retry_classify": retry,
+        "walk_cohorts": n_walk_ops, "launches": counts,
+        "migration": {k: v for k, v in pin.items()
+                      if k not in ("digest", "edges")},
+        "audits": probe.audits, "check_state_vertices": len(verts),
+        "check_state_s": check_s, "digest_s": digest_s,
+        "latency_p50_ms": lat[len(lat) // 2] * 1e3,
+        "latency_p99_ms": lat[min(len(lat) - 1,
+                                  int(math.ceil(0.99 * len(lat))) - 1)] * 1e3,
+        "walk_steps": steps, "walk_steps_per_s": steps / live_s,
+        "updates": lanes, "updates_per_s": lanes / live_s,
+        "live_s": live_s, "paused_s": probe.paused,
+        "guard": {k: guard_books[k] for k in
+                  ("ingested", "accepted", "quarantined", "retried",
+                   "reason_counts")},
+        "pending": len(guard_books["pending"]),
+        "capacity_quarantines": probe.capacity_quarantines}
+    del sched, probe, results, engine
+    gc.collect()                  # the probe's wrappers and the engine
+    torch.cuda.empty_cache()      # reference each other
+    need(torch.cuda.memory_allocated() < base + 2**30,
+         "serving: the live engine's tables were not freed")
+    for i, win in enumerate(out["windows"]):
+        c = win["classify"]
+        print(f"  window {i} ({win['kind']}, {win['lanes']} lanes): ingest "
+              f"{win['ingest_ms']:.3f} ms host; classifier {c['ms']:.4f} ms "
+              f"(bound {c['bound_ms']:.4f} ms, {c['bytes'] / 1e6:.2f} MB)"
+              + (" [under set_sync_debug_mode('error')]"
+                 if i == NO_SYNC_WINDOW else ""), flush=True)
+    for d in out["drains"]:
+        print(f"  drain of {d['rounds']} rounds at tier {d['tier']}: "
+              f"{d['ms']:.1f} ms host", flush=True)
+    m = out["migration"]
+    print(f"  regrow 256 -> 512: migration {m['ms']:.2f} ms (CUDA events; "
+          f"{m['wall_ms']:.2f} ms host), bound {m['bound_ms']:.3f} ms "
+          f"({(m['old_bytes'] + m['new_bytes']) / 2**30:.2f} GiB: old tables "
+          f"read once, new written once), peak {m['peak_gib']:.1f} GiB; "
+          f"{out['retry_rounds']} retry rounds, classifier "
+          f"{sum(r['ms'] for r in retry):.3f} ms in them", flush=True)
+    print(f"  audits (pressure=True): "
+          + "; ".join(f"tier {a['tier']} {a['ms']:.1f} ms, at_capacity "
+                      f"{a['at_capacity']}, pending {a['pending_depth']}"
+                      for a in out["audits"])
+          + f"; check_state on {len(verts)} rows {check_s:.1f} s", flush=True)
+    print(f"  cohort latency p50 {out['latency_p50_ms']:.1f} ms, p99 "
+          f"{out['latency_p99_ms']:.1f} ms; {steps} walk steps "
+          f"({out['walk_steps_per_s'] / 1e6:.1f} M steps/s), {lanes} updates "
+          f"({out['updates_per_s'] / 1e6:.3f} M updates/s) over "
+          f"{live_s:.2f} s (pins {out['paused_s']:.1f} s left out); guard "
+          f"{out['guard']}, pending {out['pending']}, R_CAPACITY quarantines "
+          f"{out['capacity_quarantines']} (each at a full row after the "
+          f"regrow)", flush=True)
+
+    # (b) the regrow pin: the migrated state is from_edges at C' over its
+    # edges in row order (digests: no third full state is held)
+    t1 = time.perf_counter()
+    built = dg.from_edges(cfg.tier_config(1), *pin["edges"], device="cuda")
+    need(digest(state_leaves(built)) == pin["digest"],
+         "serving: the migrated state != from_edges at C' = 512")
+    del built, pin
+    torch.cuda.empty_cache()
+    out["regrow_pin_s"] = time.perf_counter() - t1
+
+    # (a) live == replay: a fresh engine replays the admission trace
+    t1 = time.perf_counter()
+    fresh = make_engine()
+    replayed = iter(replay_admission_trace(fresh, trace))
+    for op in trace:
+        if isinstance(op, WalkOp):
+            rep = next(replayed)
+            off = np.cumsum([0] + list(op.sizes))
+            for j, rid in enumerate(op.rids):
+                need(np.array_equal(live_paths[rid], rep[off[j]:off[j + 1]]),
+                     f"serving: request {rid} != its replay")
+    need(fresh.tier == 1 and fresh.guard.snapshot() == guard_books,
+         "serving: the replay's tier or guard books differ")
+    need(digest(state_leaves(fresh.state)) == live_digest,
+         "serving: the replay's final state != the live one")
+    out["replay_s"] = time.perf_counter() - t1
+    del fresh, replayed, live_paths
+    torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving: live == replay on all {n_walk_ops} cohorts and the final "
+          f"state (digest {live_digest[:16]}); regrow pin equal "
+          f"({out['regrow_pin_s']:.1f} s); replay {out['replay_s']:.1f} s; "
+          f"peak {out['peak_gib']:.1f} GiB; phase {out['phase_s']:.1f} s",
+          flush=True)
+    report["serving"] = out
+
+
+def recovery_phase(args, report):
+    """Phase 3f, recovery: crash and restore at 2^``RECOVERY_SCALE``
+    vertices with the serving widths (C 256 -> 512, 16-bit biases)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    from repro_torch.graph.streams import make_update_stream
+    from repro_torch.serve import (DynamicWalkEngine, GuardPolicy,
+                                   RecoverableEngine)
+    from repro_torch.train import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    scale = min(args.scale, RECOVERY_SCALE)
+    V, rounds = 1 << scale, 10
+    src, dst = rmat_edges(scale, 8, seed=1)
+    w = degree_bias(src, dst, V, bias_bits=16)
+    batch = min(100_000 >> (20 - scale), len(src) // (4 * rounds))
+    stream = make_update_stream(src, dst, w, batch_size=batch, rounds=rounds,
+                                mode="mixed", seed=1)
+    cfg = dg.BingoConfig(num_vertices=V, capacity=SERVE_LADDER[0],
+                         bias_bits=16, capacity_ladder=SERVE_LADDER)
+    params = WalkParams("deepwalk", WALK_LEN)
+    guard = GuardPolicy(retry_batch=SERVE_RETRY_BATCH)
+    starts = torch.arange(0, V, 8, dtype=torch.int32, device="cuda")
+
+    def engine():
+        st = dg.from_edges(cfg, stream.init_src, stream.init_dst,
+                           stream.init_w, device="cuda")
+        return DynamicWalkEngine(st, cfg, params, seed=SERVE_SEED,
+                                 guard=guard)
+
+    def drive(e):
+        for r in range(rounds):
+            e.ingest(stream.is_insert[r], stream.u[r], stream.v[r],
+                     stream.w[r])
+            e.walk(starts)
+
+    twin = engine()                           # the uninterrupted run
+    drive(twin)
+    need(len(twin.guard.pending) > 0, "recovery: no capacity spill to regrow")
+    twin.regrow()
+    want = digest(state_leaves(twin.state))
+    want_paths = twin.walk(starts).cpu()
+    del twin
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="smoke_recovery_")
+    writes, copies = [], []
+    save = ckpt.save_checkpoint
+
+    def timed_write(*a, **k):
+        t = time.perf_counter()
+        out = save(*a, **k)
+        writes.append(time.perf_counter() - t)
+        return out
+    ckpt.save_checkpoint = timed_write
+    try:
+        rec = RecoverableEngine(engine(), ckpt_dir=tmp, checkpoint_every=3,
+                                keep=2)
+        take = rec.ckpt.save
+
+        def timed_copy(*a, **k):
+            rec.ckpt.wait()
+            t = time.perf_counter()
+            take(*a, **k)
+            copies.append(time.perf_counter() - t)
+        rec.ckpt.save = timed_copy
+        drive(rec)
+        rec.wal.append_regrow(rec.engine.tier + 1)   # logged, not applied
+        rec.wait()
+        gen = ckpt.latest_step(tmp)
+        del rec                                      # the crash
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rec2 = RecoverableEngine.restore(tmp, cfg, params, guard=guard,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        need(rec2.engine.tier == 1, "recovery: the logged regrow did not run")
+        need(digest(state_leaves(rec2.engine.state)) == want,
+             "recovery: restored state != the uninterrupted run's")
+        need(torch.equal(rec2.walk(starts).cpu(), want_paths),
+             "recovery: the next walk batch != the uninterrupted run's")
+        del rec2
+    finally:
+        ckpt.save_checkpoint = save
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    snap_gib = sum(x.numel() * x.element_size() for x in state_leaves(
+        dg.empty_state(cfg, "meta")) if x is not None) / 2**30
+    out = {"scale": scale, "rounds": rounds, "batch": batch,
+           "snapshot_gib": snap_gib, "snapshot_copy_s": copies,
+           "snapshot_write_s": writes, "restored_from_generation": gen,
+           "restore_s": restore_s,
+           "phase_s": time.perf_counter() - t_phase}
+    report["recovery"] = out
+    print(f"recovery: 2^{scale} vertices, {rounds} guarded rounds of {batch} "
+          f"and walks through RecoverableEngine(checkpoint_every=3), a regrow "
+          f"record logged and the engine dropped before it migrates: restore "
+          f"from generation {gen} + WAL replay {restore_s:.2f} s, state and "
+          f"next walk batch equal to the uninterrupted run; snapshots "
+          f"({snap_gib:.2f} GiB) host copy {[round(x, 3) for x in copies]} s, "
+          f"write {[round(x, 3) for x in writes]} s; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+
+
 # --------------------------------------------------------------- phase 3e
 def attention_pairs(S, T, causal, window):
     """Unmasked (query, key) pairs of one head: query row i at i + T - S."""
@@ -2524,6 +3142,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     report = {"scale": args.scale}
 
+    t_start = time.perf_counter()
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
     # ---- phase 1: build and report
     secs = _build.build_all()
     report["build_s"] = secs
@@ -2538,6 +3165,7 @@ def main():
     card = card_line()
     report["card"] = card
     torch.cuda.init()
+    phase_s["1 build and census"] = time.perf_counter() - t_start
 
     # ---- phase 2: kernel == plain on the card
     rng = np.random.default_rng(0)
@@ -2549,7 +3177,8 @@ def main():
     rng_new = np.random.default_rng(1)       # rng's stream stays as it was
     nt = check_table_kernels(rng_new)
     fa_errs = check_flash_kernel(rng_new)
-    report["check_s"] = time.perf_counter() - t0
+    report["check_s"] = phase_s["2 kernel == plain"] = \
+        time.perf_counter() - t0
     report["flash_check_errs"] = fa_errs
     print(f"kernel == plain, bit-exact: walk_fused {nw} cases, walk_segment "
           f"{ng} cases, update_fused {nu} rounds, walk_sample and "
@@ -2566,26 +3195,40 @@ def main():
                  f"{old[0]:.3f}, fault {old[1]:.1f}"), flush=True)
 
     # ---- phases 3 and 4: the main path, then the times
-    kernels, engine, cfg, starts, stream, profile = main_path(args, report)
+    kernels, engine, cfg, starts, stream, graph, profile = timed(
+        "3/4 main path and times", main_path, args, report)
     # ---- phase 3d: the table kernels on the final state
-    tables = table_phase(engine, cfg, report)
+    tables = timed("3d table kernels", table_phase, engine, cfg, report)
     # ---- phase 3b: the per-step paths
-    kernels += per_step_paths(engine, cfg, starts, report, args.profile)
+    kernels += timed("3b per-step paths", per_step_paths, engine, cfg,
+                     starts, report, args.profile)
     if profile is not None:         # after the profiler-counted replays
-        profile()
+        timed("profiled round", profile)
         profile = None              # frees the round's saved state
     # ---- phase 3c: the sharded path, then the streaming updates
-    kernels.insert(1, sharded_path(engine, cfg, starts, stream, report))
-    streaming(engine, cfg, report, rng)
+    kernels.insert(1, timed("3c sharded path", sharded_path, engine, cfg,
+                            starts, stream, report))
+    timed("streaming updates", streaming, engine, cfg, report, rng)
     kernels += tables
-    # ---- phase 3e: attention at full width
     del engine
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    kernels += attention_phase(report)
-    report["attention_s"] = time.perf_counter() - t0
+    # ---- phase 3f: the serving layer at full width, then recovery
+    peak = torch.cuda.max_memory_allocated()
+    timed("3f serving", serving_phase, args, report, graph, stream)
+    timed("3f recovery", recovery_phase, args, report)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del graph
+    torch.cuda.empty_cache()
+    # ---- phase 3e: attention at full width
+    torch.cuda.reset_peak_memory_stats()
+    kernels += timed("3e attention", attention_phase, report)
+    report["attention_s"] = phase_s["3e attention"]
     print(f"attention phase: {report['attention_s']:.1f} s", flush=True)
-    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    phase_s["total"] = time.perf_counter() - t_start
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in phase_s.items()),
+          flush=True)
+    report["peak_gib"] = max(peak, torch.cuda.max_memory_allocated()) / 2**30
     if args.report:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -14,7 +14,8 @@ Port of ``repro/core/dyngraph.py``.  Fixed-capacity padded tensors:
 Every derived table is a pure function of ``(bias_row, frac_row, deg)``;
 ``build_vertex_groups`` computes it for a batch of rows.  Builds run in
 vertex chunks so the ``(rows, C, K)`` digit intermediates stay small at
-a million vertices.  ``refresh_vertices`` updates the state's tensors in
+a million vertices; ``regrow_state`` pads the rows to a larger capacity
+and rebuilds the rest the same way.  ``refresh_vertices`` updates the state's tensors in
 place (the counterpart of the reference's donated buffers).
 """
 
@@ -34,7 +35,7 @@ __all__ = [
     "EMPTY", "DENSE", "ONE", "SPARSE", "REGULAR",
     "BingoConfig", "BingoState",
     "classify", "build_vertex_groups", "build_itable_rows",
-    "empty_state", "from_edges", "refresh_vertices",
+    "empty_state", "from_edges", "refresh_vertices", "regrow_state",
     "state_from_numpy", "state_to_numpy",
 ]
 
@@ -287,23 +288,69 @@ def from_edges(cfg: BingoConfig, src, dst, bias, device="cuda",
         w_int = bias_t.to(torch.int32)
         w_frac = torch.zeros(src.shape, dtype=torch.float32, device=device)
     nbr, b, f, deg = _scatter_adjacency(cfg, src, dst, w_int, w_frac)
-    st = empty_state(cfg, device)
-    st = st._replace(nbr=nbr, bias=b, frac=f, deg=deg)
-    V = cfg.num_vertices
+    return _build_tables(cfg, nbr, b, f, deg, chunk)
+
+
+def _build_tables(cfg: BingoConfig, nbr, bias, frac, deg,
+                  chunk: Optional[int]) -> BingoState:
+    """The state over the adjacency tensors ``(nbr, bias, frac, deg)``,
+    every derived table built ``chunk`` rows at a time."""
+    V, C, K, Cg = (cfg.num_vertices, cfg.capacity, cfg.num_radix,
+                   cfg.group_capacity)
+    dev = nbr.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    gmem = torch.empty((V, K, Cg), **i32)
+    ginv = None if cfg.adaptive else torch.empty((V, K, C), **i32)
+    gsize = torch.empty((V, K), **i32)
+    digitsum = torch.empty((V, K), **i32)
+    gtype = torch.empty((V, K), dtype=torch.int8, device=dev)
+    wdec = torch.empty((V,), dtype=torch.float32, device=dev)
     chunk = chunk or _default_chunk(cfg)
     for v0 in range(0, V, chunk):
         v1 = min(V, v0 + chunk)
-        gmem, ginv, gsize, digitsum, gtype, wdec = build_vertex_groups(
-            cfg, b[v0:v1], f[v0:v1], deg[v0:v1])
-        st.gmem[v0:v1] = gmem
-        if ginv is not None:
-            st.ginv[v0:v1] = ginv
-        st.gsize[v0:v1] = gsize
-        st.digitsum[v0:v1] = digitsum
-        st.gtype[v0:v1] = gtype
-        st.wdec[v0:v1] = wdec
-    itab = build_itable_rows(cfg, st.digitsum, st.wdec)
-    return st._replace(itable=itab)
+        rows = build_vertex_groups(cfg, bias[v0:v1], frac[v0:v1],
+                                   deg[v0:v1])
+        for dst_t, src_t in zip((gmem, ginv, gsize, digitsum, gtype, wdec),
+                                rows):
+            if dst_t is not None:
+                dst_t[v0:v1] = src_t
+    itab = build_itable_rows(cfg, digitsum, wdec)
+    return BingoState(nbr, bias, frac, deg, gmem, ginv, gsize, digitsum,
+                      wdec, gtype, itab)
+
+
+def regrow_state(state: BingoState, cfg: BingoConfig,
+                 cfg_next: BingoConfig,
+                 chunk: Optional[int] = None) -> BingoState:
+    """Migrate a state from capacity ``cfg.capacity`` to the larger
+    ``cfg_next.capacity`` — the ladder-escalation step (DESIGN.md §14).
+
+    The adjacency rows are slot-compact, so growth is a pad: ``nbr`` with
+    -1 and ``bias``/``frac`` with 0 into new ``(V, C')`` tensors, ``deg``
+    unchanged (a copy).  Every derived table is a pure function
+    of ``(bias_row, frac_row, deg, cfg)``, rebuilt at ``cfg_next``
+    ``chunk`` rows at a time (default ``_default_chunk(cfg_next)``), so
+    the result is bit-identical to ``from_edges`` at ``C'`` over the same
+    edges in row order.  Returns new tensors and leaves ``state`` as it
+    was; the caller drops it.
+    """
+    C, C2 = cfg.capacity, cfg_next.capacity
+    if C2 <= C:
+        raise ValueError(f"regrow must grow: C'={C2} <= C={C}")
+    if cfg_next.num_vertices != cfg.num_vertices or (
+            cfg_next.bias_bits, cfg_next.base_log2, cfg_next.adaptive,
+            cfg_next.fp_bias) != (cfg.bias_bits, cfg.base_log2,
+                                  cfg.adaptive, cfg.fp_bias):
+        raise ValueError("regrow may only change capacity; every other "
+                         "sampling-space field must match")
+    V = cfg.num_vertices
+
+    def pad(x, fill):
+        out = torch.full((V, C2), fill, dtype=x.dtype, device=x.device)
+        out[:, :C] = x
+        return out
+    return _build_tables(cfg_next, pad(state.nbr, -1), pad(state.bias, 0),
+                         pad(state.frac, 0.0), state.deg.clone(), chunk)
 
 
 def refresh_vertices(state: BingoState, cfg: BingoConfig, verts,

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["rmat_edges", "degree_bias"]
+__all__ = ["rmat_edges", "degree_bias", "sample_bias"]
 
 
 def rmat_edges(scale: int, edge_factor: int = 8, *,
@@ -59,3 +59,23 @@ def degree_bias(src: np.ndarray, dst: np.ndarray, num_vertices: int,
     """
     deg = np.bincount(dst, minlength=num_vertices)
     return np.clip(deg[dst], 1, (1 << bias_bits) - 1).astype(np.int32)
+
+
+def sample_bias(n: int, dist: str, *, bias_bits: int = 16,
+                seed: int = 0) -> np.ndarray:
+    """Bias vectors for the Fig. 15(c) distribution sweep.
+
+    ``uniform`` | ``normal`` | ``exponential`` (the skewed cases), integer
+    in [1, 2**bias_bits).
+    """
+    rng = np.random.default_rng(seed)
+    hi = (1 << bias_bits) - 1
+    if dist == "uniform":
+        w = rng.integers(1, hi + 1, n)
+    elif dist == "normal":
+        w = np.rint(rng.normal(hi / 2, hi / 8, n))
+    elif dist == "exponential":
+        w = np.rint(rng.exponential(hi / 16, n))
+    else:
+        raise ValueError(f"unknown bias distribution {dist!r}")
+    return np.clip(w, 1, hi).astype(np.int32)

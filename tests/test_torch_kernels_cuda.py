@@ -10,14 +10,18 @@ per-step samples (base 2/4 × fp on/off × gathered rows / in-place
 C = 256 on rows whose degrees sit around the sampler's 8-lane tile, its
 32-slot first tile, its 16-byte chunks and the 256-slot window (0, 1,
 3–5, 7–9, 15–17, 31–33, 63–65, 127–129, 255, 256), with a full hub row
-shared by many walkers, and at C = 37 (rows not 16-byte aligned) and
-C = 300 (rows past the window); update rounds
+shared by many walkers, and at C = 37 (rows not 16-byte aligned),
+C = 300 (rows past the window) and C = 512 (the serving ladder's regrown
+width); update rounds
 (insert/delete/mixed × the five config rows, chained, plus a batch wider
-than 2·C; mixed rounds at C = 37, 256 and 300; a round on
+than 2·C; mixed rounds at C = 37, 256, 300 and 512; a round on
 ``chip_smoke.streamed_state``'s states, which went through
 ``stream_updates`` first: a full row, an emptied row, stale member lists,
 a DENSE -> ONE rebuild), the prep kernels against ``plan_round``'s torch
 ops on the CPU, and a round under ``set_sync_debug_mode("error")``; the
+guard's classifier against its torch ops on the CPU, and a deferred
+guarded ingest under ``set_sync_debug_mode("error")``; an
+``AsyncCheckpointer`` snapshot with in-place rounds right after it; the
 radix histogram (K 1/4/16/31/32 × C 8/37/256, degrees on both sides of
 its 32-slot short rows in every lane position; an R-MAT scale-12 state
 against its own counters), the uniform pick (B 1, 3, 4, 5 and 262,147 ×
@@ -366,14 +370,16 @@ def test_wide_rows_walk_sample_kernels_equal_plain(base_log2, fp, in_place):
 
 
 @pytest.mark.parametrize("base_log2,fp", [(1, False), (2, True)])
-@pytest.mark.parametrize("C", [37, 300])
+@pytest.mark.parametrize("C", [37, 300, 512])
 def test_unaligned_and_long_rows_equal_plain(C, base_log2, fp):
     """Capacities the sampler's 16-byte loads cannot take (C = 37: rows
     not 16-byte aligned) and rows past its 256-slot window (C = 300,
-    degrees up to 300): whole walks (deepwalk, simple), the segment entry
+    degrees up to 300; C = 512, the serving ladder's regrown width,
+    degrees up to 512): whole walks (deepwalk, simple), the segment entry
     and the per-step samples (in place and gathered), bit for bit."""
     degrees = tuple(d for d in (0, 1, 3, 4, 5, 15, 16, 17, 31, 32, 33, 36,
-                                37, 255, 256, 257, 299, 300) if d <= C)
+                                37, 255, 256, 257, 299, 300, 511, 512)
+                    if d <= C)
     st, cfg = _wide_state(fp, base_log2, V=640, C=C, degrees=degrees)
     V, B, L = cfg.num_vertices, 600, 12
     rows = _wide_rows(B, V, 13, n=len(degrees))
@@ -456,11 +462,12 @@ def _same_stats(s_ref, s_got):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("C", [37, 256, 300])
+@pytest.mark.parametrize("C", [37, 256, 300, 512])
 @pytest.mark.parametrize("adaptive,fp,base_log2", UPDATE_CONFIGS)
 def test_update_kernel_unaligned_and_wide_rows(C, adaptive, fp, base_log2):
     """Mixed rounds at a capacity that is not a multiple of 32, at the
-    main path's 256 and past it; rows of degree up to C // 2 + a round."""
+    main path's 256, past it and at the regrown 512 (fewer rows a block);
+    rows of degree up to C // 2 + a round."""
     V = 24
     st, cfg = _state(V, C, fp, base_log2, adaptive=adaptive, seed=C)
     ref = _clone(st)
@@ -532,6 +539,83 @@ def test_update_round_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _guard_round(V, C, seed):
+    """A state with full rows and a dirty round on the card: out-of-range
+    lanes, zero weights, absent deletes, deletes of same-round inserts,
+    capacity overflows."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, C + 1, V)
+    deg[:4] = C
+    src = np.repeat(np.arange(V), deg).astype(np.int32)
+    dst = rng.integers(0, 16, src.size).astype(np.int32)
+    w = rng.integers(1, 64, src.size).astype(np.int32)
+    cfg = tdg.BingoConfig(num_vertices=V, capacity=C, bias_bits=6)
+    st = tdg.from_edges(cfg, src, dst, w, device="cuda")
+    B = 2048
+    ins = rng.random(B) < 0.6
+    uu = rng.integers(-2, V + 2, B).astype(np.int32)
+    uu[:256] = rng.integers(0, 4, 256)
+    vv = rng.integers(-1, 17, B).astype(np.int32)
+    ww = rng.integers(0, 64, B).astype(np.int32)
+    lanes = [torch.from_numpy(x).cuda() for x in (ins, uu, vv, ww)]
+    return st, cfg, lanes
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_guard_classifier_on_the_card_equals_cpu_and_never_syncs(dup):
+    """The guard's classifier on CUDA tensors: reasons equal the same
+    torch ops on the CPU (themselves held to JAX in
+    ``tests/test_torch_guard.py``), the state is unchanged, and a
+    deferred guarded ingest (classifier, update round, reason tally)
+    runs under ``set_sync_debug_mode("error")``."""
+    from repro_torch.serve import DynamicWalkEngine, GuardPolicy
+    from repro_torch.serve.guard import make_classifier
+    st, cfg, lanes = _guard_round(256, 64, seed=5 + dup)
+    policy = GuardPolicy(reject_duplicates=dup)
+    before = _clone(st)
+    got = make_classifier(cfg, policy)(st, *lanes)
+    cpu = tdg.BingoState(*[None if x is None else
+                           (type(x)(*[y.cpu() for y in x])
+                            if isinstance(x, tuple) else x.cpu())
+                           for x in st])
+    want = make_classifier(cfg, policy)(cpu, *[x.cpu() for x in lanes])
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert len(set(want.tolist())) >= 4
+    assert_same(before, st)
+    eng = DynamicWalkEngine(st, cfg, guard=policy, defer_guard=True)
+    eng.ingest(*lanes)                              # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.ingest(*lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.drain_guard() == 2
+    eng.guard.check_conservation()
+
+
+def test_async_checkpoint_takes_the_generation_it_was_called_at(tmp_path):
+    """``AsyncCheckpointer.save`` copies the card's tables to the host
+    before it returns: in-place rounds launched right after it do not
+    reach the snapshot."""
+    from repro_torch.serve import DynamicWalkEngine
+    from repro_torch.train.checkpoint import (AsyncCheckpointer,
+                                              restore_checkpoint)
+    st, cfg, lanes = _guard_round(4096, 64, seed=7)
+    eng = DynamicWalkEngine(st, cfg)
+    want = _clone(eng.state)
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(0, eng.state)
+    for _ in range(3):
+        eng.ingest(*lanes)
+    ck.wait()
+    got = restore_checkpoint(str(tmp_path), 0,
+                             like=tdg.empty_state(cfg, "meta"),
+                             device="cuda")
+    assert_same(want, got)
+    assert not torch.equal(eng.state.nbr, got.nbr)
 
 
 @pytest.mark.parametrize("C", [8, 37, 256])
