@@ -19,7 +19,7 @@ Phases (any failure exits non-zero and prints no result line):
    for bit: ``walk_fused`` over deepwalk/ppr/simple × base 2/4 × fp on/off
    × fed/hashed uniforms at C = 128 and 512 (``WALK_CAPACITIES``; 512 is
    the serving ladder's regrown width); ``walk_segment`` (the relay's segment entry)
-   over the same sweep, with start steps spread over [0, L+1], free slots,
+   over the same sweep at both capacities, with start steps spread over [0, L+1], free slots,
    remote neighbours encoded -(g+2) and a permuted slot → walker id map;
    ``update_fused`` over insert/delete/mixed × five config rows, plus a
    batch wider than 2·C, and on ``streamed_state``'s states (through
@@ -137,6 +137,29 @@ Phases (any failure exits non-zero and prints no result line):
    it migrates; ``restore`` + WAL replay must give the uninterrupted run's
    state digest and next walk batch.  Prints cohort latency p50/p99, walk
    steps/s and updates/s over the phase, snapshot and restore times.
+3g. After recovery: the sharded serving layer.  Phase 3f hands over its
+   traffic, admission trace, per-request path digests, guard books,
+   regrow counts, the digests of the 4 vertex slices of its final state
+   and a single-device whole walk of that state (65,536 deepwalk starts,
+   ``CHAOS_SEED``).  4 gloo ranks on the one card build their slices in
+   turn and run phase 3f's bursts through a ``ServingScheduler`` over
+   ``DynamicWalkEngine(group=..., guard=GuardPolicy(retry_batch=65536),
+   walk_buckets=..., relay_overlap=False)`` at the ladder 256 -> 512 (bulk
+   relays: the faster schedule on gloo).  Each rank must admit phase 3f's
+   trace op for op (the harvest blocks on a sharded engine; if phase 3f's
+   own dispatch ever met ``max_inflight``, its trace is replayed instead)
+   and give every request's paths, the guard books, the regrow counts and
+   its final slice as phase 3f did; launches equal the relay rounds and
+   the windows plus retry rounds; the summed ``audit`` has no corruption.
+   Then, on the grown state, ``run_chaos_relay`` with dup 0.2 + delay 0.2
+   must give the single-device walk with no walker lost, and drop 0.01
+   and a transport killed at round 3 must raise ``RelayIntegrityError``
+   on every rank.  Last, one NCCL rank runs phase 3f's second window on a
+   sharded engine under ``set_sync_debug_mode("error")`` (gloo stages
+   every collective through the host, so a gloo rank cannot).  Prints
+   request latency, rates, drains, migrations and the classifier's ms a
+   rank, relay rounds per cohort, the chaos reports and the phase's
+   seconds, each beside the card's name and power limit.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -173,11 +196,13 @@ writes the round's trace there.
 """
 
 import argparse
+import dataclasses
 import datetime
 import gc
 import hashlib
 import json
 import math
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -388,19 +413,29 @@ def walk_sweep(rng, V, C, bits, B, L, src, dst, w):
 
 
 def check_segment_kernel(rng):
-    """The segment entry == ``walk_segment_ref``, bit for bit, over
-    deepwalk/ppr/simple × base 2/4 × fp on/off × fed/hashed uniforms, on a
-    relay view (remote neighbours encoded -(g+2)) with start steps spread
-    over [0, L+1], free slots and a permuted slot → walker id map."""
+    """The segment entry == ``walk_segment_ref``, bit for bit, at each of
+    ``WALK_CAPACITIES`` (512: the relay's rows after the serving ladder's
+    regrow)."""
+    V, bits = 4096, 12
+    n = 0
+    for C in WALK_CAPACITIES:
+        src, dst, w = random_graph(rng, V, C, bits)
+        keep = (rng.random(V) >= 0.02)[src]            # some dead ends
+        n += segment_sweep(rng, V, C, bits, src[keep], dst[keep], w[keep])
+    return n
+
+
+def segment_sweep(rng, V, C, bits, src, dst, w):
+    """``walk_segment`` == plain over deepwalk/ppr/simple × base 2/4 × fp
+    on/off × fed/hashed uniforms on one graph of capacity C, on a relay
+    view (remote neighbours encoded -(g+2)) with start steps spread over
+    [0, L+1], free slots and a permuted slot → walker id map."""
     import torch
     from repro_torch.core import dyngraph as dg
     from repro_torch.distributed.relay import relay_view
     from repro_torch.kernels import ops
     from repro_torch.kernels.walk_fused import walk_segment_ref
-    V, C, bits, B, L = 4096, 128, 12, 2048, 24
-    src, dst, w = random_graph(rng, V, C, bits)
-    keep = (rng.random(V) >= 0.02)[src]                # some dead ends
-    src, dst, w = src[keep], dst[keep], w[keep]
+    B, L = 2048, 24
     lo, Vs = 1024, 2048                                # this view's shard
     n = 0
     for base_log2 in (1, 2):
@@ -429,7 +464,8 @@ def check_segment_kernel(rng):
                     got = ops.walk_segment(*args, seed, u, wid, **kw)
                     want = walk_segment_ref(*args, u, wid, seed=seed, **kw)
                     torch.cuda.synchronize()
-                    what = (f"{kind}, base 2^{base_log2}, fp={fp}, fed={fed}")
+                    what = (f"{kind}, C={C}, base 2^{base_log2}, fp={fp}, "
+                            f"fed={fed}")
                     need(all(torch.equal(a, b) for a, b in zip(got, want)),
                          f"walk_segment != plain ({what})")
                     need(bool((got[1][:, 0] >= 0).any()),
@@ -1923,17 +1959,17 @@ def sharded_path(engine, cfg, starts, stream, report):
             "library_ms": None}
 
 
-def spawn_ranks(tmp, backend, n):
-    """Run ``shard_rank`` on ``n`` ranks (``spawn`` start method), stop them
-    all, fail unless every rank exited 0 with a result; returns the results
-    by rank."""
+def spawn_ranks(tmp, backend, n, target=None, timeout=SHARD_TIMEOUT_S):
+    """Run ``target`` (default ``shard_rank``) on ``n`` ranks (``spawn``
+    start method), stop them all, fail unless every rank exited 0 with a
+    result; returns the results by rank."""
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=shard_rank, args=(r, n, backend, str(tmp)))
-             for r in range(n)]
+    procs = [ctx.Process(target=target or shard_rank,
+                         args=(r, n, backend, str(tmp))) for r in range(n)]
     for p in procs:
         p.start()
-    end = time.monotonic() + SHARD_TIMEOUT_S
+    end = time.monotonic() + timeout
     try:        # until all exit, one fails, or the time is up
         while (time.monotonic() < end and any(p.is_alive() for p in procs)
                and not any(p.exitcode for p in procs)):
@@ -2261,6 +2297,10 @@ GROWTH_WINDOWS = 4
 NO_SYNC_WINDOW = 1                 # this window runs under sync debug "error"
 CHECK_VERTICES = 4096
 RECOVERY_SCALE = 17
+# phase 3g: the sharded serving layer (4 gloo ranks on the one card)
+CHAOS_SEED, CHAOS_WALKERS = 2, 65536
+CHAOS_KILL_ROUNDS = 8               # the killed relay's round bound
+SERVE_SHARD_TIMEOUT_S = 300         # phase 3g's ranks, all together
 
 
 def growth_edges(src, dst, w, V, C, n, rng):
@@ -2488,12 +2528,13 @@ class ServingProbe:
         return retry
 
 
-def serving_phase(args, report, graph, stream):
-    """Phase 3f: the serving layer at full width (module docstring)."""
+def serving_phase(args, report, graph, stream, handoff):
+    """Phase 3f: the serving layer at full width (module docstring).
+    Fills ``handoff`` with what phase 3g holds the sharded engine to."""
     import torch
     from repro_torch.core import dyngraph as dg
     from repro_torch.core.invariants import check_state
-    from repro_torch.core.walks import WalkParams
+    from repro_torch.core.walks import WalkParams, random_walk
     from repro_torch.kernels import ops
     from repro_torch.kernels.update_fused import plan_round
     from repro_torch.serve import DynamicWalkEngine, GuardPolicy
@@ -2539,6 +2580,14 @@ def serving_phase(args, report, graph, stream):
     probe = ServingProbe(engine)
     probe.audit()                                   # tier 0, before traffic
     sched = ServingScheduler(engine, sched_cfg, clock=probe.clock)
+    capped = []             # ticks whose dispatch stopped at max_inflight
+    dispatch = sched._dispatch_walks
+
+    def dispatch_():
+        dispatch()
+        if sched._walk_queue and len(sched._inflight) >= sched_cfg.max_inflight:
+            capped.append(sched.tick_count)
+    sched._dispatch_walks = dispatch_
     results = {}
     ops.reset_launch_counts()
     plan_round.launches = 0
@@ -2620,7 +2669,7 @@ def serving_phase(args, report, graph, stream):
                    "reason_counts")},
         "pending": len(guard_books["pending"]),
         "capacity_quarantines": probe.capacity_quarantines}
-    del sched, probe, results, engine
+    del sched, probe, results, engine, dispatch, dispatch_
     gc.collect()                  # the probe's wrappers and the engine
     torch.cuda.empty_cache()      # reference each other
     need(torch.cuda.memory_allocated() < base + 2**30,
@@ -2682,6 +2731,35 @@ def serving_phase(args, report, graph, stream):
     need(digest(state_leaves(fresh.state)) == live_digest,
          "serving: the replay's final state != the live one")
     out["replay_s"] = time.perf_counter() - t1
+    # what phase 3g's sharded engine must give: this run's traffic, trace,
+    # requests, books, regrows and final slices, and a whole walk of the
+    # final state for its chaos relay
+    t1 = time.perf_counter()
+    Vs = V // SHARDS
+    chaos_starts = torch.from_numpy(np.random.default_rng(CHAOS_SEED).integers(
+        0, V, CHAOS_WALKERS).astype(np.int32)).cuda()
+    chaos = random_walk(fresh.state, fresh.cfg, chaos_starts, CHAOS_SEED,
+                        params)
+    Wb = CHAOS_WALKERS // SHARDS
+    handoff.update(
+        init=(stream.init_src, stream.init_dst, stream.init_w),
+        updates=updates, bursts=bursts, sched_cfg=dataclasses.asdict(sched_cfg),
+        trace=[op_digest(op) for op in trace],
+        timing_free=not capped, capped_ticks=capped,
+        paths={rid: array_digest(p) for rid, p in live_paths.items()},
+        guard=books_digest(guard_books), regrow_counts=fresh.regrow_counts,
+        retry_rounds=out["retry_rounds"], tier=fresh.tier,
+        slices=[slice_digest(fresh.state, r * Vs, (r + 1) * Vs)
+                for r in range(SHARDS)],
+        chaos={"starts": chaos_starts.cpu().numpy(), "seed": CHAOS_SEED,
+               "blocks": [digest([chaos[r * Wb:(r + 1) * Wb]])
+                          for r in range(SHARDS)]},
+        trace_ops=trace,
+        windows=[op for op in trace if isinstance(op, UpdateOp)][:2],
+        migration_ms=out["migration"]["ms"],
+        latency=(out["latency_p50_ms"], out["latency_p99_ms"]))
+    del chaos
+    out["handoff_s"] = time.perf_counter() - t1
     del fresh, replayed, live_paths
     torch.cuda.empty_cache()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2801,6 +2879,363 @@ def recovery_phase(args, report):
           f"({snap_gib:.2f} GiB) host copy {[round(x, 3) for x in copies]} s, "
           f"write {[round(x, 3) for x in writes]} s; phase "
           f"{out['phase_s']:.1f} s", flush=True)
+
+
+# --------------------------------------------------------------- phase 3g
+def array_digest(a):
+    """SHA-256 of an array's bytes (its shape and type too)."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.shape}{a.dtype}".encode()
+                          + a.tobytes()).hexdigest()
+
+
+def op_digest(op):
+    """An admission-trace op as one digest (the same for equal ops)."""
+    name = type(op).__name__
+    if name == "UpdateOp":
+        return name + ":" + hashlib.sha256("".join(
+            array_digest(x) for x in op[:4]).encode()
+            + str(op.n_valid).encode()).hexdigest()
+    if name == "WalkOp":
+        return name + ":" + array_digest(op.starts) + str(op.rids) \
+            + str(op.sizes)
+    return f"{name}:{op[0]}"
+
+
+def books_digest(snap):
+    """SHA-256 of a guard ``snapshot()``."""
+    return hashlib.sha256(json.dumps(snap, sort_keys=True).encode()) \
+        .hexdigest()
+
+
+def sharded_serving_phase(report, handoff, card):
+    """Phase 3g: phase 3f's traffic through a guarded 4-rank engine on
+    gloo, chaos relays on its grown state, then one NCCL rank's deferred
+    window under ``set_sync_debug_mode("error")`` (module docstring).
+    Returns the phase's launches by kernel."""
+    import torch
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        (tmp / "handoff.pkl").write_bytes(pickle.dumps(handoff))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gloo = spawn_ranks(tmp, "gloo", SHARDS, serve_rank,
+                           SERVE_SHARD_TIMEOUT_S)
+        t_gloo = time.perf_counter() - t0
+        nccl = spawn_ranks(tmp, "nccl", 1, serve_rank, SERVE_SHARD_TIMEOUT_S)
+        t_nccl = time.perf_counter() - t0 - t_gloo
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key in ("rounds_per_cohort", "regrows", "chaos_rounds"):
+        need(len({json.dumps(g[key]) for g in gloo}) == 1,
+             f"sharded serving: ranks disagree on {key}")
+    g0 = gloo[0]
+    lat = sorted(x for g in gloo for x in g["latency_ms"])
+    out = {"gloo_s": t_gloo, "nccl_s": t_nccl, "ranks": gloo,
+           "nccl": nccl[0], "live": g0["live"]}
+    if lat:
+        out["latency_p50_ms"] = lat[len(lat) // 2]
+        out["latency_p99_ms"] = lat[min(len(lat) - 1,
+                                        int(math.ceil(0.99 * len(lat))) - 1)]
+    live_s = max(g["live_s"] for g in gloo)
+    out["walk_steps_per_s"] = g0["walk_steps"] / live_s
+    out["updates_per_s"] = g0["updates"] / live_s
+    cls = [g["classify_ms"] for g in gloo]
+    med = [statistics.median(c) for c in cls]
+    print(f"{card}: sharded serving (S={SHARDS}, gloo; "
+          f"{'live scheduler, trace equal to phase 3f' if g0['live'] else 'phase 3f trace replayed (3f dispatch met max_inflight)'}): "
+          f"{g0['windows']} update windows, {g0['retry_rounds']} retry rounds, "
+          f"{len(g0['rounds_per_cohort'])} cohorts, regrow counts "
+          f"{g0['regrows']}; requests, guard books, regrow counts, slices "
+          f"equal to phase 3f's single device", flush=True)
+    if lat:
+        print(f"{card}: sharded serving request latency p50 "
+              f"{out['latency_p50_ms']:.1f} ms, p99 {out['latency_p99_ms']:.1f} "
+              f"ms (single device {handoff['latency'][0]:.1f} / "
+              f"{handoff['latency'][1]:.1f})", flush=True)
+    print(f"{card}: sharded serving {out['walk_steps_per_s'] / 1e6:.2f} M walk "
+          f"steps/s, {out['updates_per_s'] / 1e6:.3f} M updates/s over "
+          f"{live_s:.2f} s (slowest rank, host clock)", flush=True)
+    for r, g in enumerate(gloo):
+        m = g["migration"]
+        print(f"{card}: rank {r}: drains "
+              + ", ".join(f"{d['rounds']} rounds at tier {d['tier']} "
+                          f"{d['ms']:.1f} ms" for d in g["drains"])
+              + f"; migration 256 -> 512 {m['ms']:.2f} ms (CUDA events; "
+              f"{m['wall_ms']:.2f} ms host; single device "
+              f"{handoff['migration_ms']:.2f} ms); classifier with its "
+              f"all_reduce median {med[r]:.3f} ms a window (min "
+              f"{min(cls[r]):.3f}, max {max(cls[r]):.3f}; host median "
+              f"{statistics.median(g['classify_host_ms']):.3f} ms)",
+              flush=True)
+    print(f"{card}: sharded serving relay rounds per cohort "
+          f"{g0['rounds_per_cohort']} (bulk rounds; walk_segment launches "
+          f"{g0['launches']['walk_segment']} a rank, update_fused "
+          f"{g0['launches']['update_fused']})", flush=True)
+    for name, rep in g0["chaos"].items():
+        print(f"{card}: chaos {name}: {rep}", flush=True)
+    n1 = nccl[0]
+    print(f"{card}: S=1 over NCCL: deferred guarded window of "
+          f"{n1['lanes']} lanes under set_sync_debug_mode('error'), its "
+          f"classifier, all_reduces and update round: no host sync; "
+          f"{n1['ms']:.3f} ms (CUDA events), books conserved", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: sharded serving phase {out['phase_s']:.1f} s (gloo ranks "
+          f"{t_gloo:.1f} s, nccl rank {t_nccl:.1f} s)", flush=True)
+    report["sharded_serving"] = out
+    launches = {"walk_segment": 0, "update_fused": 0}
+    for g in gloo + nccl:
+        for k in launches:
+            launches[k] += g["launches"].get(k, 0) \
+                + g.get("chaos_launches", {}).get(k, 0)
+    return launches
+
+
+def serve_rank(rank, n, backend, tmp):
+    """One rank of phase 3g (runs in its own process)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.serve import DynamicWalkEngine, GuardPolicy
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(tmp / f"store_{backend}"), n),
+        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0) if backend == "nccl" else None)
+    group = dist.group.WORLD
+    try:
+        h = pickle.loads((tmp / "handoff.pkl").read_bytes())
+        cfg = dg.BingoConfig(num_vertices=h["V"], capacity=SERVE_LADDER[0],
+                             bias_bits=16, capacity_ladder=SERVE_LADDER)
+        engine = None
+        for r in range(n):           # build in turn: one whole state at a time
+            if r == rank:
+                st = dg.from_edges(cfg, *h["init"], device="cuda")
+                engine = DynamicWalkEngine(
+                    st, cfg, WalkParams("deepwalk", WALK_LEN),
+                    seed=SERVE_SEED,
+                    guard=GuardPolicy(retry_batch=SERVE_RETRY_BATCH),
+                    walk_buckets=SERVE_WALK_BUCKETS, group=group,
+                    relay_overlap=False)
+                del st
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res = nccl_window(engine, h) if backend == "nccl" else \
+            gloo_serving(engine, h, rank, n, group)
+        dist.barrier()
+        (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_window(engine, h):
+    """Phase 3f's first two windows on a sharded engine of one NCCL rank,
+    deferred; the second under ``set_sync_debug_mode("error")``, with the
+    classifier's and the stats' ``all_reduce``s in place."""
+    import torch
+    from repro_torch.kernels import ops
+    engine.defer_guard = True
+    first, second = h["windows"]
+    engine.ingest(first.is_insert, first.u, first.v, first.w,
+                  n_valid=first.n_valid)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.ingest(second.is_insert, second.u, second.v, second.w,
+                      n_valid=second.n_valid)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b.record()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    need(counts["update_fused"] == 1, f"nccl window: launches {counts}")
+    need(engine.drain_guard() == 2, "nccl window: backlog")
+    engine.guard.check_conservation()
+    return {"ms": a.elapsed_time(b), "lanes": int(second.n_valid),
+            "launches": counts}
+
+
+def gloo_serving(engine, h, rank, n, group):
+    """Phase 3f's traffic through the scheduler on this rank's engine (or,
+    if phase 3f's dispatch met ``max_inflight``, its trace replayed), the
+    checks against phase 3f's digests, then the chaos relays."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.invariants import DEVICE_RULES
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.distributed.chaos import (ChaosSchedule,
+                                               RelayIntegrityError,
+                                               run_chaos_relay)
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import (SchedulerConfig,
+                                             ServingScheduler, UpdateOp,
+                                             WalkOp, replay_admission_trace)
+    res = {"classify_ms": [], "classify_host_ms": [], "drains": [],
+           "rounds_per_cohort": [], "live": h["timing_free"]}
+    g = engine.guard
+
+    def wrap_classify():
+        inner, regrow = g.classify, g.regrow
+
+        def classify(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            r = inner(*a)
+            e1.record()
+            res["classify_host_ms"].append((time.perf_counter() - t0) * 1e3)
+            events.append((e0, e1))
+            return r
+
+        def regrow_(cfg_next):
+            regrow(cfg_next)
+            wrap_classify()
+        g.classify, g.regrow = classify, regrow_
+    events = []
+    wrap_classify()
+    walk, drain, migrate = engine.walk, engine.drain_guard, engine._migrate
+
+    def walk_(*a, **k):
+        out = walk(*a, **k)
+        res["rounds_per_cohort"].append(engine.last_relay["rounds"])
+        return out
+
+    def drain_():
+        t0 = time.perf_counter()
+        k = drain()
+        if k:
+            res["drains"].append({"rounds": k, "tier": engine.tier,
+                                  "ms": (time.perf_counter() - t0) * 1e3})
+        return k
+
+    def migrate_():
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        migrate()
+        b.record()
+        torch.cuda.synchronize()
+        res["migration"] = {"ms": a.elapsed_time(b),
+                            "wall_ms": (time.perf_counter() - t0) * 1e3}
+    engine.walk, engine.drain_guard, engine._migrate = walk_, drain_, migrate_
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    if h["timing_free"]:
+        sched = ServingScheduler(engine, SchedulerConfig(**h["sched_cfg"]))
+        results = {}
+        for burst in h["bursts"]:
+            for kind, x in burst:
+                if kind == "update":
+                    need(sched.submit_update(*h["updates"][x]),
+                         "update refused")
+                else:
+                    need(sched.submit_walk(x) is not None, "walk refused")
+            sched.tick()
+            results.update((r.rid, r) for r in sched.poll())
+        results.update((r.rid, r) for r in sched.close())
+        trace = sched.trace
+        need([op_digest(op) for op in trace] == h["trace"],
+             f"rank {rank}: admission trace != phase 3f's")
+        sched.check_conservation()
+        paths = {rid: r.paths for rid, r in results.items()}
+        res["latency_ms"] = [r.latency_s * 1e3 for r in results.values()]
+    else:
+        trace = h["trace_ops"]
+        paths = {}
+        for op, rows in zip([op for op in trace if isinstance(op, WalkOp)],
+                            replay_admission_trace(engine, trace)):
+            off = np.cumsum([0] + list(op.sizes))
+            for j, rid in enumerate(op.rids):
+                paths[rid] = rows[off[j]:off[j + 1]]
+        res["latency_ms"] = []
+    torch.cuda.synchronize()
+    res["live_s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_upd = sum(isinstance(op, UpdateOp) for op in trace)
+    need(counts["walk_segment"] == sum(res["rounds_per_cohort"]) and
+         counts["update_fused"] == n_upd + engine.retry_rounds and
+         sum(counts.values()) == counts["walk_segment"]
+         + counts["update_fused"],
+         f"rank {rank}: launches {counts}")
+    need(paths.keys() == h["paths"].keys() and all(
+        array_digest(p) == h["paths"][rid] for rid, p in paths.items()),
+         f"rank {rank}: a request's paths != phase 3f's")
+    g.check_conservation()
+    need(books_digest(g.snapshot()) == h["guard"],
+         f"rank {rank}: guard books != phase 3f's")
+    need(list(engine.regrow_counts) == list(h["regrow_counts"]) and
+         engine.tier == h["tier"] and engine.retry_rounds == h["retry_rounds"],
+         f"rank {rank}: regrows {engine.regrow_counts}, retry rounds "
+         f"{engine.retry_rounds}")
+    Vs = engine.shard_size
+    need(slice_digest(engine.state, 0, Vs) == h["slices"][rank],
+         f"rank {rank}: final slice != phase 3f's")
+    audit = engine.audit(pressure=True)
+    need(not any(audit[k] for k in DEVICE_RULES if k != "at_capacity"),
+         f"rank {rank}: audit {audit}")
+    torch.cuda.synchronize()
+    res["classify_ms"] = [a.elapsed_time(b) for a, b in events]
+    res.update(windows=n_upd, retry_rounds=engine.retry_rounds,
+               regrows=list(engine.regrow_counts), launches=counts,
+               walk_steps=sum(int((p[:, 1:] >= 0).sum())
+                              for p in paths.values()),
+               updates=sum(op.n_valid for op in trace
+                           if isinstance(op, UpdateOp)))
+
+    # chaos on the grown state
+    bk = get_backend("fused")
+    params = WalkParams("deepwalk", WALK_LEN)
+    c = h["chaos"]
+    starts = torch.from_numpy(c["starts"]).cuda()
+    Wb = len(starts) // n
+    res["chaos"], res["chaos_rounds"] = {}, []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    p, rep = run_chaos_relay(bk, engine.cfg, params, group, engine.state,
+                             starts, c["seed"],
+                             ChaosSchedule(seed=2, dup=0.2, delay=0.2))
+    need(digest([p[rank * Wb:(rank + 1) * Wb]]) == c["blocks"][rank] and
+         rep.lost == 0 and rep.duplicated > 0 and rep.delayed > 0,
+         f"rank {rank}: chaos dup+delay {rep}")
+    res["chaos"]["dup=0.2 delay=0.2"] = dict(dataclasses.asdict(rep),
+                                             wall_s=time.perf_counter() - t0)
+    res["chaos_rounds"].append(rep.rounds)
+    del p
+    for name, sched, max_rounds, what in (
+            ("drop=0.01", ChaosSchedule(seed=3, drop=0.01), None, "lost"),
+            ("kill_round=3", ChaosSchedule(seed=4, kill_round=3),
+             CHAOS_KILL_ROUNDS, "pending_at_exit")):
+        t0 = time.perf_counter()
+        try:
+            run_chaos_relay(bk, engine.cfg, params, group, engine.state,
+                            starts, c["seed"], sched, max_rounds=max_rounds)
+            need(False, f"rank {rank}: chaos {name} did not raise")
+        except RelayIntegrityError as e:
+            need(getattr(e.report, what) > 0,
+                 f"rank {rank}: chaos {name}: {e.report}")
+            res["chaos"][name] = dict(dataclasses.asdict(e.report),
+                                      wall_s=time.perf_counter() - t0)
+            res["chaos_rounds"].append(e.report.rounds)
+    torch.cuda.synchronize()
+    res["chaos_launches"] = ops.launch_counts()
+    need(res["chaos_launches"]["walk_segment"] == sum(res["chaos_rounds"]),
+         f"rank {rank}: chaos launches {res['chaos_launches']}")
+    return res
 
 
 # --------------------------------------------------------------- phase 3e
@@ -3214,9 +3649,16 @@ def main():
     torch.cuda.empty_cache()
     # ---- phase 3f: the serving layer at full width, then recovery
     peak = torch.cuda.max_memory_allocated()
-    timed("3f serving", serving_phase, args, report, graph, stream)
+    handoff = {"V": 1 << args.scale}
+    timed("3f serving", serving_phase, args, report, graph, stream, handoff)
     timed("3f recovery", recovery_phase, args, report)
     peak = max(peak, torch.cuda.max_memory_allocated())
+    # ---- phase 3g: the sharded serving layer, phase 3f's traffic
+    more = timed("3g sharded serving", sharded_serving_phase, report, handoff,
+                 card)
+    del handoff
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
     del graph
     torch.cuda.empty_cache()
     # ---- phase 3e: attention at full width

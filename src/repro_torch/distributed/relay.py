@@ -117,14 +117,32 @@ class RelayPendingCensus:
 
 
 class RelayIntegrityError(RuntimeError):
-    """The relay stopped at its round bound with work pending; carries its
-    ``RelayPendingCensus`` as ``.report``."""
+    """The relay lost work, stalled, or produced malformed paths.
 
-    def __init__(self, report: RelayPendingCensus):
+    Carries a census as ``.report`` — a ``ChaosReport`` from the fault
+    harness (``distributed/chaos.py``) or a ``RelayPendingCensus`` from a
+    strict-mode ``max_rounds`` trip — and the path-audit findings as
+    ``.problems``.  The two census types share only some fields, so the
+    message reads them with ``getattr``.
+    """
+
+    def __init__(self, report, problems=()):
         self.report = report
-        super().__init__(
-            f"relay integrity violated: {report.pending_at_exit} pending "
-            f"at exit after {report.rounds} rounds [{report}]")
+        self.problems = list(problems)
+        bits = []
+        lost = getattr(report, "lost", None)
+        if lost is not None:
+            bits.append(f"{lost} of {getattr(report, 'walkers', '?')} "
+                        f"walker(s) lost")
+        pending = getattr(report, "pending_at_exit", 0)
+        if pending:
+            bits.append(f"{pending} pending at exit "
+                        f"after {getattr(report, 'rounds', '?')} rounds")
+        if self.problems:
+            bits.append(f"{len(self.problems)} malformed path row(s): "
+                        + "; ".join(self.problems[:5]))
+        super().__init__("relay integrity violated: " + ", ".join(bits)
+                         + f" [{report}]")
 
 
 def relay_view(state, lo: int, shard_size: int):
@@ -184,8 +202,11 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
                 sidx: int, num_shards: int, shard_size: int, group=None,
                 mailbox_cap: int | None = None,
                 max_rounds: int | None = None,
+                slot_slack: int | None = None,
+                path_cap: int | None = None,
                 diagnostics: bool = False, exchange_fn=None,
-                overlap: bool = False, strict: bool = False, trace=None):
+                census: bool = False, overlap: bool = False,
+                strict: bool = False, trace=None):
     """This rank's side of the super-step relay.
 
     ``bk``/``lcfg``/``params`` — an ``EngineBackend`` with
@@ -199,16 +220,17 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     ``group`` — the process group of the ``num_shards`` ranks (None for
     one shard).
 
-    The slot arrays hold ``slot_count(W, S)`` walkers and the path
-    mailboxes ``Wl // S`` rows per (sender, destination) pair;
-    ``mailbox_cap`` bounds the walker mailboxes (default: the payload
-    over S).  Overflow waits, never drops.  ``max_rounds`` defaults to
-    ``round_bound``; ``strict=True`` raises ``RelayIntegrityError`` if
-    the loop stops there with work pending.  ``exchange_fn(payload, *,
-    cap, r, channel) -> (arrived, leftover, overflow, faults)`` replaces
-    the mailbox exchange (channel 0 walker records, 1 path records;
-    ``faults`` is the fault harness's count of injected events, unused
-    here); it runs synchronously.  ``trace``, a list, receives one dict
+    The slot arrays hold ``slot_count(W, S, slot_slack)`` walkers;
+    ``mailbox_cap`` and ``path_cap`` bound the walker and path-record
+    mailboxes per (sender, destination) pair (defaults: the walker
+    payload over S, ``Wl // S``).  Overflow waits, never drops.
+    ``max_rounds`` defaults to ``round_bound``; ``strict=True`` raises
+    ``RelayIntegrityError`` if the loop stops there with work pending.
+    ``exchange_fn(payload, *, cap, r, channel) -> (arrived, leftover,
+    overflow, faults)`` replaces the mailbox exchange (channel 0 walker
+    records, 1 path records; ``faults`` the fault harness's (drop, dup,
+    delay) counts of injected events); it runs synchronously.
+    ``trace``, a list, receives one dict
     per round: its ``segment`` CUDA event pair (host seconds on the CPU)
     around the segment launch, ``exchange_s`` the host seconds spent
     issuing and waiting on its exchanges and ``reduce_s`` those of its
@@ -219,7 +241,14 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     lives on rank ``wid // (W/S)``), the rounds run and the mailbox
     overflow re-enqueues summed over rounds and ranks, both ints — and
     with ``diagnostics=True`` the peak slots in use (residents plus
-    pinned path rows) on any rank in any round.
+    pinned path rows) on any rank in any round.  ``census=True``
+    appends three more: the number of DISTINCT walker ids that reached a
+    terminal step on any rank (a wid bitmap a rank, summed over the group
+    once at exit, so a duplicated walker cannot hide a dropped one), the
+    work pending at exit (> 0 only against ``max_rounds``) and
+    ``exchange_fn``'s fault counts summed over rounds and ranks, a
+    ``(drop, dup, delay)`` tuple of ints.  With ``census=False`` nothing
+    of it is computed.
     """
     W = walkers.shape[0]
     L = params.length
@@ -228,10 +257,11 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             f"walker count {W} must divide over {num_shards} shards "
             f"(pad starts with -1 free slots)")
     if max_rounds is None:
-        max_rounds = round_bound(W, L, num_shards, mailbox_cap=mailbox_cap,
+        max_rounds = round_bound(W, L, num_shards, slot_slack=slot_slack,
+                                 mailbox_cap=mailbox_cap, path_cap=path_cap,
                                  overlap=overlap)
     Wb = W // num_shards
-    Wl = slot_count(W, num_shards)
+    Wl = slot_count(W, num_shards, slot_slack)
     lo = sidx * shard_size
     view = relay_view(state, lo, shard_size)
     dev = state.nbr.device
@@ -241,10 +271,13 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
 
     def start_exchange(payload, *, cap, r, channel):
         """Issue one exchange; returns a function that waits for it and
-        gives ``(arrived, leftover, overflow)``."""
+        gives ``(arrived, leftover, overflow)``; ``exchange_fn``'s fault
+        counts join the census."""
         if exchange_fn is not None:
-            out = exchange_fn(payload, cap=cap, r=r, channel=channel)[:3]
-            return lambda: out
+            out = exchange_fn(payload, cap=cap, r=r, channel=channel)
+            if census:
+                faults.add_(torch.as_tensor(out[3], device=dev).to(i32))
+            return lambda: out[:3]
         a, left, n, work = exchange_walkers(payload, shard_size, num_shards,
                                             group, cap=cap, async_op=True)
         if work is None:
@@ -266,6 +299,9 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     pend_wid = torch.full((Wl,), -1, dtype=i32, device=dev)
     acc = torch.full((Wb + 1, L + 1), -1, dtype=i32, device=dev)  # + drop row
     peak = torch.zeros((), dtype=torch.int64, device=dev)
+    if census:      # a bitmap of finished wids (+ a drop row), faults
+        fin = torch.zeros(W + 1, dtype=torch.bool, device=dev)
+        faults = torch.zeros(3, dtype=i32, device=dev)
     pending = int(_all_reduce(resident0.sum().reshape(1), group)[0])
     rounds = ovf = 0
 
@@ -318,7 +354,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
                                        channel=0)
             paths_x = start_exchange(
                 path_records(pend_wid >= 0, pend_wid, pend_path),
-                cap=None, r=r, channel=1)
+                cap=path_cap, r=r, channel=1)
             ex_s += time.perf_counter() - t_x
 
         # -- segment: one launch over the compacted slots; the slot→wid
@@ -333,6 +369,9 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
         seg.stop()
 
         fr_ok = occupied & (frontier[:, 0] >= 0)
+        if census:      # an occupied slot with no frontier finished here
+            term = occupied & (frontier[:, 0] < 0)
+            fin[torch.where(term, slot_wid, W).to(torch.int64)] = True
         new_fr = torch.where(
             fr_ok[:, None],
             torch.stack([frontier[:, 0], frontier[:, 1], slot_wid], -1), -1)
@@ -379,7 +418,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             remote = has_row & (home != sidx)
             t_x = time.perf_counter()
             got, spill_p, n_spill_p = start_exchange(
-                path_records(remote, row_wid, row_path), cap=None, r=r,
+                path_records(remote, row_wid, row_path), cap=path_cap, r=r,
                 channel=1)()
             ex_s += time.perf_counter() - t_x
             to_home(got[:, 1], got[:, 3:], got[:, 0] >= 0)
@@ -402,6 +441,10 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     outs = (acc[:Wb], rounds, ovf)
     if diagnostics:
         outs += (int(_all_reduce(peak.reshape(1), group, "max")[0]),)
+    if census:
+        seen = _all_reduce(fin[:W].to(i32), group) > 0
+        outs += (int(seen.sum()), pending,
+                 tuple(_all_reduce(faults, group).tolist()))
     return outs
 
 
@@ -433,15 +476,18 @@ class _Span:
 def make_relay(bk, cfg, params, group=None, *,
                mailbox_cap: int | None = None,
                max_rounds: int | None = None,
+               slot_slack: int | None = None,
+               path_cap: int | None = None,
                diagnostics: bool = False, exchange_fn=None,
-               overlap: bool = False, strict: bool = False):
+               census: bool = False, overlap: bool = False,
+               strict: bool = False):
     """The 1D relay over the ranks of ``group`` (one shard without one).
 
     Returns ``run(state, walkers, seed, u=None, trace=None) -> (home
-    (W/S, L+1), rounds, overflow[, peak])`` as ``relay_local`` does,
-    ``state`` this rank's vertex slice.  ``cfg.num_vertices`` must divide
-    over the ranks; ``stitch`` gathers the home blocks into the (W, L+1)
-    paths.
+    (W/S, L+1), rounds, overflow[, peak][, finished, pending, faults])``
+    as ``relay_local`` does, ``state`` this rank's vertex slice.
+    ``cfg.num_vertices`` must divide over the ranks; ``stitch`` gathers
+    the home blocks into the (W, L+1) paths.
     """
     import torch.distributed as dist
     num_shards = 1 if group is None else dist.get_world_size(group)
@@ -458,8 +504,9 @@ def make_relay(bk, cfg, params, group=None, *,
             bk, lcfg, params, state, walkers, seed, u, sidx=sidx,
             num_shards=num_shards, shard_size=shard_size, group=group,
             mailbox_cap=mailbox_cap, max_rounds=max_rounds,
+            slot_slack=slot_slack, path_cap=path_cap,
             diagnostics=diagnostics, exchange_fn=exchange_fn,
-            overlap=overlap, strict=strict, trace=trace)
+            census=census, overlap=overlap, strict=strict, trace=trace)
 
     return run
 

@@ -1,7 +1,7 @@
 """Walker routing between vertex shards: fixed-size mailboxes, one all-to-all.
 
-Port of ``repro/distributed/walker_exchange.py`` (``route_tag`` and
-``exchange_walkers``).  The graph is vertex-partitioned over the ranks of
+Port of ``repro/distributed/walker_exchange.py`` (``route_tag``,
+``exchange_walkers``, ``merge_into_free`` and ``make_walk_step``).  The graph is vertex-partitioned over the ranks of
 a ``torch.distributed`` process group (rank r owns vertices ``[r·Vs,
 (r+1)·Vs)``); walkers move between owners, the sampling structures never
 do.  Payloads are int32 rows keyed by a *destination vertex* in field 0
@@ -22,7 +22,34 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["route_tag", "exchange_walkers"]
+__all__ = ["exchange_walkers", "make_walk_step", "merge_into_free",
+           "route_tag"]
+
+
+def merge_into_free(buf, rows, mask):
+    """Scatter ``rows[mask]`` into the free rows of ``buf``.
+
+    ``buf`` (N, F) and ``rows`` (M, F) are record buffers whose field 0
+    is >= 0 on live rows; ``mask`` (M,) bool selects rows to place.
+    Selected rows land in ``buf``'s free rows (field 0 < 0), first free
+    row first, in their order; selection beyond the free rows is dropped.
+    Returns ``(buf, placed)``: a new buffer and the int32 count actually
+    merged — callers that must not lose rows check ``placed ==
+    mask.sum()`` (the chaos harness counts the shortfall as forced
+    drops).  Both orders come from stable sorts, so seeded fault
+    schedules replay exactly.
+    """
+    N, M = buf.shape[0], rows.shape[0]
+    dev = buf.device
+    free = buf[:, 0] < 0
+    forder = torch.argsort((~free).to(torch.int32), stable=True)
+    rorder = torch.argsort((~mask).to(torch.int32), stable=True)
+    k = torch.arange(M, device=dev)
+    ok = (k < mask.sum()) & (k < free.sum())
+    tgt = torch.where(ok, forder[torch.clamp(k, max=N - 1)], N)
+    out = torch.cat([buf, buf.new_full((1,) + tuple(buf.shape[1:]), -1)])
+    out[tgt] = rows[rorder]              # unplaced rows land on the pad row
+    return out[:N], ok.sum(dtype=torch.int32)
 
 
 def route_tag(shard, shard_size: int):
@@ -98,3 +125,27 @@ def exchange_walkers(payload, shard_size: int, num_shards: int, group=None,
     if squeeze:
         arrived, leftover = arrived[:, 0], leftover[:, 0]
     return (arrived, leftover, overflow) + ((work,) if async_op else ())
+
+
+def make_walk_step(sample_local, shard_size: int, num_shards: int,
+                   group=None):
+    """A distributed walk step that keeps each walker's identity.
+
+    ``sample_local(vertices, key) -> next global vertex`` samples the next
+    hop of walkers whose current vertex this rank owns (callers close over
+    the rank's vertex slice of the state).  The step state is this rank's
+    ``(Wl, 2)`` int32 ``[global vertex, walker id]`` rows (-1 rows are
+    empty): the id rides the mailbox with the vertex, so a hop landing on
+    another rank still knows which walker it advances.  Returns
+    ``step(walkers, key) -> (arrived, leftover, overflow)`` as
+    ``exchange_walkers`` gives them over ``group`` — a bare step has no
+    next round to retry in, so the leftovers go back to the caller.
+    """
+    def step(walkers, key):
+        nxt = sample_local(walkers[:, 0], key)
+        live = (walkers[:, 0] >= 0) & (nxt >= 0)
+        payload = torch.stack([torch.where(live, nxt, -1),
+                               torch.where(live, walkers[:, 1], -1)], -1)
+        return exchange_walkers(payload.to(torch.int32), shard_size,
+                                num_shards, group)
+    return step

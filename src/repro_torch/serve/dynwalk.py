@@ -26,24 +26,28 @@ The serving layer (DESIGN.md §11–14), on one device:
   inserts), ``tier``, ``max_fill``, ``pressure`` and
   ``audit(pressure=)`` (``core/invariants.check_state_device``).
 * ``walk_buckets=``: a walk batch is padded up to the smallest bucket
-  holding it (pad lanes start at vertex 0) and the result sliced back;
-  whole walks draw per (seed, lane, step), so real lanes are unchanged
-  by the padding.  torch keeps no compiled-program cache to count, so
+  holding it (pad lanes start at vertex 0, or are -1 free relay slots in
+  sharded mode) and the result sliced back; whole walks draw per (seed,
+  lane, step), so real lanes are unchanged by the padding.  torch keeps
+  no compiled-program cache to count, so
   ``walk_cache_size``/``update_cache_size`` return -1, as the
   reference's contract allows.
 
 **Sharded mode** (``group=``, a ``torch.distributed`` process group of S
-ranks, each running one engine): rank r keeps rows ``[r·V/S, (r+1)·V/S)``
-of every state table (neighbour ids stay global).  ``ingest`` applies the
-lanes whose source vertex the rank owns, with local ids, through one
-update round of the shard-local config, and sums the ``UpdateStats`` over
-the group; ``walk`` runs the exact walker relay (``distributed/relay.py``,
-overlapped rounds by default) and returns this rank's home block of the
-paths, rows ``[r·W/S, (r+1)·W/S)`` of the single-device engine's paths for
-the same seed, bit for bit (``distributed.stitch`` gathers them).  The
-guard, walk buckets, deferred accounting and a capacity ladder of more
-than one rung are not ported to the sharded engine yet (ROADMAP A.7):
-asking for them with ``group=`` raises ``ValueError``.
+ranks, each running one engine on the same calls in the same order):
+rank r keeps rows ``[r·V/S, (r+1)·V/S)`` of every state table (neighbour
+ids stay global).  ``ingest`` applies the lanes whose source vertex the
+rank owns, with local ids, through one update round of the shard-local
+config, and sums the ``UpdateStats`` over the group; with ``guard=`` the
+shard's classifier (``serve/guard.make_classifier``) codes the owned
+lanes and one ``all_reduce`` gives every rank the whole round's codes, so
+the guard's books are equal on every rank.  ``walk`` runs the exact
+walker relay (``distributed/relay.py``, overlapped rounds by default);
+it returns this rank's home block of the paths, or with ``stitch=True``
+the whole rows.  The ladder regrows every rank's slice in lockstep (the
+fill trigger is a max over the group), and ``audit`` and ``pressure``
+count the whole state.  node2vec, per-step walks and ``walker_axes``
+(ROADMAP A.10) raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from repro_torch.core.updates import (NUM_REASONS, R_OK, UpdateStats,
                                       make_updater)
 from repro_torch.core.walks import WalkParams, make_walker
 from repro_torch.distributed.relay import make_relay, shard_index
+from repro_torch.distributed.relay import stitch as stitch_blocks
 from repro_torch.graph.streams import UpdateStream, rounds_on_device, upload
 from repro_torch.serve.guard import GuardPolicy, IngestGuard
 
@@ -94,7 +99,9 @@ class DynamicWalkEngine:
     relay's walker mailboxes and ``relay_overlap`` picks its schedule.
     After a sharded walk ``last_relay`` holds its rounds, mailbox
     overflow and peak slots, and setting ``relay_trace`` to a list
-    collects the relay's per-round spans.
+    collects the relay's per-round spans.  ``walker_axes`` (the
+    reference's 2D relay) is not ported: non-empty, it raises with
+    ``group=``.
     """
 
     def __init__(self, state: BingoState, cfg: BingoConfig,
@@ -103,57 +110,56 @@ class DynamicWalkEngine:
                  whole_walk: Optional[bool] = None, seed: int = 0,
                  group=None, mailbox_cap: Optional[int] = None,
                  guard=None, walk_buckets=None, defer_guard: bool = False,
-                 relay_overlap: bool = True):
+                 walker_axes=(), relay_overlap: bool = True):
         self.cfg = cfg
         self.params = params
         self.group = group
         self._backend = backend
         self._whole_walk = whole_walk
-        self.num_shards, self.rank = 1, 0
+        self._mailbox_cap = mailbox_cap
+        self._relay_overlap = relay_overlap
+        self.num_shards, self.rank, self.shard_size = 1, 0, cfg.num_vertices
         self.relay_trace: Optional[list] = None
         self.last_relay: Optional[dict] = None
         self.regrow_counts = [0] * len(cfg.ladder)   # per ladder tier
-        if group is None:
-            self._state = state
-            self._update, self._walk = self._programs(cfg)
-        else:
+        if group is not None:
             import torch.distributed as dist
             if params.kind == "node2vec" or whole_walk is False:
                 raise ValueError("the sharded engine relays whole walks "
                                  "(deepwalk/ppr/simple) only")
-            if guard or walk_buckets or defer_guard or len(cfg.ladder) > 1:
+            if walker_axes:
                 raise ValueError(
-                    "guard=, walk_buckets=, defer_guard= and a capacity "
-                    "ladder of more than one rung are not ported to the "
-                    "sharded engine yet (ROADMAP A.7, the sharded tier "
-                    "half)")
+                    "walker_axes (the 2D vertex x walker relay) is not "
+                    "ported to the sharded engine yet (ROADMAP A.10)")
             self.num_shards = dist.get_world_size(group)
             self.rank = shard_index(group)
-            self._relay = make_relay(   # validates V % S
-                get_backend(cfg.backend if backend is None else backend),
-                cfg, params, group, mailbox_cap=mailbox_cap,
-                overlap=relay_overlap, diagnostics=True)
             self.shard_size = cfg.num_vertices // self.num_shards
-            lo = self.rank * self.shard_size
-            self._state = _map_state(
-                state, lambda x: x[lo:lo + self.shard_size].clone())
-            self._update = make_updater(
-                dataclasses.replace(cfg, num_vertices=self.shard_size),
-                backend=backend)
+        self._update, self._walk = self._programs(cfg)  # validates V % S
+        lo = self.rank * self.shard_size
+        self._state = state if group is None else _map_state(
+            state, lambda x: x[lo:lo + self.shard_size].clone())
         # Fixed-lane walk cohorts (DESIGN.md §12): every walk batch is
-        # padded up to the smallest bucket >= its request count.
+        # padded up to the smallest bucket >= its request count; the
+        # relay needs each bucket to divide over the shards.
         self.walk_buckets = None
         if walk_buckets:
             self.walk_buckets = tuple(sorted(int(b) for b in walk_buckets))
             for b in self.walk_buckets:
-                if b < 1:
-                    raise ValueError(f"walk bucket {b} must be positive")
+                if b < 1 or b % self.num_shards:
+                    raise ValueError(
+                        f"walk bucket {b} must be a positive multiple of "
+                        f"the shard count ({self.num_shards})")
         # guard=True -> default policy; guard=GuardPolicy(...) -> custom.
+        # Sharded, the classifier codes this rank's lanes and sums the
+        # codes over the group.
         self.guard: Optional[IngestGuard] = None
         if guard:
             policy = guard if isinstance(guard, GuardPolicy) \
                 else GuardPolicy()
-            self.guard = IngestGuard(cfg, policy)
+            shard = {} if group is None else dict(
+                offset=self.rank * self.shard_size, rows=self.shard_size,
+                group=group)
+            self.guard = IngestGuard(cfg, policy, **shard)
         # defer_guard=True moves quarantine/retry accounting off the
         # ingest path: rounds park their device-side reason vectors in a
         # backlog and ``drain_guard()`` settles them in one pass.
@@ -167,10 +173,32 @@ class DynamicWalkEngine:
         self.last_seed: Optional[int] = None   # seed of the latest walk batch
 
     def _programs(self, cfg: BingoConfig):
-        """The ``(update, walk)`` closures at ``cfg``'s capacity tier."""
-        return (make_updater(cfg, backend=self._backend),
-                make_walker(None, cfg, self.params, backend=self._backend,
-                            whole_walk=self._whole_walk))
+        """The ``(update, walk)`` closures at ``cfg``'s capacity tier:
+        sharded, the shard-local updater and the relay."""
+        if self.group is None:
+            return (make_updater(cfg, backend=self._backend),
+                    make_walker(None, cfg, self.params,
+                                backend=self._backend,
+                                whole_walk=self._whole_walk))
+        bk = get_backend(cfg.backend if self._backend is None
+                         else self._backend)
+        return (make_updater(self._local(cfg), backend=self._backend),
+                make_relay(bk, cfg, self.params, self.group,
+                           mailbox_cap=self._mailbox_cap,
+                           overlap=self._relay_overlap, diagnostics=True))
+
+    def _local(self, cfg: BingoConfig) -> BingoConfig:
+        """``cfg`` of this rank's rows (``cfg`` itself on one device)."""
+        return dataclasses.replace(cfg, num_vertices=self.shard_size)
+
+    def _owned(self, u, lanes):
+        """``(source ids local to this rank, lanes it owns)``; on one
+        device ``(u, lanes)``."""
+        if self.group is None:
+            return u, lanes
+        lo = self.rank * self.shard_size
+        lanes = lanes & (u >= lo) & (u < lo + self.shard_size)
+        return torch.where(lanes, u - lo, 0), lanes
 
     @property
     def state(self) -> BingoState:
@@ -178,18 +206,29 @@ class DynamicWalkEngine:
         this rank's vertex slice in sharded mode."""
         return self._state
 
-    def gather_state(self) -> BingoState:
+    def gather_state(self, dst: Optional[int] = None) -> BingoState:
         """The whole state: every rank's slice, all-gathered over the
-        group in sharded mode (a collective: every rank calls it)."""
+        group in sharded mode (a collective: every rank calls it).  With
+        ``dst`` only group rank ``dst`` receives it (``gather``) and the
+        others get None."""
         if self.group is None:
             return self._state
         import torch.distributed as dist
+        S, me = self.num_shards, self.rank
 
         def gather(x):
-            parts = [torch.empty_like(x) for _ in range(self.num_shards)]
-            dist.all_gather(parts, x.contiguous(), group=self.group)
-            return torch.cat(parts)
-        return _map_state(self._state, gather)
+            x = x.contiguous()
+            if dst is None:
+                parts = [torch.empty_like(x) for _ in range(S)]
+                dist.all_gather(parts, x, group=self.group)
+                return torch.cat(parts)
+            parts = [torch.empty_like(x) for _ in range(S)] \
+                if me == dst else None
+            dist.gather(x, parts, dst=dist.get_global_rank(self.group, dst),
+                        group=self.group)
+            return torch.cat(parts) if me == dst else x
+        out = _map_state(self._state, gather)
+        return out if dst is None or me == dst else None
 
     @property
     def device(self) -> torch.device:
@@ -233,25 +272,18 @@ class DynamicWalkEngine:
         u = self._as(u, torch.int32)
         v = self._as(v, torch.int32)
         w = self._as(w)
-        if self.group is not None:
-            # owner-masked lanes with local source ids; the stats sum
-            lo = self.rank * self.shard_size
-            lanes = lanes & (u >= lo) & (u < lo + self.shard_size)
-            u = torch.where(lanes, u - lo, 0)
         if self.guard is None:
-            self._state, stats = self._update(self._state, ins, u, v, w,
-                                              lanes)
-            if self.group is not None:
-                stats = self._sum_stats(stats)
+            self._state, stats = self._apply(ins, u, v, w, lanes)
             self.rounds_ingested += 1
             self.updates_applied += nv
             return stats._replace(max_fill=self._fill())
 
         g = self.guard
         rnd = self.rounds_ingested
+        # global ids in, the whole round's codes out (every rank)
         reasons = g.classify(self._state, ins, u, v, w)
-        self._state, stats = self._update(self._state, ins, u, v, w,
-                                          lanes & (reasons == R_OK))
+        self._state, stats = self._apply(ins, u, v, w,
+                                         lanes & (reasons == R_OK))
         if self.defer_guard:
             # device-side tally of the rejected lanes (pad and OK lanes add
             # nothing); the host never waits
@@ -280,6 +312,16 @@ class DynamicWalkEngine:
         self.rounds_ingested += 1
         self.updates_applied += nv
         return stats._replace(max_fill=self._fill())
+
+    def _apply(self, ins, u, v, w, lanes):
+        """One update round of ``lanes`` (global source ids): sharded,
+        the owned lanes with local ids and the stats summed over the
+        group."""
+        lu, lanes = self._owned(u, lanes)
+        state, stats = self._update(self._state, ins, lu, v, w, lanes)
+        if self.group is not None:
+            stats = self._sum_stats(stats)
+        return state, stats
 
     def _sum_stats(self, stats: UpdateStats) -> UpdateStats:
         """``UpdateStats`` summed over the group, in one all-reduce."""
@@ -318,8 +360,8 @@ class DynamicWalkEngine:
                            device=self.device)
         ru, rv, rw = self._as(ru), self._as(rv), self._as(rw)
         r_reasons = g.classify(self._state, r_ins, ru, rv, rw)
-        self._state, rstats = self._update(self._state, r_ins, ru, rv, rw,
-                                           r_reasons == R_OK)
+        self._state, rstats = self._apply(r_ins, ru, rv, rw,
+                                          r_reasons == R_OK)
         self.retry_rounds += 1
         applied = g.settle_retry(rnd, entries, _host(r_reasons))
         return rstats if applied else None
@@ -359,12 +401,18 @@ class DynamicWalkEngine:
         state; one host sync reads the counts.  ``pressure=True`` feeds
         the guard's pending-insert depth to the ``at_capacity`` rule and
         appends the gauges of ``pressure()`` under non-rule keys.
+        Sharded, every rule counts rows, so one ``all_reduce`` of the
+        ranks' counts gives every rank the whole state's.
         """
         from repro_torch.core.invariants import (DEVICE_RULES,
                                                  check_state_device)
         pend = len(self.guard.pending) \
             if (pressure and self.guard is not None) else 0
-        counts = check_state_device(self._state, self.cfg, pend).tolist()
+        counts = check_state_device(self._state, self.cfg, pend)
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.all_reduce(counts, group=self.group)
+        counts = counts.tolist()
         out = dict(zip(DEVICE_RULES, counts))
         if pressure:
             out.update(self.pressure())
@@ -409,11 +457,13 @@ class DynamicWalkEngine:
     def _migrate(self) -> None:
         """The state and the closures moved to the next tier.  The old
         and the new tables live side by side during ``regrow_state``; the
-        engine keeps no other reference to the old ones."""
+        engine keeps no other reference to the old ones.  Sharded, each
+        rank migrates its rows at the shard-local configs, in lockstep."""
         t = self.tier
-        self._state = regrow_state(self._state, self.cfg,
-                                   self.cfg.tier_config(t + 1))
-        self.cfg = self.cfg.tier_config(t + 1)
+        ncfg = self.cfg.tier_config(t + 1)
+        self._state = regrow_state(self._state, self._local(self.cfg),
+                                   self._local(ncfg))
+        self.cfg = ncfg
         self.regrow_counts[t + 1] += 1
         self._update, self._walk = self._programs(self.cfg)
 
@@ -461,17 +511,26 @@ class DynamicWalkEngine:
         """The next walk seed from the engine's generator."""
         return int(torch.randint(0, _SEED_HI, (1,), generator=self._gen))
 
-    def walk(self, starts, seed: Optional[int] = None) -> torch.Tensor:
-        """Serve one walk batch; returns ``(B, length+1)`` paths — in
-        sharded mode this rank's ``(B/S, length+1)`` home block, and
-        ``B`` must divide over the S ranks.
+    def walk(self, starts, seed: Optional[int] = None, *,
+             stitch: bool = False) -> torch.Tensor:
+        """Serve one walk batch of ``n`` starts; returns ``(n, length+1)``
+        paths.
 
         ``seed`` keys the walk's randomness (the counter-hash stream of a
         whole walk, the generator of the per-step path); when None it is
         drawn from the engine's generator.  ``last_seed`` keeps it, so a
         batch can be replayed.  With ``walk_buckets=`` the batch is
-        padded to its bucket (pad lanes start at vertex 0) and the result
-        sliced back to the real rows; ``walks_served`` counts real rows.
+        padded to its bucket ``B`` and the result cut back to the real
+        rows; ``walks_served`` counts real rows.
+
+        Sharded, every rank passes the same starts, the padded batch
+        ``B`` (``n`` without buckets) must divide over the S ranks and pad
+        lanes are -1 free relay slots.  Rank r returns its home block:
+        rows ``[r·B/S, (r+1)·B/S)`` of the padded batch cut to the real
+        rows, i.e. rows ``[r·B/S, min((r+1)·B/S, n))`` of the paths (empty
+        past ``n``).  ``stitch=True`` gathers the blocks over the group
+        (a collective) and returns the whole ``(n, length+1)`` rows on
+        every rank.
         """
         starts = self._as(starts, torch.int32).contiguous()
         n = int(starts.shape[0])
@@ -480,17 +539,21 @@ class DynamicWalkEngine:
         self.last_seed = seed
         B = n if self.walk_buckets is None else self._bucket_for(n)
         if B != n:
-            starts = torch.cat([starts, torch.zeros(
-                B - n, dtype=torch.int32, device=self.device)])
+            fill = 0 if self.group is None else -1
+            starts = torch.cat([starts, torch.full(
+                (B - n,), fill, dtype=torch.int32, device=self.device)])
+        self.walks_served += n
         if self.group is None:
             self._state, paths = self._walk(self._state, starts, seed)
-        else:
-            paths, rounds, ovf, peak = self._relay(
-                self._state, starts, seed, trace=self.relay_trace)
-            self.last_relay = {"rounds": rounds, "overflow": ovf,
-                               "peak_slots": peak}
-        self.walks_served += n
-        return paths[:n] if B != n else paths
+            return paths[:n] if B != n else paths
+        home, rounds, ovf, peak = self._walk(self._state, starts, seed,
+                                             trace=self.relay_trace)
+        self.last_relay = {"rounds": rounds, "overflow": ovf,
+                           "peak_slots": peak}
+        if stitch:
+            return stitch_blocks(home, self.group)[:n]
+        lo = self.rank * (B // self.num_shards)
+        return home[:max(0, min(home.shape[0], n - lo))]
 
     def walk_cache_size(self) -> int:
         """Compiled-program count of the walk closures: torch keeps no

@@ -18,7 +18,8 @@ Port of ``repro/serve/guard.py`` (DESIGN.md §11).
   accepted inserts on them, and never writes to or copies ``state.nbr``.
   No op waits on the host (no ``.item()``, ``nonzero``, boolean-mask
   indexing or ``bincount``), so the classifier makes no host sync on the
-  card.
+  card.  A sharded engine's classifier codes its rank's lanes against its
+  rows and sums the codes over the group with one ``all_reduce``.
 * ``IngestGuard`` — the host-side bookkeeper (numpy, as in the
   reference): rejects go to a quarantine buffer as ``QuarantineRecord``s;
   capacity overflows spill to a bounded-retry pending queue that is
@@ -29,7 +30,7 @@ Port of ``repro/serve/guard.py`` (DESIGN.md §11).
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, List, NamedTuple
+from typing import Deque, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -91,7 +92,9 @@ def _sort_pairs(major, minor, V):
     return torch.sort(key, stable=True).indices
 
 
-def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy()):
+def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy(),
+                    *, offset: int = 0, rows: Optional[int] = None,
+                    group=None):
     """Build the device-side pre-pass.
 
     Returns ``classify(state, is_insert, u, v, w) -> (B,) int32`` reason
@@ -100,8 +103,21 @@ def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy()):
     deletes are located against the row *after* this round's accepted
     inserts (so deleting an edge inserted earlier in the same round is
     OK).  ``state`` is read, never written.
+
+    For one vertex shard, ``state`` holds rows ``[offset, offset + rows)``
+    of the whole state and ``group`` is the process group of the shards.
+    The lanes whose source the shard owns are classified against its rows
+    (degrees, neighbour rows, insert ranks and delete locates are all per
+    source vertex), with endpoints still checked against the global
+    vertex count; every other lane is ``R_OK`` locally.  One
+    ``all_reduce`` sums the ``(B,)`` vectors over the group, so every
+    rank returns the whole round's codes (a lane no rank owns is
+    ``R_VERTEX`` everywhere) and its books stay equal to the other
+    ranks'.  On NCCL the collective is stream-ordered: nothing waits on
+    the host.
     """
     V, C = cfg.num_vertices, cfg.capacity
+    Vr = V if rows is None else int(rows)      # rows of the state held here
 
     def classify(state, is_insert, u, v, w):
         dev = state.nbr.device
@@ -112,47 +128,52 @@ def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy()):
         col = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
 
         valid = valid_lanes(cfg, u, v)
+        if rows is None:
+            own = valid
+        else:           # owned lanes, with source ids local to the shard
+            own = valid & (u >= offset) & (u < offset + Vr)
+            u = torch.where(own, u - offset, 0)
         if cfg.fp_bias:
             bad_w = ~torch.isfinite(w) | (w <= 0)
         else:
             bad_w = w.to(torch.int32) < 1
-        bad_w = bad_w & is_insert & valid       # delete lanes ignore w
-        uc = torch.where(valid, u, 0).to(torch.int64)   # wrap-safe gathers
+        bad_w = bad_w & is_insert & own         # delete lanes ignore w
+        uc = torch.where(own, u, 0).to(torch.int64)     # wrap-safe gathers
 
-        ins0 = is_insert & valid & ~bad_w
+        ins0 = is_insert & own & ~bad_w
         if policy.reject_duplicates:
             live = col < state.deg[uc][:, None]
             in_state = ((state.nbr[uc] == v[:, None]) & live).any(-1) & ins0
-            ku = torch.where(ins0, u, V)
+            ku = torch.where(ins0, u, Vr)
             kv = torch.where(ins0, v, -1)
             ordP = _sort_pairs(ku, kv, V)
             ku_s = ku[ordP]
             firstP = _segment_rank([ku_s, kv[ordP]]) == 0
-            repeat = _scatter_back(ordP, ~firstP & (ku_s < V))
+            repeat = _scatter_back(ordP, ~firstP & (ku_s < Vr))
             dup = ins0 & (in_state | repeat)
         else:
             dup = torch.zeros(B, dtype=torch.bool, device=dev)
         ins1 = ins0 & ~dup
 
         # -- capacity: the batched round's segmented insert ranks --
-        su = torch.where(ins1, u, V)
+        su = torch.where(ins1, u, Vr)
         order = torch.argsort(su, stable=True)
         su_s, v_s = su[order], v[order]
         rank = _segment_rank([su_s])
-        deg_s = state.deg[torch.clamp(su_s, max=V - 1).to(torch.int64)]
-        okA = (su_s < V) & (deg_s + rank < C)
-        overflow = _scatter_back(order, (su_s < V) & ~okA)
+        deg_s = state.deg[torch.clamp(su_s, max=Vr - 1).to(torch.int64)]
+        okA = (su_s < Vr) & (deg_s + rank < C)
+        overflow = _scatter_back(order, (su_s < Vr) & ~okA)
 
         # -- absent deletes: located in the post-insert rows --
-        del0 = ~is_insert & valid
-        du = torch.where(del0, u, V)
+        del0 = ~is_insert & own
+        du = torch.where(del0, u, Vr)
         dv = torch.where(del0, v, -1)
         ordD = _sort_pairs(du, dv, V)
         du_s, dv_s = du[ordD], dv[ordD]
         rankD = _segment_rank([du_s, dv_s])
-        dcl = torch.clamp(du_s, max=V - 1).to(torch.int64)
+        dcl = torch.clamp(du_s, max=Vr - 1).to(torch.int64)
         d0 = state.deg[dcl].to(torch.int64)
-        rows = state.nbr[dcl]                                   # (B, C)
+        rows_ = state.nbr[dcl]                                  # (B, C)
         # the row's accepted inserts are its segment of the sorted insert
         # lanes, the first C - deg of them, at slots deg, deg + 1, ...
         lo = torch.searchsorted(su_s, du_s)
@@ -161,21 +182,29 @@ def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy()):
         k = col - d0[:, None]
         new = (k >= 0) & (k < n_ok[:, None])
         at = torch.clamp(lo[:, None] + k, 0, B - 1)
-        rows = torch.where(new, v_s[at], rows)
-        m = (rows == dv_s[:, None]) & (col < (d0 + n_ok)[:, None]) \
-            & (du_s < V)[:, None]
+        rows_ = torch.where(new, v_s[at], rows_)
+        m = (rows_ == dv_s[:, None]) & (col < (d0 + n_ok)[:, None]) \
+            & (du_s < Vr)[:, None]
         cnt = torch.cumsum(m, dim=-1, dtype=torch.int32)
         hit = (m & (cnt == (rankD + 1)[:, None])).any(-1)
-        found = _scatter_back(ordD, hit & (du_s < V))
+        found = _scatter_back(ordD, hit & (du_s < Vr))
         absent = del0 & ~found
 
         reasons = torch.full((B,), R_OK, dtype=torch.int32, device=dev)
-        reasons = torch.where(~valid, R_VERTEX, reasons)
+        reasons = torch.where(~own, R_VERTEX, reasons)
         reasons = torch.where(bad_w, R_WEIGHT, reasons)
         reasons = torch.where(dup, R_DUP, reasons)
         reasons = torch.where(ins1 & overflow, R_CAPACITY, reasons)
         reasons = torch.where(absent, R_ABSENT, reasons)
-        return reasons.to(torch.int32)
+        reasons = reasons.to(torch.int32)
+        if rows is not None:
+            # each valid lane has one owner: the sum is the owner's code
+            reasons = torch.where(own, reasons, R_OK)
+            if group is not None:
+                import torch.distributed as dist
+                dist.all_reduce(reasons, group=group)
+            reasons = torch.where(valid, reasons, R_VERTEX)
+        return reasons
 
     return classify
 
@@ -187,14 +216,18 @@ class IngestGuard:
     reason codes; ``take_retry`` hands back a fixed-shape retry batch of
     pending inserts once deletes (or a regrow) may have made capacity;
     ``settle_retry`` routes each retried lane to accepted /
-    back-to-pending / quarantine.
+    back-to-pending / quarantine.  ``offset``/``rows``/``group`` make the
+    classifier a shard's (``make_classifier``); the books are the whole
+    round's on every rank.
     """
 
     def __init__(self, cfg: BingoConfig,
-                 policy: GuardPolicy = GuardPolicy()):
+                 policy: GuardPolicy = GuardPolicy(), *, offset: int = 0,
+                 rows: Optional[int] = None, group=None):
         self.cfg = cfg
         self.policy = policy
-        self.classify = make_classifier(cfg, policy)
+        self._shard = dict(offset=offset, rows=rows, group=group)
+        self.classify = make_classifier(cfg, policy, **self._shard)
         self.quarantine: List[QuarantineRecord] = []
         self.pending: Deque[PendingInsert] = deque()
         self.ingested = 0
@@ -278,7 +311,7 @@ class IngestGuard:
         rebuild the classifier at the new capacity and restore every
         pending insert's retry budget."""
         self.cfg = cfg_next
-        self.classify = make_classifier(cfg_next, self.policy)
+        self.classify = make_classifier(cfg_next, self.policy, **self._shard)
         self.regrows_since_retry += 1
         self.pending = deque(
             p._replace(retries_left=self.policy.max_retries)

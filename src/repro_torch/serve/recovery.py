@@ -25,6 +25,15 @@ serving loop recoverable, bit for bit:
   drawn per logged walk, and a logged regrow runs once.  Whole walks key
   their draws by (seed, walker, step) alone, so the restored engine's
   next walk equals the uninterrupted run's.
+
+Over a sharded engine (``DynamicWalkEngine(group=...)``) every rank
+wraps its own engine and makes the same calls.  A snapshot is the whole
+state, gathered to group rank 0 and written by it alone in the
+reference's layout (so either package reads it), with a barrier around
+the write; only rank 0 appends WAL records, while every rank keeps the
+sequence.  ``restore(..., group=...)``: every rank reads the snapshot,
+keeps its rows and replays the WAL through the collective ``ingest``,
+``walk`` seeds and ``regrow``.
 """
 
 from __future__ import annotations
@@ -52,11 +61,14 @@ class WriteAheadLog:
     missing tail record is a round that was never applied).  Record
     kinds: ``round`` (is_insert/u/v/w arrays of one coalesced update
     round), ``walks`` (``splits`` seeds drawn from the engine's
-    generator, serving ``served`` walks) and ``regrow``.
+    generator, serving ``served`` walks) and ``regrow``.  With
+    ``write=False`` appends only advance the sequence (the ranks of a
+    sharded engine other than rank 0).
     """
 
-    def __init__(self, wal_dir: str):
+    def __init__(self, wal_dir: str, write: bool = True):
         self.wal_dir = wal_dir
+        self.write = write
         os.makedirs(wal_dir, exist_ok=True)
         seqs = self._seqs()
         self.next_seq = (seqs[-1] + 1) if seqs else 0
@@ -68,6 +80,9 @@ class WriteAheadLog:
 
     def _append(self, **payload) -> int:
         seq = self.next_seq
+        self.next_seq = seq + 1
+        if not self.write:
+            return seq
         final = os.path.join(self.wal_dir, f"{seq:010d}.npz")
         tmp = final + f".tmp-{os.getpid()}"
         with open(tmp, "wb") as f:
@@ -75,7 +90,6 @@ class WriteAheadLog:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, final)                 # atomic commit
-        self.next_seq = seq + 1
         return seq
 
     def append_round(self, is_insert, u, v, w) -> int:
@@ -127,8 +141,9 @@ class RecoverableEngine:
         self.engine = engine
         self.ckpt_dir = ckpt_dir
         self.wal_dir = wal_dir or os.path.join(ckpt_dir, "wal")
-        self.wal = WriteAheadLog(self.wal_dir)
-        self.ckpt = AsyncCheckpointer(ckpt_dir, keep=keep)
+        self.wal = WriteAheadLog(self.wal_dir, write=engine.rank == 0)
+        self.ckpt = AsyncCheckpointer(ckpt_dir, keep=keep,
+                                      group=engine.group)
         self.checkpoint_every = checkpoint_every
         self._rounds_since_snapshot = 0
         if _snapshot_now:
@@ -178,7 +193,7 @@ class RecoverableEngine:
             "tier": e.cfg.tier,
             "regrow_counts": list(e.regrow_counts),
         }
-        self.ckpt.save(gen, e.state, extra)
+        self.ckpt.save(gen, e.gather_state(dst=0), extra)
         self._rounds_since_snapshot = 0
         return gen
 
@@ -195,8 +210,9 @@ class RecoverableEngine:
         ``device``.
 
         ``engine_kwargs`` go to ``DynamicWalkEngine`` (backend, guard,
-        walk_buckets, ...) and must match the crashed engine's
-        construction for the bit-exactness pin to hold.
+        walk_buckets, group, ...) and must match the crashed engine's
+        construction for the bit-exactness pin to hold.  With ``group=``
+        every rank of the group calls this.
         """
         gen = latest_step(ckpt_dir)
         if gen is None:

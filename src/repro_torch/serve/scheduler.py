@@ -30,6 +30,13 @@ The scheduler drives a guarded engine in *deferred* accounting mode
 (``DynamicWalkEngine.drain_guard``); drain points and capacity-ladder
 escalations are recorded in the admission trace so replay retries and
 regrows at the same points.
+
+Over a sharded engine (``DynamicWalkEngine(group=...)``) every rank runs
+its own scheduler on the same submissions and ticks.  Each cohort's
+paths are the whole rows on every rank (the engine stitches its home
+blocks), and the harvest waits for each cohort, so which cohorts are in
+flight — the one input of a dispatch that could depend on timing — is
+the same on every rank and every rank admits the same trace.
 """
 
 from __future__ import annotations
@@ -376,7 +383,7 @@ class ServingScheduler:
             op = WalkOp(starts, tuple(q.rid for q in batch),
                         tuple(len(q.starts) for q in batch))
             self.trace.append(op)
-            paths, ready = _to_host(self.engine.walk(starts))
+            paths, ready = _to_host(self.engine.walk(starts, stitch=True))
             offs = np.cumsum([0] + list(op.sizes))
             self._inflight.append(_Inflight(
                 paths, ready,
@@ -388,7 +395,9 @@ class ServingScheduler:
         """Collect finished cohorts in dispatch order.  Non-blocking
         mode stops at the first cohort whose device buffer is not
         ready (stream order: later cohorts cannot be ready before it).
+        A sharded engine's harvest always blocks (module docstring).
         """
+        block = block or self.engine.group is not None
         while self._inflight:
             head = self._inflight[0]
             if head.ready is not None:
@@ -453,7 +462,8 @@ def replay_admission_trace(engine: DynamicWalkEngine, trace) -> List[np.ndarray]
     where the live schedule ran them.  In per-round mode the engine
     would retry after every ingest with fresh deletes, mutating state
     between the trace's ops, and the replayed paths would diverge the
-    moment a spill met a delete.
+    moment a spill met a delete.  Over a sharded engine every rank
+    replays the trace and gets the whole rows of every cohort.
     """
     if engine.guard is not None:
         engine.defer_guard = True     # mirror ServingScheduler.__init__
@@ -463,7 +473,7 @@ def replay_admission_trace(engine: DynamicWalkEngine, trace) -> List[np.ndarray]
             engine.ingest(op.is_insert, op.u, op.v, op.w,
                           n_valid=op.n_valid)
         elif isinstance(op, WalkOp):
-            out.append(engine.walk(op.starts).cpu().numpy())
+            out.append(engine.walk(op.starts, stitch=True).cpu().numpy())
         elif isinstance(op, DrainOp):
             engine.drain_guard()
         elif isinstance(op, RegrowOp):

@@ -14,7 +14,9 @@ Commit is atomic: write to ``step_<n>.tmp-<pid>`` then ``os.rename``.
 ``AsyncCheckpointer.save`` copies every tensor to the host on the
 calling thread before it returns — the port updates its tables in place,
 so a writer thread holding device tensors would write a later
-generation — and writes on a background thread.  The reference's
+generation — and writes on a background thread.  Over a process group
+only group rank 0 writes, and ``wait`` ends in a barrier, so after it
+every rank may read what was written.  The reference's
 ``shardings`` argument (re-placing leaves on another mesh) has no torch
 counterpart yet; ``restore_checkpoint`` takes a ``device`` instead.
 """
@@ -109,17 +111,31 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
 
 
 class AsyncCheckpointer:
-    """Background-thread checkpointing; at most one save in flight."""
+    """Background-thread checkpointing; at most one save in flight.
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    With ``group`` every rank of the group calls ``save`` and ``wait`` in
+    the same order; only group rank 0 writes (the others' ``tree`` is not
+    read and may be None), and ``wait``, which ``save`` calls first, ends
+    in a barrier over the group: a write starts after the previous one
+    committed on every rank's view and is committed when ``wait``
+    returns."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, group=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.group = group
+        self.writer = True
+        if group is not None:
+            import torch.distributed as dist
+            self.writer = dist.get_rank(group) == 0
         self._thread: Optional[threading.Thread] = None
 
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         """Copy ``tree`` to the host on this thread, then write it on a
         background thread; returns once the copy is taken."""
         self.wait()
+        if not self.writer:
+            return
         host_tree = _map_tree(tree, lambda _key, leaf: _to_numpy(leaf))
 
         def work():
@@ -133,6 +149,9 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
 
     def _gc(self):
         steps = sorted(s for s in (

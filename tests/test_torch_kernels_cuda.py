@@ -20,7 +20,11 @@ than 2·C; mixed rounds at C = 37, 256, 300 and 512; a round on
 a DENSE -> ONE rebuild), the prep kernels against ``plan_round``'s torch
 ops on the CPU, and a round under ``set_sync_debug_mode("error")``; the
 guard's classifier against its torch ops on the CPU, and a deferred
-guarded ingest under ``set_sync_debug_mode("error")``; an
+guarded ingest under ``set_sync_debug_mode("error")``; a shard's
+classifier (its rows of the state) against the CPU, and on a one-rank
+NCCL group a sharded engine's deferred guarded ingest, with the
+classifier's and the stats' ``all_reduce``s, under the same mode; the
+segment entry at C = 512 over the relay sweep; an
 ``AsyncCheckpointer`` snapshot with in-place rounds right after it; the
 radix histogram (K 1/4/16/31/32 × C 8/37/256, degrees on both sides of
 its 32-slot short rows in every lane position; an R-MAT scale-12 state
@@ -594,6 +598,130 @@ def test_guard_classifier_on_the_card_equals_cpu_and_never_syncs(dup):
         torch.cuda.set_sync_debug_mode(0)
     assert eng.drain_guard() == 2
     eng.guard.check_conservation()
+
+
+def _cpu_state(st):
+    return tdg.BingoState(*[None if x is None else
+                            (type(x)(*[y.cpu() for y in x])
+                             if isinstance(x, tuple) else x.cpu())
+                            for x in st])
+
+
+def _rows(st, lo, hi):
+    return tdg.BingoState(*[None if x is None else
+                            (type(x)(*[y[lo:hi] for y in x])
+                             if isinstance(x, tuple) else x[lo:hi])
+                            for x in st])
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_shard_classifier_on_the_card_equals_cpu(dup):
+    """A shard's classifier (rows 64..127 of 256, no group): on CUDA
+    tensors the codes equal the same torch ops on the CPU; lanes the
+    shard does not own are R_OK, out-of-range ones R_VERTEX."""
+    from repro_torch.core.updates import R_OK, R_VERTEX
+    from repro_torch.serve import GuardPolicy
+    from repro_torch.serve.guard import make_classifier, valid_lanes
+    st, cfg, lanes = _guard_round(256, 64, seed=7 + dup)
+    lanes[1][256:512] = torch.randint(64, 128, (256,), device="cuda",
+                                      dtype=torch.int32)
+    policy = GuardPolicy(reject_duplicates=dup)
+    shard = _rows(st, 64, 128)
+    fn = make_classifier(cfg, policy, offset=64, rows=64)
+    got = fn(shard, *lanes)
+    want = fn(_cpu_state(shard), *[x.cpu() for x in lanes])
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    u = lanes[1].cpu()
+    own = (u >= 64) & (u < 128) & valid_lanes(cfg, u, lanes[2].cpu())
+    whole = make_classifier(cfg, policy)(_cpu_state(st),
+                                         *[x.cpu() for x in lanes])
+    np.testing.assert_array_equal(want[own].numpy(), whole[own].numpy())
+    assert bool((want[~own & (whole != R_VERTEX)] == R_OK).all())
+    assert len(set(want[own].tolist())) >= 3
+
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """A one-rank NCCL process group on the card (module-scoped, so it is
+    set up before the autouse check; it skips on its own)."""
+    import datetime
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card")
+    d = tmp_path_factory.mktemp("nccl")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(d / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60),
+        device_id=torch.device("cuda", 0))
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_sharded_guarded_ingest_over_nccl_never_syncs(nccl_group, dup):
+    """A sharded engine on a one-rank NCCL group: its classifier (with the
+    ``all_reduce`` of the codes) equals the single-device classifier, and
+    a deferred guarded ingest — classifier, owner mask, update round,
+    summed stats, fill max — runs under ``set_sync_debug_mode("error")``,
+    its state and books equal to a single-device engine's."""
+    from repro_torch.serve import DynamicWalkEngine, GuardPolicy
+    from repro_torch.serve.guard import make_classifier
+    st, cfg, lanes = _guard_round(256, 64, seed=5 + dup)
+    policy = GuardPolicy(reject_duplicates=dup)
+    got = make_classifier(cfg, policy, offset=0, rows=256,
+                          group=nccl_group)(st, *lanes)
+    want = make_classifier(cfg, policy)(st, *lanes)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    one = DynamicWalkEngine(_clone(st), cfg, guard=policy, defer_guard=True)
+    eng = DynamicWalkEngine(st, cfg, guard=policy, defer_guard=True,
+                            group=nccl_group)
+    for e in (one, eng):
+        e.ingest(*lanes)                            # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.ingest(*lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    one.ingest(*lanes)
+    assert eng.drain_guard() == one.drain_guard() == 2
+    eng.guard.check_conservation()
+    assert eng.guard.snapshot() == one.guard.snapshot()
+    assert_same(one.state, eng.state)
+
+
+@pytest.mark.parametrize("fed", [True, False])
+@pytest.mark.parametrize("base_log2,fp", WIDE_MODES)
+@pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
+def test_segment_kernel_at_512_equals_plain(kind, base_log2, fp, fed):
+    """The segment entry at C = 512 (the relay's rows after the serving
+    ladder's regrow; degrees up to 512) on a relay view, with start steps
+    spread over [0, L+1], free slots and a permuted slot → walker id
+    map."""
+    degrees = (0, 1, 3, 31, 32, 33, 255, 256, 257, 300, 511, 512)
+    st, cfg = _wide_state(fp, base_log2, V=640, C=512, degrees=degrees)
+    view = relay_view(st, 0, 320)
+    B, L = 800, 12
+    g = torch.Generator(device="cuda").manual_seed(31)
+    starts = _wide_rows(B, 320, 31, n=len(degrees))
+    starts[-60:] = -1                                   # free slots
+    t0 = torch.randint(0, L + 2, (B,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    t0[: B // 2] = 0
+    wid = torch.randperm(B, generator=g, device="cuda").to(torch.int32)
+    u = torch.rand((L, B, 6), generator=g, device="cuda") if fed else None
+    kw = dict(base_log2=base_log2, stop_prob=0.1 if kind == "ppr" else 0.0,
+              uniform=kind == "simple", length=L)
+    args = (view.itable.prob, view.itable.alias, view.bias, view.nbr,
+            view.deg, view.frac if fp else None, starts, t0)
+    before = ops.launch_counts()["walk_segment"]
+    got = ops.walk_segment(*args, 512, u, wid, **kw)
+    assert ops.launch_counts()["walk_segment"] == before + 1
+    want = walk_segment_ref(*args, u, wid, seed=512, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    assert bool((got[1][:, 0] >= 0).any())
 
 
 def test_async_checkpoint_takes_the_generation_it_was_called_at(tmp_path):
