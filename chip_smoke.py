@@ -97,9 +97,10 @@ Phases (any failure exits non-zero and prints no result line):
    Each builds the state, keeps its slice, replays the 10 rounds through
    ``DynamicWalkEngine(group=...)`` (slice and summed stats must equal the
    single-device ones) and walks the three batches through the relay
-   (deepwalk overlapped through the engine and again bulk, ppr and simple
-   overlapped), its home blocks equal to the single-device paths bit for
-   bit, the counters zeroed just before each batch and read just after.
+   (deepwalk overlapped through the engine and again bulk, ppr bulk on
+   every ``PPR_RELAY_STRIDE``-th start, simple overlapped), its home
+   blocks equal to the single-device paths bit for bit, the counters
+   zeroed just before each batch and read just after.
    Then each gloo rank replays the four batches through a backend that
    records the work of each segment launch and its time on the card
    alone, without the wrapper's host work (``SegmentWork``), giving a
@@ -160,6 +161,32 @@ Phases (any failure exits non-zero and prints no result line):
    request latency, rates, drains, migrations and the classifier's ms a
    rank, relay rounds per cohort, the chaos reports and the phase's
    seconds, each beside the card's name and power limit.
+3h. After phase 3g: the 2D vertex x walker mesh.  4 gloo ranks on the one
+   card form a ``MESH_SHAPE`` ``DeviceMesh`` ``MESH_DIMS`` (rank r = v·2 +
+   g: S_v = 2 vertex shards of 2^19 rows, S_w = 2 walker groups).  Each
+   builds the main path's initial state in turn and keeps two engines on
+   the rows of its vertex index (``DynamicWalkEngine(mesh=...,
+   walker_axes=WALKER_AXES)``): (1) the main path's 10 rounds through one
+   (stats equal to the single device's, counted once; its slice equal to
+   the single device's rows), then 262,144 deepwalk starts of length 80
+   (131,072 a walker group) overlapped through the engine and bulk
+   through ``make_relay(mesh=...)``, and one simple batch bulk
+   (``MESH_BATCHES``): each rank's stitched paths have the SHA-256 of
+   phase 3c's single-device walk, the peak slots stay within a group's
+   pool (``slot_count(131072, 2)``), launches equal the rounds; (2)
+   phase 3f's configuration, traffic and seeds through the other
+   (guarded, buckets, bulk relays) behind a ``ServingScheduler``, as in
+   phase 3g: the admission trace, every request's paths, the guard
+   books, the regrow counts and each rank's final rows (both replicas of
+   a vertex shard) equal phase 3f's; (3) on the grown state,
+   ``run_chaos_relay`` over the mesh with dup 0.2 + delay 0.2 on 65,536
+   starts: phase 3f's single-device paths, nothing lost or pending.
+   Then (4), in this process, the comparison samplers
+   (``core/baselines.py``) on the edges of the main path's final state
+   (2^20 x 256): each built, one step of the 262,144 starts timed beside
+   B4a's (this run), ``BASELINE_UPDATES`` inserts and deletes through
+   each; the touched alias rows equal a fresh build, the ITS prefix sums
+   a fresh cumulative sum, ``wmax`` the rows' maxima.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -230,6 +257,7 @@ STREAM_UPDATES = 2000
 SHARDS = 4                         # ranks of the sharded phase, on one card
 SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
 RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
+PPR_RELAY_STRIDE = 4               # phase 3c's ppr relay: every 4th start
 # (B, H, Hkv, S, T, D, dtype, causal, window): flash_attention vs plain
 FLASH_CASES = [
     (1, 32, 8, 8192, 8192, 128, "bfloat16", True, 4096),    # Mixtral widths
@@ -1822,23 +1850,26 @@ class SegmentWork:
 
 
 def relay_batches(cfg):
-    """The sharded phase's walk batches: (name, params, overlap)."""
+    """The sharded phase's walk batches: (name, params, overlap, stride):
+    each walks every ``stride``-th start."""
     from repro_torch.core.walks import WalkParams
-    return (("deepwalk", WalkParams("deepwalk", WALK_LEN), True),
-            ("deepwalk bulk", WalkParams("deepwalk", WALK_LEN), False),
-            ("ppr", WalkParams("ppr", PPR_LEN, stop_prob=PPR_STOP), True),
-            ("simple", WalkParams("simple", WALK_LEN), True))
+    return (("deepwalk", WalkParams("deepwalk", WALK_LEN), True, 1),
+            ("deepwalk bulk", WalkParams("deepwalk", WALK_LEN), False, 1),
+            ("ppr bulk", WalkParams("ppr", PPR_LEN, stop_prob=PPR_STOP),
+             False, PPR_RELAY_STRIDE),
+            ("simple", WalkParams("simple", WALK_LEN), True, 1))
 
 
-def sharded_path(engine, cfg, starts, stream, report):
+def sharded_path(engine, cfg, starts, stream, report, mesh_h):
     """Phase 3c: write the inputs and the single-device results, run the
     4 gloo ranks and then one NCCL rank, check every rank's result.
-    Returns the segment kernel's line."""
+    Fills ``mesh_h`` with what phase 3h holds its relays to (and the
+    edges of its baselines).  Returns the segment kernel's line."""
     import torch
     from repro_torch.core.walks import random_walk
     st = engine.state
     V, W = cfg.num_vertices, len(starts)
-    Vs, Wb = V // SHARDS, W // SHARDS
+    Vs = V // SHARDS
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shards_"))
     try:
         np.savez(tmp / "inputs.npz", **stream._asdict(),
@@ -1848,17 +1879,26 @@ def sharded_path(engine, cfg, starts, stream, report):
                   "slices": [slice_digest(st, r * Vs, (r + 1) * Vs)
                              for r in range(SHARDS)],
                   "state": slice_digest(st, 0, V), "walks": {}}
-        for name, params, _ in relay_batches(cfg):
+        for name, params, _, stride in relay_batches(cfg):
             kind = name.split()[0]
             seed = RELAY_SEEDS[kind]
             if kind not in expect["walks"]:
-                p = random_walk(st, cfg, starts, seed, params)
+                p = random_walk(st, cfg, starts[::stride].contiguous(),
+                                seed, params)
+                Wb = p.shape[0] // SHARDS
                 expect["walks"][kind] = {
                     "seed": seed, "all": digest([p]),
                     "blocks": [digest([p[r * Wb:(r + 1) * Wb]])
                                for r in range(SHARDS)]}
                 del p
         (tmp / "expect.json").write_text(json.dumps(expect))
+        Vm = V // MESH_SHAPE[0]
+        mesh_h.update(
+            V=V, round_stats=report["round_stats"], edges=row_edges(st),
+            slices=[slice_digest(st, r * Vm, (r + 1) * Vm)
+                    for r in range(MESH_SHAPE[0])],
+            walks={k: {"seed": x["seed"], "all": x["all"]}
+                   for k, x in expect["walks"].items()})
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -1871,7 +1911,7 @@ def sharded_path(engine, cfg, starts, stream, report):
 
     out = {"gloo_s": t_gloo, "nccl_s": t_nccl, "batches": {}}
     launches = 0
-    for name, _, _ in relay_batches(cfg):
+    for name, _, _, stride in relay_batches(cfg):
         per = [g["batches"][name] for g in gloo]
         need(len({(b["rounds"], b["overflow"], b["peak_slots"])
                   for b in per}) == 1, f"relay {name}: ranks disagree")
@@ -1902,7 +1942,9 @@ def sharded_path(engine, cfg, starts, stream, report):
             reduce_ms_median=red[len(red) // 2],
             reduce_ms_mean=statistics.mean(red))
         o = out["batches"][name]
-        print(f"relay {name} (S={SHARDS}, gloo): {o['rounds']} rounds, "
+        o["walkers"] = W // stride
+        print(f"relay {name} (S={SHARDS}, gloo, {W // stride} walkers): "
+              f"{o['rounds']} rounds, "
               f"overflow {o['overflow']}, peak slots {o['peak_slots']}, wall "
               f"{o['wall_s']:.3f} s; walk_segment {o['launches']} launches, "
               f"median {o['segment_ms_median']:.4f} ms (max "
@@ -2027,14 +2069,13 @@ def shard_rank(rank, n, backend, tmp):
         need(slice_digest(engine.state, 0, Vs) == want,
              f"rank {rank}: state slice after the rounds != single device")
         starts = torch.from_numpy(data["starts"]).cuda()
-        W = len(starts)
-        Wb = W // n
         batches = relay_batches(cfg) if n == exp["shards"] else \
             relay_batches(cfg)[:1]
         res = {"batches": {}}
         bk = get_backend("fused")
-        for name, params, overlap in batches:
+        for name, params, overlap, stride in batches:
             kind = name.split()[0]
+            sb = starts[::stride].contiguous()
             seed = exp["walks"][kind]["seed"]
             trace = []
             ops.reset_launch_counts()
@@ -2043,13 +2084,13 @@ def shard_rank(rank, n, backend, tmp):
             t0 = time.perf_counter()
             if name == "deepwalk":       # through the engine
                 engine.relay_trace = trace
-                home = engine.walk(starts, seed)
+                home = engine.walk(sb, seed)
                 rounds, ovf, peak = (engine.last_relay[k] for k in
                                      ("rounds", "overflow", "peak_slots"))
             else:
                 run = make_relay(bk, cfg, params, group, overlap=overlap,
                                  diagnostics=True)
-                home, rounds, ovf, peak = run(engine.state, starts, seed,
+                home, rounds, ovf, peak = run(engine.state, sb, seed,
                                               trace=trace)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2059,7 +2100,7 @@ def shard_rank(rank, n, backend, tmp):
                  f"rank {rank} {name}: launches {counts}, rounds {rounds}")
             want = exp["walks"][kind]["blocks"][rank] if n == exp["shards"] \
                 else exp["walks"][kind]["all"]
-            need(tuple(home.shape) == (Wb, params.length + 1) and
+            need(tuple(home.shape) == (len(sb) // n, params.length + 1) and
                  digest([home]) == want,
                  f"rank {rank} {name}: home block != single-device paths")
             res["batches"][name] = {
@@ -2071,11 +2112,12 @@ def shard_rank(rank, n, backend, tmp):
                 "reduce_ms": [1e3 * x["reduce_s"] for x in trace]}
             del home
         if n == exp["shards"]:      # each launch's bound, on a replay
-            for name, params, overlap in batches:
+            for name, params, overlap, stride in batches:
                 kind = name.split()[0]
                 rec = SegmentWork(bk, kind == "simple")
                 home = make_relay(rec, cfg, params, group, overlap=overlap)(
-                    engine.state, starts, exp["walks"][kind]["seed"])[0]
+                    engine.state, starts[::stride].contiguous(),
+                    exp["walks"][kind]["seed"])[0]
                 b = res["batches"][name]
                 need(len(rec.works) == b["launches"] and digest([home]) ==
                      exp["walks"][kind]["blocks"][rank],
@@ -2301,6 +2343,12 @@ RECOVERY_SCALE = 17
 CHAOS_SEED, CHAOS_WALKERS = 2, 65536
 CHAOS_KILL_ROUNDS = 8               # the killed relay's round bound
 SERVE_SHARD_TIMEOUT_S = 300         # phase 3g's ranks, all together
+# phase 3h: the 2D vertex x walker mesh (4 gloo ranks on the one card)
+MESH_SHAPE, MESH_DIMS = (2, 2), ("data", "walker")
+WALKER_AXES = ("walker",)
+MESH_TIMEOUT_S = 360                # phase 3h's ranks, all together
+MESH_BATCHES = (("deepwalk", True), ("deepwalk", False), ("simple", False))
+BASELINE_UPDATES, BASELINE_SEED = 100, 30
 
 
 def growth_edges(src, dst, w, V, C, n, rng):
@@ -2735,12 +2783,10 @@ def serving_phase(args, report, graph, stream, handoff):
     # requests, books, regrows and final slices, and a whole walk of the
     # final state for its chaos relay
     t1 = time.perf_counter()
-    Vs = V // SHARDS
     chaos_starts = torch.from_numpy(np.random.default_rng(CHAOS_SEED).integers(
         0, V, CHAOS_WALKERS).astype(np.int32)).cuda()
     chaos = random_walk(fresh.state, fresh.cfg, chaos_starts, CHAOS_SEED,
                         params)
-    Wb = CHAOS_WALKERS // SHARDS
     handoff.update(
         init=(stream.init_src, stream.init_dst, stream.init_w),
         updates=updates, bursts=bursts, sched_cfg=dataclasses.asdict(sched_cfg),
@@ -2749,11 +2795,11 @@ def serving_phase(args, report, graph, stream, handoff):
         paths={rid: array_digest(p) for rid, p in live_paths.items()},
         guard=books_digest(guard_books), regrow_counts=fresh.regrow_counts,
         retry_rounds=out["retry_rounds"], tier=fresh.tier,
-        slices=[slice_digest(fresh.state, r * Vs, (r + 1) * Vs)
-                for r in range(SHARDS)],
+        slices={S: [slice_digest(fresh.state, r * (V // S),
+                                 (r + 1) * (V // S)) for r in range(S)]
+                for S in (SHARDS, MESH_SHAPE[0])},
         chaos={"starts": chaos_starts.cpu().numpy(), "seed": CHAOS_SEED,
-               "blocks": [digest([chaos[r * Wb:(r + 1) * Wb]])
-                          for r in range(SHARDS)]},
+               "all": digest([chaos])},
         trace_ops=trace,
         windows=[op for op in trace if isinstance(op, UpdateOp)][:2],
         migration_ms=out["migration"]["ms"],
@@ -3025,7 +3071,7 @@ def serve_rank(rank, n, backend, tmp):
                 torch.cuda.empty_cache()
             dist.barrier()
         res = nccl_window(engine, h) if backend == "nccl" else \
-            gloo_serving(engine, h, rank, n, group)
+            gloo_serving(engine, h, rank)
         dist.barrier()
         (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(res))
     finally:
@@ -3063,10 +3109,12 @@ def nccl_window(engine, h):
             "launches": counts}
 
 
-def gloo_serving(engine, h, rank, n, group):
-    """Phase 3f's traffic through the scheduler on this rank's engine (or,
-    if phase 3f's dispatch met ``max_inflight``, its trace replayed), the
-    checks against phase 3f's digests, then the chaos relays."""
+def gloo_serving(engine, h, rank, raising=True):
+    """Phase 3f's traffic through the scheduler on this rank's engine (a
+    process group's or a mesh's; or, if phase 3f's dispatch met
+    ``max_inflight``, its trace replayed), the checks against phase 3f's
+    digests, then the chaos relays: dup + delay, and with ``raising`` a
+    drop and a killed transport."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.backend import get_backend
@@ -3183,7 +3231,8 @@ def gloo_serving(engine, h, rank, n, group):
          f"rank {rank}: regrows {engine.regrow_counts}, retry rounds "
          f"{engine.retry_rounds}")
     Vs = engine.shard_size
-    need(slice_digest(engine.state, 0, Vs) == h["slices"][rank],
+    need(slice_digest(engine.state, 0, Vs)
+         == h["slices"][engine.num_shards][engine.rank],
          f"rank {rank}: final slice != phase 3f's")
     audit = engine.audit(pressure=True)
     need(not any(audit[k] for k in DEVICE_RULES if k != "at_capacity"),
@@ -3202,15 +3251,16 @@ def gloo_serving(engine, h, rank, n, group):
     params = WalkParams("deepwalk", WALK_LEN)
     c = h["chaos"]
     starts = torch.from_numpy(c["starts"]).cuda()
-    Wb = len(starts) // n
+    layout = dict(mesh=engine.mesh, walker_axes=engine.walker_axes)
     res["chaos"], res["chaos_rounds"] = {}, []
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    p, rep = run_chaos_relay(bk, engine.cfg, params, group, engine.state,
-                             starts, c["seed"],
-                             ChaosSchedule(seed=2, dup=0.2, delay=0.2))
-    need(digest([p[rank * Wb:(rank + 1) * Wb]]) == c["blocks"][rank] and
-         rep.lost == 0 and rep.duplicated > 0 and rep.delayed > 0,
+    p, rep = run_chaos_relay(bk, engine.cfg, params, engine.group,
+                             engine.state, starts, c["seed"],
+                             ChaosSchedule(seed=2, dup=0.2, delay=0.2),
+                             **layout)
+    need(digest([p]) == c["all"] and rep.lost == 0 and
+         rep.pending_at_exit == 0 and rep.duplicated > 0 and rep.delayed > 0,
          f"rank {rank}: chaos dup+delay {rep}")
     res["chaos"]["dup=0.2 delay=0.2"] = dict(dataclasses.asdict(rep),
                                              wall_s=time.perf_counter() - t0)
@@ -3219,11 +3269,12 @@ def gloo_serving(engine, h, rank, n, group):
     for name, sched, max_rounds, what in (
             ("drop=0.01", ChaosSchedule(seed=3, drop=0.01), None, "lost"),
             ("kill_round=3", ChaosSchedule(seed=4, kill_round=3),
-             CHAOS_KILL_ROUNDS, "pending_at_exit")):
+             CHAOS_KILL_ROUNDS, "pending_at_exit"))[:2 if raising else 0]:
         t0 = time.perf_counter()
         try:
-            run_chaos_relay(bk, engine.cfg, params, group, engine.state,
-                            starts, c["seed"], sched, max_rounds=max_rounds)
+            run_chaos_relay(bk, engine.cfg, params, engine.group,
+                            engine.state, starts, c["seed"], sched,
+                            max_rounds=max_rounds, **layout)
             need(False, f"rank {rank}: chaos {name} did not raise")
         except RelayIntegrityError as e:
             need(getattr(e.report, what) > 0,
@@ -3236,6 +3287,325 @@ def gloo_serving(engine, h, rank, n, group):
     need(res["chaos_launches"]["walk_segment"] == sum(res["chaos_rounds"]),
          f"rank {rank}: chaos launches {res['chaos_launches']}")
     return res
+
+
+# --------------------------------------------------------------- phase 3h
+def mesh_phase(report, mesh_h, serve_h, starts, stream, card):
+    """Phase 3h: the 2D vertex x walker mesh (module docstring): 4 gloo
+    ranks as a ``MESH_SHAPE`` ``DeviceMesh``, then the comparison samplers
+    in this process.  Returns the ranks' launches by kernel."""
+    import torch
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        np.savez(tmp / "inputs.npz", **stream._asdict(),
+                 starts=starts.cpu().numpy())
+        main_h = {k: mesh_h[k] for k in ("V", "round_stats", "slices",
+                                         "walks")}
+        (tmp / "handoff.pkl").write_bytes(pickle.dumps(
+            {"main": main_h, "serve": serve_h}))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(tmp, "gloo", SHARDS, mesh_rank, MESH_TIMEOUT_S)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for g in ranks:
+        g["counts"] = [(b["rounds"], b["overflow"], b["peak_slots"])
+                       for b in g["relays"]]
+    for key in ("counts", "rounds_per_cohort", "regrows", "chaos_rounds"):
+        need(len({json.dumps(g[key]) for g in ranks}) == 1,
+             f"mesh: ranks disagree on {key}")
+    g0 = ranks[0]
+    pool = slot_count_2d(len(starts))
+    out = {"ranks_s": t_ranks, "pool_slots": pool, "ranks": ranks}
+    print(f"{card}: mesh {MESH_SHAPE} {MESH_DIMS}, walker axes "
+          f"{WALKER_AXES}: rank -> (vertex, walker group) "
+          + ", ".join(f"{r}: ({g['place'][0]}, {g['place'][1]})"
+                      for r, g in enumerate(ranks))
+          + f"; main path's 10 rounds: stats and slices equal to the single "
+          f"device on every rank ({g0['ingest_ms']:.1f} ms of ingest a rank)",
+          flush=True)
+    for i, b in enumerate(g0["relays"]):
+        exch = [r["relays"][i]["exchange_ms"] for r in ranks]
+        print(f"{card}: mesh relay {b['name']} ({len(starts)} walkers, "
+              f"{len(starts) // MESH_SHAPE[1]} a group): {b['rounds']} "
+              f"rounds, "
+              f"overflow {b['overflow']}, peak slots {b['peak_slots']} of a "
+              f"group's pool of {pool} (slot_count({len(starts) // 2}, 2)), "
+              f"wall {max(r['relays'][i]['wall_s'] for r in ranks):.3f} s "
+              f"(slowest rank); exchange ms a round, median by rank "
+              + ", ".join(f"{statistics.median(e):.2f}" for e in exch)
+              + f"; walk_segment {b['launches']} launches a rank; stitched "
+              f"paths equal to the single-device walk", flush=True)
+        need(b["peak_slots"] <= pool, f"mesh relay {b['name']}: peak "
+             f"{b['peak_slots']} > {pool}")
+    lat = sorted(x for g in ranks for x in g["latency_ms"])
+    if lat:
+        out["latency_p50_ms"] = lat[len(lat) // 2]
+        out["latency_p99_ms"] = lat[min(len(lat) - 1,
+                                        int(math.ceil(0.99 * len(lat))) - 1)]
+    live_s = max(g["live_s"] for g in ranks)
+    out["walk_steps_per_s"] = g0["walk_steps"] / live_s
+    out["updates_per_s"] = g0["updates"] / live_s
+    how = "live scheduler, trace equal to phase 3f's" if g0["live"] \
+        else "phase 3f's trace replayed (its dispatch met max_inflight)"
+    print(f"{card}: mesh serving ({how}): "
+          f"{g0['windows']} update windows, {g0['retry_rounds']} retry "
+          f"rounds, {len(g0['rounds_per_cohort'])} cohorts of "
+          f"{min(g0['rounds_per_cohort'])}-{max(g0['rounds_per_cohort'])} "
+          f"bulk rounds, regrow counts {g0['regrows']}; requests, guard "
+          f"books, regrow counts equal to phase 3f's, each rank's slice "
+          f"phase 3f's rows of its vertex index (both replicas); "
+          + (f"request latency p50 {out['latency_p50_ms']:.1f} ms, p99 "
+             f"{out['latency_p99_ms']:.1f} ms; " if lat else "")
+          + f"{out['walk_steps_per_s'] / 1e6:.2f} M walk steps/s, "
+          f"{out['updates_per_s'] / 1e6:.3f} M updates/s over {live_s:.2f} s",
+          flush=True)
+    for r, g in enumerate(ranks):
+        m = g["migration"]
+        print(f"{card}: mesh rank {r}: migration 256 -> 512 {m['ms']:.2f} ms "
+              f"(CUDA events); classifier with its all_reduce median "
+              f"{statistics.median(g['classify_ms']):.3f} ms a window; "
+              f"update_fused {g['launches']['update_fused']}, walk_segment "
+              f"{g['launches']['walk_segment']} launches", flush=True)
+    for name, rep in g0["chaos"].items():
+        print(f"{card}: mesh chaos {name}: {rep}", flush=True)
+    t1 = time.perf_counter()
+    out["baselines"] = baseline_phase(report, mesh_h, starts, card)
+    out["baselines_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: mesh phase {out['phase_s']:.1f} s (ranks {t_ranks:.1f} "
+          f"s, baselines {out['baselines_s']:.1f} s)", flush=True)
+    report["mesh"] = out
+    launches = {"walk_segment": 0, "update_fused": 0}
+    for g in ranks:
+        for k in launches:
+            launches[k] += g["main_launches"].get(k, 0) \
+                + g["launches"].get(k, 0) \
+                + g.get("chaos_launches", {}).get(k, 0)
+    return launches
+
+
+def slot_count_2d(W):
+    """One walker group's pool: ``slot_count(W / S_w, S_v)``."""
+    from repro_torch.distributed.relay import slot_count
+    return slot_count(W // MESH_SHAPE[1], MESH_SHAPE[0])
+
+
+def mesh_rank(rank, n, backend, tmp):
+    """One rank of phase 3h (runs in its own process)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core import dyngraph as dg
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.serve import DynamicWalkEngine, GuardPolicy
+    tmp = Path(tmp)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(tmp / f"store_{backend}"), n),
+        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", MESH_SHAPE, mesh_dim_names=MESH_DIMS)
+        layout = dict(mesh=mesh, walker_axes=WALKER_AXES)
+        h = pickle.loads((tmp / "handoff.pkl").read_bytes())
+        m, sh = h["main"], h["serve"]
+        data = np.load(tmp / "inputs.npz")
+        V = m["V"]
+        cfg = dg.BingoConfig(num_vertices=V, capacity=256, bias_bits=16)
+        scfg = dg.BingoConfig(num_vertices=V, capacity=SERVE_LADDER[0],
+                              bias_bits=16, capacity_ladder=SERVE_LADDER)
+        params = WalkParams("deepwalk", WALK_LEN)
+        for r in range(n):           # build in turn: one whole state at a time
+            if r == rank:            # (phase 3f's initial state is the main
+                st = dg.from_edges(  # path's: the same edges and widths)
+                    cfg, data["init_src"], data["init_dst"], data["init_w"],
+                    device="cuda")
+                main = DynamicWalkEngine(st, cfg, params, **layout)
+                serve = DynamicWalkEngine(
+                    st, scfg, params, seed=SERVE_SEED,
+                    guard=GuardPolicy(retry_batch=SERVE_RETRY_BATCH),
+                    walk_buckets=SERVE_WALK_BUCKETS, relay_overlap=False,
+                    **layout)
+                del st
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res = {"place": (main.rank, main.walker_group)}
+        res.update(mesh_relays(main, m, data, rank))
+        del main
+        torch.cuda.empty_cache()
+        res.update(gloo_serving(serve, sh, rank, raising=False))
+        dist.barrier()
+        (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_relays(engine, m, data, rank):
+    """Part 1 of phase 3h on this rank: the main path's 10 rounds through
+    the 2D engine (stats and slice equal to the single device), then its
+    relays (``MESH_BATCHES``), each rank's stitched paths equal to the
+    single-device walk, launches equal to the rounds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.walks import WalkParams
+    from repro_torch.distributed.relay import make_relay, stitch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r, want in enumerate(m["round_stats"]):
+        lanes = [torch.from_numpy(np.ascontiguousarray(data[k][r])).cuda()
+                 for k in ("is_insert", "u", "v", "w")]
+        got = stats_list(engine.ingest(*lanes))
+        need(got == want, f"mesh rank {rank}: round {r + 1} stats {got} != "
+             f"single-device {want}")
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    need(counts["update_fused"] == len(m["round_stats"]),
+         f"mesh rank {rank}: ingest launches {counts}")
+    need(slice_digest(engine.state, 0, engine.shard_size)
+         == m["slices"][engine.rank],
+         f"mesh rank {rank}: slice after the rounds != single device")
+    starts = torch.from_numpy(data["starts"]).cuda()
+    bk = get_backend("fused")
+    layout = dict(mesh=engine.mesh, walker_axes=engine.walker_axes)
+    relays = []
+    for kind, overlap in MESH_BATCHES:
+        params = WalkParams(kind, WALK_LEN)
+        seed = m["walks"][kind]["seed"]
+        trace = []
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if overlap:                      # through the engine
+            engine.relay_trace = trace
+            paths = engine.walk(starts, seed, stitch=True)
+            engine.relay_trace = None
+            rounds, ovf, peak = (engine.last_relay[k] for k in
+                                 ("rounds", "overflow", "peak_slots"))
+        else:
+            run = make_relay(bk, engine.cfg, params, overlap=False,
+                             diagnostics=True, **layout)
+            home, rounds, ovf, peak = run(engine.state, starts, seed,
+                                          trace=trace)
+            paths = stitch(home, **layout)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = ops.launch_counts()
+        name = f"{kind} {'overlapped' if overlap else 'bulk'}"
+        need(c["walk_segment"] == rounds and sum(c.values()) == rounds,
+             f"mesh rank {rank} {name}: launches {c}, rounds {rounds}")
+        need(digest([paths]) == m["walks"][kind]["all"],
+             f"mesh rank {rank} {name}: stitched paths != single device")
+        relays.append({"name": name, "rounds": rounds, "overflow": ovf,
+                       "peak_slots": peak, "wall_s": wall,
+                       "launches": c["walk_segment"],
+                       "exchange_ms": [1e3 * x["exchange_s"] for x in trace],
+                       "reduce_ms": [1e3 * x["reduce_s"] for x in trace]})
+        del paths
+    return {"relays": relays, "ingest_ms": ingest_ms,
+            "main_launches": {"update_fused": len(m["round_stats"]),
+                              "walk_segment": sum(b["launches"]
+                                                  for b in relays)}}
+
+
+def baseline_phase(report, mesh_h, starts, card):
+    """Part 4 of phase 3h: the comparison samplers (``core/baselines.py``)
+    on the main path's final edges at its widths: build, one step of
+    every start, ``BASELINE_UPDATES`` inserts and deletes through each,
+    then the touched alias rows against a fresh build, the ITS prefix
+    sums against a fresh cumulative sum and ``wmax`` against the rows'
+    maxima.  Times beside B4a's one step at the same starts, this run."""
+    import torch
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.alias import build_alias
+    src, dst, w = mesh_h["edges"]
+    V, C = mesh_h["V"], 256
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    adj = bl.adj_from_edges(V, C, src, dst, w.astype(np.float32),
+                            device="cuda")
+    torch.cuda.synchronize()
+    adj_s = time.perf_counter() - t0
+    rng = np.random.default_rng(BASELINE_SEED)
+    deg = adj.deg.cpu().numpy()
+    ins_u = rng.choice(np.flatnonzero(deg < C), BASELINE_UPDATES,
+                       replace=False)
+    ins = [(int(u), int(rng.integers(0, V)), float(rng.integers(1, 1 << 16)))
+           for u in ins_u]
+    pick = rng.choice(len(src), BASELINE_UPDATES, replace=False)
+    dels = [(int(src[k]), int(dst[k])) for k in pick]
+    touched = torch.tensor(sorted({u for u, _, _ in ins}
+                                  | {u for u, _ in dels}), device="cuda")
+    b4a = report["walk_sample"]["ms"]
+    out = {"adj_s": adj_s, "b4a_ms": b4a, "updates": 2 * BASELINE_UPDATES}
+    updated_adj = None
+    for name in ("AliasBaseline", "ITSBaseline", "RejectionBaseline",
+                 "ReservoirBaseline"):
+        cls = getattr(bl, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = cls.build(adj)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(BASELINE_SEED)
+        ms, nxt = cuda_ms(partial(b.sample, starts, gen))
+        rows = adj.nbr[starts.long()]
+        ok = (rows == nxt[:, None]).any(1) | (adj.deg[starts.long()] == 0)
+        need(bool(ok.all()), f"{name}: a draw off its row")
+        upd = []
+        for (u, v, ww), (du, dv) in zip(ins, dels):
+            for op, args in (("insert", (u, v, ww)), ("delete", (du, dv))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = getattr(b, op)(*args)
+                torch.cuda.synchronize()
+                upd.append((time.perf_counter() - t0) * 1e3)
+        if updated_adj is None:
+            updated_adj = b.adj
+        else:
+            need(all(torch.equal(x, y) for x, y in zip(b.adj, updated_adj)),
+                 f"{name}: the updated adjacency differs")
+        valid_all = None
+        if name == "AliasBaseline":
+            fresh = build_alias(bl._valid_w(b.adj, touched))
+            need(torch.equal(b.table.prob[touched], fresh.prob) and
+                 torch.equal(b.table.alias[touched], fresh.alias),
+                 "AliasBaseline: a touched row != a fresh build")
+        elif name == "ITSBaseline":
+            valid_all = bl._valid_w(b.adj, torch.arange(V, device="cuda"))
+            need(torch.equal(b.cdf, torch.cumsum(valid_all, dim=-1)),
+                 "ITSBaseline: prefix sums != a fresh cumulative sum")
+        elif name == "RejectionBaseline":
+            need(torch.equal(b.wmax[touched], bl._valid_w(
+                b.adj, touched).max(-1).values),
+                "RejectionBaseline: wmax != the touched rows' maxima")
+        del valid_all
+        upd.sort()
+        out[name] = {"build_s": build_s, "step_ms": ms,
+                     "update_ms_median": upd[len(upd) // 2],
+                     "update_ms_max": upd[-1]}
+        print(f"{card}: baseline {name}: build {build_s:.3f} s; one step of "
+              f"{len(starts)} walkers {ms:.4f} ms ({ms / b4a:.1f}x B4a's "
+              f"{b4a:.4f} ms, this run); {len(upd)} updates, median "
+              f"{upd[len(upd) // 2]:.2f} ms (max {upd[-1]:.2f})", flush=True)
+        del b
+        torch.cuda.empty_cache()
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"{card}: baselines on the main path's final edges (V {V}, C {C}, "
+          f"adjacency {adj_s:.2f} s to build, {int(deg.sum())} edges): draws "
+          f"on their rows; the touched alias rows a fresh build's, the ITS "
+          f"sums a fresh cumulative sum, wmax the rows' maxima; peak "
+          f"{out['peak_gib']:.1f} GiB", flush=True)
+    report["baselines"] = out
+    return out
 
 
 # --------------------------------------------------------------- phase 3e
@@ -3641,8 +4011,9 @@ def main():
         timed("profiled round", profile)
         profile = None              # frees the round's saved state
     # ---- phase 3c: the sharded path, then the streaming updates
+    mesh_h = {}
     kernels.insert(1, timed("3c sharded path", sharded_path, engine, cfg,
-                            starts, stream, report))
+                            starts, stream, report, mesh_h))
     timed("streaming updates", streaming, engine, cfg, report, rng)
     kernels += tables
     del engine
@@ -3656,10 +4027,15 @@ def main():
     # ---- phase 3g: the sharded serving layer, phase 3f's traffic
     more = timed("3g sharded serving", sharded_serving_phase, report, handoff,
                  card)
-    del handoff
     for k in kernels:
         k["launches"] += more.get(k["name"], 0)
     del graph
+    # ---- phase 3h: the 2D vertex x walker mesh, then the baselines
+    more = timed("3h mesh", mesh_phase, report, mesh_h, handoff, starts,
+                 stream, card)
+    del handoff, mesh_h
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
     torch.cuda.empty_cache()
     # ---- phase 3e: attention at full width
     torch.cuda.reset_peak_memory_stats()

@@ -22,8 +22,12 @@ exchange (``relay_local``'s ``exchange_fn`` hook) that can
 
 Faults are a pure hash of ``(schedule seed, round, channel, shard, row)``,
 bit-equal to the reference's for the same shard count: the same schedule
-replays the same faults.  ``run_chaos_relay`` runs the relay with its
-census on and enforces the contract — every live walker finishes (a count
+replays the same faults.  On a 2D vertex × walker mesh (``walker_axes=``)
+the real exchange runs over the rank's vertex group and the shard in the
+hash is the rank's index over the whole mesh, so each (walker group,
+vertex shard) pair draws its own stream, as in the reference.
+``run_chaos_relay`` runs the relay with its census on and enforces the
+contract — every live walker finishes (a count
 of DISTINCT walker ids, so a duplicate cannot mask a drop), nothing is
 pending at exit, and the stitched paths pass ``audit_paths`` — and raises
 ``RelayIntegrityError`` with a ``ChaosReport`` otherwise.
@@ -39,7 +43,7 @@ import torch
 
 from repro_torch.core.dyngraph import regrow_state
 from repro_torch.distributed.relay import (RelayIntegrityError, make_relay,
-                                           shard_index, stitch)
+                                           relay_layout, stitch)
 from repro_torch.distributed.walker_exchange import (exchange_walkers,
                                                      merge_into_free)
 
@@ -101,9 +105,13 @@ def _u01(x):
 
 
 def _make_chaos_exchange(sched: ChaosSchedule, shard_size: int,
-                         num_shards: int, group=None):
-    """The faulty ``exchange_fn`` for ``relay_local`` on this rank."""
-    sidx = shard_index(group)
+                         num_shards: int, group=None, *, mesh=None,
+                         walker_axes=()):
+    """The faulty ``exchange_fn`` for ``relay_local`` on this rank: the
+    real exchange over the vertex group, the fault hash keyed on the
+    rank's index over the whole mesh (its rank in ``group`` in 1D)."""
+    lay = relay_layout(group, mesh=mesh, walker_axes=walker_axes)
+    group, sidx = lay.group, lay.mesh_index
 
     def exchange(payload, *, cap, r, channel):
         live = payload[:, 0] >= 0
@@ -148,29 +156,25 @@ def _make_chaos_exchange(sched: ChaosSchedule, shard_size: int,
     return exchange
 
 
-def _num_shards(group) -> int:
-    if group is None:
-        return 1
-    import torch.distributed as dist
-    return dist.get_world_size(group)
-
-
 def make_chaos_relay(bk, cfg, params, group, sched: ChaosSchedule, *,
                      max_rounds: Optional[int] = None,
                      slot_slack: Optional[int] = None,
                      path_cap: Optional[int] = None,
-                     overlap: bool = False):
+                     overlap: bool = False, mesh=None, walker_axes=()):
     """``make_relay`` with the chaotic transport and the census on.
 
     Returns ``run(state, walkers, seed, u=None) -> (home, rounds,
     overflow, peak_slots, finished, pending_at_exit, faults)``, ``state``
     this rank's vertex slice.  Pass a small ``max_rounds`` for kill-round
     schedules: even the default bound makes a dead transport take a while
-    to give up.
+    to give up.  ``mesh``/``walker_axes`` (with ``group=None``) run it on a
+    2D vertex × walker mesh, as ``make_relay`` does.
     """
-    S = _num_shards(group)
-    ex = _make_chaos_exchange(sched, cfg.num_vertices // S, S, group)
-    return make_relay(bk, cfg, params, group,
+    S = relay_layout(group, mesh=mesh, walker_axes=walker_axes).num_shards
+    ex = _make_chaos_exchange(sched, cfg.num_vertices // S, S, group,
+                              mesh=mesh, walker_axes=walker_axes)
+    return make_relay(bk, cfg, params, group, mesh=mesh,
+                      walker_axes=walker_axes,
                       mailbox_cap=sched.mailbox_cap, max_rounds=max_rounds,
                       slot_slack=slot_slack, path_cap=path_cap,
                       diagnostics=True, exchange_fn=ex, census=True,
@@ -215,11 +219,13 @@ def run_chaos_relay(bk, cfg, params, group, state, walkers, seed,
                     max_rounds: Optional[int] = None,
                     slot_slack: Optional[int] = None,
                     path_cap: Optional[int] = None,
-                    full_length: bool = False, overlap: bool = False):
+                    full_length: bool = False, overlap: bool = False,
+                    mesh=None, walker_axes=()):
     """Run one chaos schedule and enforce the conservation contract.
 
-    Every rank of ``group`` calls it with its vertex slice ``state`` and
-    the same ``walkers`` and ``seed``.  Returns ``(paths (W, L+1),
+    Every rank of ``group`` (or of ``mesh``, with ``walker_axes``) calls
+    it with its vertex slice ``state`` and the same ``walkers`` and
+    ``seed``.  Returns ``(paths (W, L+1),
     ChaosReport)`` — the stitched paths, on every rank — when every live
     walker finished, nothing was pending at exit and the paths pass the
     structural audit; raises ``RelayIntegrityError`` (report and audit
@@ -227,10 +233,11 @@ def run_chaos_relay(bk, cfg, params, group, state, walkers, seed,
     """
     relay = make_chaos_relay(bk, cfg, params, group, sched,
                              max_rounds=max_rounds, slot_slack=slot_slack,
-                             path_cap=path_cap, overlap=overlap)
+                             path_cap=path_cap, overlap=overlap, mesh=mesh,
+                             walker_axes=walker_axes)
     home, rounds, ovf, peak, finished, pending, faults = relay(
         state, walkers, seed)
-    paths = stitch(home, group)
+    paths = stitch(home, group, mesh=mesh, walker_axes=walker_axes)
     starts = walkers.cpu().numpy() if isinstance(walkers, torch.Tensor) \
         else np.asarray(walkers)
     n_live = int((starts >= 0).sum())
@@ -253,7 +260,8 @@ def run_chaos_across_regrow(bk, cfg, params, group, state, walkers, seeds,
                             slot_slack: Optional[int] = None,
                             path_cap: Optional[int] = None,
                             full_length: bool = False,
-                            overlap: bool = False):
+                            overlap: bool = False, mesh=None,
+                            walker_axes=()):
     """Drive the chaos transport across a capacity-regrow boundary.
 
     One chaos relay at ``cfg``'s tier, this rank's slice migrated to the
@@ -274,7 +282,8 @@ def run_chaos_across_regrow(bk, cfg, params, group, state, walkers, seeds,
                          dataclasses.replace(cfg_next, num_vertices=rows))
     s0, s1 = seeds
     kw = dict(max_rounds=max_rounds, slot_slack=slot_slack,
-              path_cap=path_cap, full_length=full_length, overlap=overlap)
+              path_cap=path_cap, full_length=full_length, overlap=overlap,
+              mesh=mesh, walker_axes=walker_axes)
     paths0, report0 = run_chaos_relay(bk, cfg, params, group, state,
                                       walkers, s0, sched, **kw)
     paths1, report1 = run_chaos_relay(bk, cfg_next, params, group, grown,

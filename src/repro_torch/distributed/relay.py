@@ -41,6 +41,20 @@ gathered per slot — a relayed walk draws what the single-device whole
 walk draws: the home blocks stack to the single-device paths bit for
 bit, at any shard count and either schedule.
 
+**2D vertex × walker mesh** (``mesh=`` with ``walker_axes=``, the
+reference's ``walker_axes``): a ``torch.distributed.device_mesh.DeviceMesh``
+whose named dims split into vertex dims (the graph partitioned over S_v
+shards) and walker dims (the graph replicated over S_w walker groups).
+Each walker group relays its own W/S_w walkers over its S_v vertex
+shards: the exchanges run over the group's vertex process group only,
+while the loop's pending count, the overflow, the peak and the faults
+are reduced over every rank of the mesh, so all groups run the same
+rounds and no group's collectives wait on one that finished.  Slot →
+wid maps carry ``wid_base + local id``, so the draws stay keyed by the
+GLOBAL walker id and any (S_v, S_w) factorisation gives the
+single-device paths bit for bit.  ``stitch`` orders the home blocks
+walker-group-major, the reference's ``P(walker_axes + vertex_axes)``.
+
 Every sort here is stable (``stable=True``; booleans sort as int32) and
 every ``mode="drop"`` scatter of the reference writes its dropped lanes
 to one padding row that is sliced off: the FIFO mailboxes and the round
@@ -50,23 +64,118 @@ bound rest on both.  Floor division keeps -1 ids at -1.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
 
 from repro_torch.distributed.walker_exchange import exchange_walkers, route_tag
 
-__all__ = ["shard_index", "slot_count", "round_bound", "RelayPendingCensus",
-           "RelayIntegrityError", "relay_view", "relay_local", "make_relay",
-           "stitch"]
+__all__ = ["slot_count", "round_bound", "RelayPendingCensus",
+           "RelayIntegrityError", "RelayLayout", "relay_layout", "relay_view",
+           "relay_local", "make_relay", "stitch"]
 
 
-def shard_index(group=None) -> int:
-    """This rank's shard index: its rank in ``group`` (0 without one)."""
-    if group is None:
-        return 0
+@dataclasses.dataclass(frozen=True)
+class RelayLayout:
+    """Where this rank sits in a relay (``relay_layout``)."""
+    num_shards: int         # S_v: vertex shards a walker group relays over
+    num_groups: int         # S_w: walker groups (graph replicas)
+    sidx: int               # this rank's vertex index: its rows' offset
+    gidx: int               # this rank's walker group
+    group: object           # the vertex process group (None for one shard)
+    sync_group: object      # every rank of the relay (None for one rank)
+    blocks: tuple           # sync-group rank holding home block k, in the
+                            # stitched (walker-group-major) order
+    mesh_index: int         # index over all mesh dims, in the mesh's order
+
+    @property
+    def root(self) -> bool:
+        """Vertex shard 0 of walker group 0: the rank that writes what
+        the relay's ranks hold together."""
+        return self.sidx == 0 and self.gidx == 0
+
+
+_LAYOUTS: dict = {}     # (id(mesh), walker axes) -> (mesh, RelayLayout)
+
+
+def _axes(walker_axes) -> tuple:
+    return (walker_axes,) if isinstance(walker_axes, str) \
+        else tuple(walker_axes)
+
+
+def relay_layout(group=None, *, mesh=None, walker_axes=()) -> RelayLayout:
+    """The relay's process groups and this rank's place in them.
+
+    ``group`` — the 1D relay over a plain process group (one shard
+    without one): it has no named dims, so ``walker_axes`` must be empty.
+    ``mesh`` — a ``DeviceMesh``: the dims named in ``walker_axes`` hold
+    walker groups, the others vertex shards.  Every rank of the mesh
+    must call this in the same order: the first call for a (mesh,
+    walker axes) pair builds the vertex groups (one ``new_group`` per
+    walker group, on every rank, when there is more than one vertex
+    dim; the mesh's own group of the dim when there is one) and, unless
+    the mesh spans the world, a group of all its ranks; later calls
+    reuse them.  Raises the reference's ``ValueError``s for a walker axis
+    not in the mesh and for walker axes that leave no vertex axis.
+    """
     import torch.distributed as dist
-    return dist.get_rank(group)
+    waxes = _axes(walker_axes)
+    if mesh is not None and group is not None:
+        raise ValueError("pass mesh= or group=, not both")
+    if mesh is None:
+        for a in waxes:
+            raise ValueError(f"walker axis {a!r} not in mesh axes () "
+                             f"(a plain process group has no named axes)")
+        if group is None:
+            return RelayLayout(1, 1, 0, 0, None, None, (0,), 0)
+        S, r = dist.get_world_size(group), dist.get_rank(group)
+        return RelayLayout(S, 1, r, 0, group, group, tuple(range(S)), r)
+    hit = _LAYOUTS.get((id(mesh), waxes))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    axes = tuple(mesh.mesh_dim_names or ())
+    for a in waxes:
+        if a not in axes:
+            raise ValueError(f"walker axis {a!r} not in mesh axes {axes}")
+    vaxes = tuple(a for a in axes if a not in waxes)
+    if not vaxes:
+        raise ValueError(
+            "at least one mesh axis must remain a vertex axis "
+            f"(walker_axes={waxes} covers all of {axes})")
+    grid = mesh.mesh.cpu()
+    sizes = dict(zip(axes, grid.shape))
+    S_w = math.prod(sizes[a] for a in waxes)
+    S_v = math.prod(sizes[a] for a in vaxes)
+    by_group = grid.permute([axes.index(a) for a in waxes + vaxes]) \
+        .reshape(S_w, S_v).tolist()
+    me = dist.get_rank()
+    gidx, sidx = next((g, row.index(me)) for g, row in
+                      enumerate(by_group) if me in row)
+    if any(row != sorted(row) for row in by_group):
+        # a process group numbers its ranks in increasing order, and the
+        # exchange sends shard d's mailbox to group rank d
+        raise ValueError("the mesh's ranks must increase along its vertex "
+                         "axes")
+    vgroup = None
+    if S_v > 1 and len(vaxes) == 1:
+        vgroup = mesh.get_group(vaxes[0])
+    elif S_v > 1:
+        for g, row in enumerate(by_group):      # every rank, in order
+            pg = dist.new_group(row)
+            if g == gidx:
+                vgroup = pg
+    ranks = grid.flatten().tolist()
+    if len(ranks) == dist.get_world_size():
+        sync = dist.group.WORLD
+    else:
+        sync = dist.new_group(sorted(ranks))
+    blocks = tuple(dist.get_group_rank(sync, r)
+                   for row in by_group for r in row)
+    lay = RelayLayout(S_v, S_w, sidx, gidx, vgroup, sync, blocks,
+                      ranks.index(me))
+    _LAYOUTS[(id(mesh), waxes)] = (mesh, lay)
+    return lay
 
 
 def slot_count(W: int, num_shards: int, slack: int | None = None) -> int:
@@ -200,6 +309,7 @@ def _all_reduce(x, group, op: str = "sum"):
 
 def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
                 sidx: int, num_shards: int, shard_size: int, group=None,
+                wid_base: int = 0, sync_group=None,
                 mailbox_cap: int | None = None,
                 max_rounds: int | None = None,
                 slot_slack: int | None = None,
@@ -213,12 +323,22 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     ``sample_walk_segment``, the shard-local config (``num_vertices ==
     shard_size``) and the walk params (deepwalk/ppr/simple); ``state`` —
     this rank's vertex slice of the ``BingoState`` (neighbour ids
-    global); ``walkers`` (W,) int32 — the global start vertices, the
-    same on every rank (-1 = free slot; ``W % num_shards == 0``);
-    ``seed`` — the int32 counter-PRNG seed; ``u`` — optional (L, W, 6)
-    fed uniforms, gathered per slot through the slot → wid map.
-    ``group`` — the process group of the ``num_shards`` ranks (None for
-    one shard).
+    global); ``walkers`` (W,) int32 — the start vertices of the walker
+    group, the same on each of its ranks (-1 = free slot;
+    ``W % num_shards == 0``); ``seed`` — the int32 counter-PRNG seed;
+    ``u`` — optional (L, W_global, 6) fed uniforms, gathered per slot
+    through the slot → wid map.  ``group`` — the process group of the
+    ``num_shards`` vertex shards (None for one shard), over which the
+    exchanges run.
+
+    ``wid_base``/``sync_group`` are the 2D mesh's hooks (``make_relay``'s
+    ``walker_axes``): ``wid_base`` is the walker group's first global wid
+    (slot → wid maps carry ``wid_base + local id``, so the hash PRNG and
+    the fed-uniform gathers are keyed by the global wid, and wid's home
+    shard is ``(wid - wid_base) // (W/S)``); ``sync_group`` holds every
+    rank of every walker group, over which the pending count, overflow,
+    peak and faults are reduced, so every group runs the same rounds.
+    Its default, ``group``, is the 1D relay.
 
     The slot arrays hold ``slot_count(W, S, slot_slack)`` walkers;
     ``mailbox_cap`` and ``path_cap`` bound the walker and path-record
@@ -238,13 +358,15 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
 
     Returns ``(home (W/S, L+1) int32, rounds, overflow)`` — this rank's
     home block of the stitched paths (vertex ids global; walker wid's row
-    lives on rank ``wid // (W/S)``), the rounds run and the mailbox
-    overflow re-enqueues summed over rounds and ranks, both ints — and
+    lives on vertex shard ``(wid - wid_base) // (W/S)`` of its group), the
+    rounds run and the mailbox overflow re-enqueues summed over rounds and
+    every rank, both ints — and
     with ``diagnostics=True`` the peak slots in use (residents plus
     pinned path rows) on any rank in any round.  ``census=True``
     appends three more: the number of DISTINCT walker ids that reached a
-    terminal step on any rank (a wid bitmap a rank, summed over the group
-    once at exit, so a duplicated walker cannot hide a dropped one), the
+    terminal step on any rank (a wid bitmap a rank, summed over the vertex
+    group once at exit, so a duplicated walker cannot hide a dropped one,
+    and the groups' counts summed over the walker groups), the
     work pending at exit (> 0 only against ``max_rounds``) and
     ``exchange_fn``'s fault counts summed over rounds and ranks, a
     ``(drop, dup, delay)`` tuple of ints.  With ``census=False`` nothing
@@ -260,6 +382,8 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
         max_rounds = round_bound(W, L, num_shards, slot_slack=slot_slack,
                                  mailbox_cap=mailbox_cap, path_cap=path_cap,
                                  overlap=overlap)
+    if sync_group is None:
+        sync_group = group
     Wb = W // num_shards
     Wl = slot_count(W, num_shards, slot_slack)
     lo = sidx * shard_size
@@ -289,7 +413,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
         return finish
 
     # Initial residents queue at the shard owning their start vertex.
-    wid0 = torch.arange(W, dtype=i32, device=dev)
+    wid0 = torch.arange(W, dtype=i32, device=dev) + wid_base
     resident0 = (walkers >= 0) & (walkers // shard_size == sidx)
     waiting = torch.stack([torch.where(resident0, walkers, -1),
                            torch.zeros(W, dtype=i32, device=dev),
@@ -302,19 +426,19 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     if census:      # a bitmap of finished wids (+ a drop row), faults
         fin = torch.zeros(W + 1, dtype=torch.bool, device=dev)
         faults = torch.zeros(3, dtype=i32, device=dev)
-    pending = int(_all_reduce(resident0.sum().reshape(1), group)[0])
+    pending = int(_all_reduce(resident0.sum().reshape(1), sync_group)[0])
     rounds = ovf = 0
 
     def to_home(wid, rows, ok):
         """Max-merge ``rows`` of walkers ``wid`` (where ``ok``) into the
         home block (segment windows are disjoint)."""
-        lrow = torch.where(ok, wid - sidx * Wb, Wb).to(torch.int64)
+        lrow = torch.where(ok, wid - wid_base - sidx * Wb, Wb).to(torch.int64)
         acc.scatter_reduce_(0, lrow[:, None].expand(-1, L + 1),
                             torch.where(ok[:, None], rows, -1), "amax")
 
     def path_records(has, wid, rows):
         """``(home-tag, wid, slot, path…)`` rows of the slots in ``has``."""
-        home = torch.where(has, wid // Wb, -1)
+        home = torch.where(has, (wid - wid_base) // Wb, -1)
         return torch.cat([route_tag(home, shard_size)[:, None],
                           torch.where(has, wid, -1)[:, None],
                           torch.where(has, slot_ids, -1)[:, None],
@@ -371,7 +495,8 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
         fr_ok = occupied & (frontier[:, 0] >= 0)
         if census:      # an occupied slot with no frontier finished here
             term = occupied & (frontier[:, 0] < 0)
-            fin[torch.where(term, slot_wid, W).to(torch.int64)] = True
+            fin[torch.where(term, slot_wid - wid_base,
+                            W).to(torch.int64)] = True
         new_fr = torch.where(
             fr_ok[:, None],
             torch.stack([frontier[:, 0], frontier[:, 1], slot_wid], -1), -1)
@@ -391,7 +516,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             # their slot for the next round's exchange
             frow_wid = torch.where(occupied, slot_wid, -1)
             has_frow = frow_wid >= 0
-            fhome = torch.where(has_frow, frow_wid // Wb, -1)
+            fhome = torch.where(has_frow, (frow_wid - wid_base) // Wb, -1)
             to_home(frow_wid, row_path, has_frow & (fhome == sidx))
             to_home(got[:, 1], got[:, 3:], got[:, 0] >= 0)
             pend_path, pend_wid = repin(spill_p)
@@ -413,7 +538,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             row_path = torch.where(occupied[:, None], row_path, pend_path)
             row_wid = torch.where(occupied, slot_wid, pend_wid)
             has_row = row_wid >= 0
-            home = torch.where(has_row, row_wid // Wb, -1)
+            home = torch.where(has_row, (row_wid - wid_base) // Wb, -1)
             to_home(row_wid, row_path, has_row & (home == sidx))
             remote = has_row & (home != sidx)
             t_x = time.perf_counter()
@@ -428,7 +553,7 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             (waiting[:, 0] >= 0).sum() + (outbox[:, 0] >= 0).sum()
             + (pend_wid >= 0).sum(), (n_spill_w + n_spill_p).to(torch.int64)])
         t_x = time.perf_counter()
-        pending, spilled = _all_reduce(counts, group).tolist()
+        pending, spilled = _all_reduce(counts, sync_group).tolist()
         ovf += spilled
         rounds += 1
         if trace is not None:
@@ -440,11 +565,14 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             rounds=rounds, pending_at_exit=pending, max_rounds=max_rounds))
     outs = (acc[:Wb], rounds, ovf)
     if diagnostics:
-        outs += (int(_all_reduce(peak.reshape(1), group, "max")[0]),)
+        outs += (int(_all_reduce(peak.reshape(1), sync_group, "max")[0]),)
     if census:
         seen = _all_reduce(fin[:W].to(i32), group) > 0
-        outs += (int(seen.sum()), pending,
-                 tuple(_all_reduce(faults, group).tolist()))
+        n_fin = seen.sum().reshape(1)
+        if sync_group is not group:     # the groups' wids are disjoint
+            n_fin = _all_reduce(n_fin * (sidx == 0), sync_group)
+        outs += (int(n_fin[0]), pending,
+                 tuple(_all_reduce(faults, sync_group).tolist()))
     return outs
 
 
@@ -473,7 +601,7 @@ class _Span:
         return (self.a, self.b) if self.cuda else self.t
 
 
-def make_relay(bk, cfg, params, group=None, *,
+def make_relay(bk, cfg, params, group=None, *, mesh=None, walker_axes=(),
                mailbox_cap: int | None = None,
                max_rounds: int | None = None,
                slot_slack: int | None = None,
@@ -481,42 +609,58 @@ def make_relay(bk, cfg, params, group=None, *,
                diagnostics: bool = False, exchange_fn=None,
                census: bool = False, overlap: bool = False,
                strict: bool = False):
-    """The 1D relay over the ranks of ``group`` (one shard without one).
+    """The relay over the ranks of ``group`` (one shard without one), or
+    over a ``DeviceMesh`` with ``walker_axes`` (``relay_layout``).
 
-    Returns ``run(state, walkers, seed, u=None, trace=None) -> (home
-    (W/S, L+1), rounds, overflow[, peak][, finished, pending, faults])``
-    as ``relay_local`` does, ``state`` this rank's vertex slice.
-    ``cfg.num_vertices`` must divide over the ranks; ``stitch`` gathers
-    the home blocks into the (W, L+1) paths.
+    Returns ``run(state, walkers, seed, u=None, trace=None) -> (home,
+    rounds, overflow[, peak][, finished, pending, faults])`` as
+    ``relay_local`` does, ``state`` this rank's vertex slice and
+    ``walkers`` the global (W,) starts, the same on every rank; W must
+    divide over the S_w walker groups, each of which relays its slice
+    ``[g·W/S_w, (g+1)·W/S_w)`` over its S_v vertex shards.
+    ``cfg.num_vertices`` must divide over the vertex shards; ``stitch``
+    gathers the home blocks into the (W, L+1) paths.  Under
+    ``strict=True`` the round bound is that of W/S_w walkers.
     """
-    import torch.distributed as dist
-    num_shards = 1 if group is None else dist.get_world_size(group)
+    lay = relay_layout(group, mesh=mesh, walker_axes=walker_axes)
+    num_shards = lay.num_shards
     if cfg.num_vertices % num_shards:
         raise ValueError(
             f"num_vertices {cfg.num_vertices} must divide over "
             f"{num_shards} shards (pad the vertex space)")
     shard_size = cfg.num_vertices // num_shards
     lcfg = dataclasses.replace(cfg, num_vertices=shard_size)
-    sidx = shard_index(group)
 
     def run(state, walkers, seed, u=None, trace=None):
+        W = walkers.shape[0]
+        if W % lay.num_groups:
+            raise ValueError(
+                f"walker count {W} must divide over {lay.num_groups} walker "
+                f"group(s) (axes {_axes(walker_axes)})")
+        Wg = W // lay.num_groups
         return relay_local(
-            bk, lcfg, params, state, walkers, seed, u, sidx=sidx,
-            num_shards=num_shards, shard_size=shard_size, group=group,
-            mailbox_cap=mailbox_cap, max_rounds=max_rounds,
-            slot_slack=slot_slack, path_cap=path_cap,
+            bk, lcfg, params, state,
+            walkers[lay.gidx * Wg:(lay.gidx + 1) * Wg], seed, u,
+            sidx=lay.sidx, num_shards=num_shards, shard_size=shard_size,
+            group=lay.group, wid_base=lay.gidx * Wg,
+            sync_group=lay.sync_group, mailbox_cap=mailbox_cap,
+            max_rounds=max_rounds, slot_slack=slot_slack, path_cap=path_cap,
             diagnostics=diagnostics, exchange_fn=exchange_fn,
             census=census, overlap=overlap, strict=strict, trace=trace)
 
     return run
 
 
-def stitch(home, group=None):
-    """The (W, L+1) paths from every rank's (W/S, L+1) home block (an
-    all-gather over ``group``; the block itself without one)."""
-    if group is None:
+def stitch(home, group=None, *, mesh=None, walker_axes=()):
+    """The (W, L+1) paths from every rank's home block: an all-gather over
+    the relay's ranks, the blocks in walker-group-major order (the
+    reference's ``P(walker_axes + vertex_axes)``: block ``g·S_v + v`` is
+    vertex shard v of walker group g, whatever the mesh's rank order);
+    the block itself on one rank."""
+    lay = relay_layout(group, mesh=mesh, walker_axes=walker_axes)
+    if lay.sync_group is None:
         return home
     import torch.distributed as dist
-    parts = [torch.empty_like(home) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, home.contiguous(), group=group)
-    return torch.cat(parts)
+    parts = [torch.empty_like(home) for _ in lay.blocks]
+    dist.all_gather(parts, home.contiguous(), group=lay.sync_group)
+    return torch.cat([parts[k] for k in lay.blocks])

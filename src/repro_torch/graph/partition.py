@@ -5,6 +5,9 @@ sampling structures, between ranks; each rank of the process group holds
 one contiguous range of rows of every ``(V, ...)`` table.  This module is
 the host-side bookkeeping: balanced contiguous vertex ranges, vertex ->
 shard lookup, and the padding that makes ``V`` divide over the ranks.
+On a 2D vertex × walker mesh a shard is a rank's *vertex index*
+(``distributed.relay.RelayLayout.sidx``), not its rank: ``num_shards`` is
+S_v, and the S_w walker groups' replicas of a shard hold the same range.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class Partition1D:
         return np.asarray(vertex) // self.shard_size
 
     def vertex_range(self, shard: int) -> tuple[int, int]:
+        """Rows ``[lo, hi)`` of vertex index ``shard``."""
         lo = shard * self.shard_size
         return lo, min(lo + self.shard_size, self.num_vertices)
 

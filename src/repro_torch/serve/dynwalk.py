@@ -46,8 +46,20 @@ walker relay (``distributed/relay.py``, overlapped rounds by default);
 it returns this rank's home block of the paths, or with ``stitch=True``
 the whole rows.  The ladder regrows every rank's slice in lockstep (the
 fill trigger is a max over the group), and ``audit`` and ``pressure``
-count the whole state.  node2vec, per-step walks and ``walker_axes``
-(ROADMAP A.10) raise ``ValueError``.
+count the whole state.  node2vec and per-step walks raise
+``ValueError``.
+
+**2D mode** (``mesh=``, a ``DeviceMesh``, with ``walker_axes=``, the
+reference's vertex × walker mesh): the dims not named in ``walker_axes``
+partition the vertices over S_v shards, the walker dims replicate them
+over S_w walker groups.  A rank's vertex index, not its global rank,
+sets its rows, so the S_w replicas of a shard hold the same rows and
+apply the same owned lanes; stats, the classifier's codes and audits sum
+over the vertex group only (a sum over every rank would count each lane
+S_w times), the fill maximum over every rank.  Walks relay each walker
+group's slice over its vertex shards (``make_relay(mesh=...)``); buckets
+must divide over S_v·S_w.  ``group=`` with ``walker_axes`` raises the
+reference's "not in mesh": a plain group has no named axes.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ from repro_torch.core.dyngraph import BingoConfig, BingoState, regrow_state
 from repro_torch.core.updates import (NUM_REASONS, R_OK, UpdateStats,
                                       make_updater)
 from repro_torch.core.walks import WalkParams, make_walker
-from repro_torch.distributed.relay import make_relay, shard_index
+from repro_torch.distributed.relay import make_relay, relay_layout
 from repro_torch.distributed.relay import stitch as stitch_blocks
 from repro_torch.graph.streams import UpdateStream, rounds_on_device, upload
 from repro_torch.serve.guard import GuardPolicy, IngestGuard
@@ -99,9 +111,13 @@ class DynamicWalkEngine:
     relay's walker mailboxes and ``relay_overlap`` picks its schedule.
     After a sharded walk ``last_relay`` holds its rounds, mailbox
     overflow and peak slots, and setting ``relay_trace`` to a list
-    collects the relay's per-round spans.  ``walker_axes`` (the
-    reference's 2D relay) is not ported: non-empty, it raises with
-    ``group=``.
+    collects the relay's per-round spans.  ``mesh`` and ``walker_axes``
+    turn on the 2D mode (module docstring) in place of ``group``.
+    ``rank`` is the rank's vertex index (its rows start at ``rank ·
+    shard_size``), ``walker_group`` its walker group, ``num_shards`` the
+    vertex shards, ``num_groups`` the walker groups and ``root`` whether
+    it is vertex shard 0 of walker group 0, the rank that writes
+    snapshots and logs.
     """
 
     def __init__(self, state: BingoState, cfg: BingoConfig,
@@ -110,55 +126,58 @@ class DynamicWalkEngine:
                  whole_walk: Optional[bool] = None, seed: int = 0,
                  group=None, mailbox_cap: Optional[int] = None,
                  guard=None, walk_buckets=None, defer_guard: bool = False,
-                 walker_axes=(), relay_overlap: bool = True):
+                 walker_axes=(), relay_overlap: bool = True, mesh=None):
         self.cfg = cfg
         self.params = params
         self.group = group
+        self.mesh = mesh
+        self.walker_axes = walker_axes
         self._backend = backend
         self._whole_walk = whole_walk
         self._mailbox_cap = mailbox_cap
         self._relay_overlap = relay_overlap
-        self.num_shards, self.rank, self.shard_size = 1, 0, cfg.num_vertices
         self.relay_trace: Optional[list] = None
         self.last_relay: Optional[dict] = None
         self.regrow_counts = [0] * len(cfg.ladder)   # per ladder tier
-        if group is not None:
-            import torch.distributed as dist
-            if params.kind == "node2vec" or whole_walk is False:
-                raise ValueError("the sharded engine relays whole walks "
-                                 "(deepwalk/ppr/simple) only")
-            if walker_axes:
-                raise ValueError(
-                    "walker_axes (the 2D vertex x walker relay) is not "
-                    "ported to the sharded engine yet (ROADMAP A.10)")
-            self.num_shards = dist.get_world_size(group)
-            self.rank = shard_index(group)
-            self.shard_size = cfg.num_vertices // self.num_shards
+        # the vertex group, the group of every rank, this rank's place;
+        # raises for walker_axes on a plain group or not in the mesh
+        lay = relay_layout(group, mesh=mesh, walker_axes=walker_axes)
+        self.sharded = group is not None or mesh is not None
+        if self.sharded and (params.kind == "node2vec"
+                             or whole_walk is False):
+            raise ValueError("the sharded engine relays whole walks "
+                             "(deepwalk/ppr/simple) only")
+        self.vertex_group, self.sync_group = lay.group, lay.sync_group
+        self.num_shards, self.num_groups = lay.num_shards, lay.num_groups
+        self.rank, self.walker_group, self.root = lay.sidx, lay.gidx, lay.root
+        self._block = lay.gidx * lay.num_shards + lay.sidx
+        self.shard_size = cfg.num_vertices // self.num_shards
         self._update, self._walk = self._programs(cfg)  # validates V % S
         lo = self.rank * self.shard_size
-        self._state = state if group is None else _map_state(
+        self._state = state if not self.sharded else _map_state(
             state, lambda x: x[lo:lo + self.shard_size].clone())
         # Fixed-lane walk cohorts (DESIGN.md §12): every walk batch is
         # padded up to the smallest bucket >= its request count; the
-        # relay needs each bucket to divide over the shards.
+        # relay needs each bucket to divide over the shards (S_v·S_w).
         self.walk_buckets = None
         if walk_buckets:
             self.walk_buckets = tuple(sorted(int(b) for b in walk_buckets))
+            n = self.num_shards * self.num_groups
             for b in self.walk_buckets:
-                if b < 1 or b % self.num_shards:
+                if b < 1 or b % n:
                     raise ValueError(
                         f"walk bucket {b} must be a positive multiple of "
-                        f"the shard count ({self.num_shards})")
+                        f"the shard count ({n})")
         # guard=True -> default policy; guard=GuardPolicy(...) -> custom.
         # Sharded, the classifier codes this rank's lanes and sums the
-        # codes over the group.
+        # codes over the vertex group.
         self.guard: Optional[IngestGuard] = None
         if guard:
             policy = guard if isinstance(guard, GuardPolicy) \
                 else GuardPolicy()
-            shard = {} if group is None else dict(
+            shard = {} if not self.sharded else dict(
                 offset=self.rank * self.shard_size, rows=self.shard_size,
-                group=group)
+                group=self.vertex_group)
             self.guard = IngestGuard(cfg, policy, **shard)
         # defer_guard=True moves quarantine/retry accounting off the
         # ingest path: rounds park their device-side reason vectors in a
@@ -175,7 +194,7 @@ class DynamicWalkEngine:
     def _programs(self, cfg: BingoConfig):
         """The ``(update, walk)`` closures at ``cfg``'s capacity tier:
         sharded, the shard-local updater and the relay."""
-        if self.group is None:
+        if not self.sharded:
             return (make_updater(cfg, backend=self._backend),
                     make_walker(None, cfg, self.params,
                                 backend=self._backend,
@@ -183,7 +202,8 @@ class DynamicWalkEngine:
         bk = get_backend(cfg.backend if self._backend is None
                          else self._backend)
         return (make_updater(self._local(cfg), backend=self._backend),
-                make_relay(bk, cfg, self.params, self.group,
+                make_relay(bk, cfg, self.params, self.group, mesh=self.mesh,
+                           walker_axes=self.walker_axes,
                            mailbox_cap=self._mailbox_cap,
                            overlap=self._relay_overlap, diagnostics=True))
 
@@ -194,7 +214,7 @@ class DynamicWalkEngine:
     def _owned(self, u, lanes):
         """``(source ids local to this rank, lanes it owns)``; on one
         device ``(u, lanes)``."""
-        if self.group is None:
+        if not self.sharded:
             return u, lanes
         lo = self.rank * self.shard_size
         lanes = lanes & (u >= lo) & (u < lo + self.shard_size)
@@ -208,11 +228,16 @@ class DynamicWalkEngine:
 
     def gather_state(self, dst: Optional[int] = None) -> BingoState:
         """The whole state: every rank's slice, all-gathered over the
-        group in sharded mode (a collective: every rank calls it).  With
-        ``dst`` only group rank ``dst`` receives it (``gather``) and the
-        others get None."""
-        if self.group is None:
+        vertex group in sharded mode (a collective: every rank calls it).
+        With ``dst`` only vertex shard ``dst`` of walker group 0 receives
+        it (``gather``; the other walker groups hold the same rows and
+        take no part) and the others get None."""
+        if not self.sharded:
             return self._state
+        if self.num_shards == 1:
+            return self._state if dst is None or self.root else None
+        if dst is not None and self._block >= self.num_shards:
+            return None                          # not walker group 0
         import torch.distributed as dist
         S, me = self.num_shards, self.rank
 
@@ -220,12 +245,13 @@ class DynamicWalkEngine:
             x = x.contiguous()
             if dst is None:
                 parts = [torch.empty_like(x) for _ in range(S)]
-                dist.all_gather(parts, x, group=self.group)
+                dist.all_gather(parts, x, group=self.vertex_group)
                 return torch.cat(parts)
             parts = [torch.empty_like(x) for _ in range(S)] \
                 if me == dst else None
-            dist.gather(x, parts, dst=dist.get_global_rank(self.group, dst),
-                        group=self.group)
+            dist.gather(x, parts,
+                        dst=dist.get_global_rank(self.vertex_group, dst),
+                        group=self.vertex_group)
             return torch.cat(parts) if me == dst else x
         out = _map_state(self._state, gather)
         return out if dst is None or me == dst else None
@@ -316,31 +342,34 @@ class DynamicWalkEngine:
     def _apply(self, ins, u, v, w, lanes):
         """One update round of ``lanes`` (global source ids): sharded,
         the owned lanes with local ids and the stats summed over the
-        group."""
+        vertex group (each walker group's replica applies the same
+        lanes: they count once)."""
         lu, lanes = self._owned(u, lanes)
         state, stats = self._update(self._state, ins, lu, v, w, lanes)
-        if self.group is not None:
+        if self.vertex_group is not None:
             stats = self._sum_stats(stats)
         return state, stats
 
     def _sum_stats(self, stats: UpdateStats) -> UpdateStats:
-        """``UpdateStats`` summed over the group, in one all-reduce."""
+        """``UpdateStats`` summed over the vertex group, in one
+        all-reduce."""
         import torch.distributed as dist
         parts = [x.reshape(-1).to(torch.int64) for x in stats[:4]]
         flat = torch.cat(parts)
-        dist.all_reduce(flat, group=self.group)
+        dist.all_reduce(flat, group=self.vertex_group)
         out = [p.reshape(x.shape).to(torch.int32) for p, x in
                zip(flat.split([p.numel() for p in parts]), stats[:4])]
         return UpdateStats(*out)
 
     def _fill(self) -> torch.Tensor:
         """Fill watermark ``max(deg) / capacity`` as a device scalar (the
-        largest degree over the group in sharded mode); no host sync."""
+        largest degree over every rank in sharded mode); no host sync."""
         dmax = self._state.deg.max()
-        if self.group is not None:
+        if self.sync_group is not None:
             import torch.distributed as dist
             dmax = dmax.reshape(1).clone()
-            dist.all_reduce(dmax, op=dist.ReduceOp.MAX, group=self.group)
+            dist.all_reduce(dmax, op=dist.ReduceOp.MAX,
+                            group=self.sync_group)
             dmax = dmax[0]
         return dmax / self.cfg.capacity
 
@@ -402,16 +431,17 @@ class DynamicWalkEngine:
         the guard's pending-insert depth to the ``at_capacity`` rule and
         appends the gauges of ``pressure()`` under non-rule keys.
         Sharded, every rule counts rows, so one ``all_reduce`` of the
-        ranks' counts gives every rank the whole state's.
+        counts over the vertex group gives every rank the whole state's
+        (each row once: the walker groups' replicas are not summed).
         """
         from repro_torch.core.invariants import (DEVICE_RULES,
                                                  check_state_device)
         pend = len(self.guard.pending) \
             if (pressure and self.guard is not None) else 0
         counts = check_state_device(self._state, self.cfg, pend)
-        if self.group is not None:
+        if self.vertex_group is not None:
             import torch.distributed as dist
-            dist.all_reduce(counts, group=self.group)
+            dist.all_reduce(counts, group=self.vertex_group)
         counts = counts.tolist()
         out = dict(zip(DEVICE_RULES, counts))
         if pressure:
@@ -528,9 +558,10 @@ class DynamicWalkEngine:
         lanes are -1 free relay slots.  Rank r returns its home block:
         rows ``[r·B/S, (r+1)·B/S)`` of the padded batch cut to the real
         rows, i.e. rows ``[r·B/S, min((r+1)·B/S, n))`` of the paths (empty
-        past ``n``).  ``stitch=True`` gathers the blocks over the group
-        (a collective) and returns the whole ``(n, length+1)`` rows on
-        every rank.
+        past ``n``); on a 2D mesh S = S_v·S_w and r = g·S_v + v for vertex
+        shard v of walker group g.  ``stitch=True`` gathers the blocks
+        over every rank (a collective) and returns the whole ``(n,
+        length+1)`` rows on every rank.
         """
         starts = self._as(starts, torch.int32).contiguous()
         n = int(starts.shape[0])
@@ -539,11 +570,11 @@ class DynamicWalkEngine:
         self.last_seed = seed
         B = n if self.walk_buckets is None else self._bucket_for(n)
         if B != n:
-            fill = 0 if self.group is None else -1
+            fill = -1 if self.sharded else 0
             starts = torch.cat([starts, torch.full(
                 (B - n,), fill, dtype=torch.int32, device=self.device)])
         self.walks_served += n
-        if self.group is None:
+        if not self.sharded:
             self._state, paths = self._walk(self._state, starts, seed)
             return paths[:n] if B != n else paths
         home, rounds, ovf, peak = self._walk(self._state, starts, seed,
@@ -551,8 +582,9 @@ class DynamicWalkEngine:
         self.last_relay = {"rounds": rounds, "overflow": ovf,
                            "peak_slots": peak}
         if stitch:
-            return stitch_blocks(home, self.group)[:n]
-        lo = self.rank * (B // self.num_shards)
+            return stitch_blocks(home, self.group, mesh=self.mesh,
+                                 walker_axes=self.walker_axes)[:n]
+        lo = self._block * (B // (self.num_shards * self.num_groups))
         return home[:max(0, min(home.shape[0], n - lo))]
 
     def walk_cache_size(self) -> int:

@@ -105,7 +105,9 @@ def make_classifier(cfg: BingoConfig, policy: GuardPolicy = GuardPolicy(),
     OK).  ``state`` is read, never written.
 
     For one vertex shard, ``state`` holds rows ``[offset, offset + rows)``
-    of the whole state and ``group`` is the process group of the shards.
+    of the whole state and ``group`` is the process group of the vertex
+    shards (on a 2D mesh, the rank's vertex group: each walker group's
+    replica codes the same lanes, so the codes are not summed over it).
     The lanes whose source the shard owns are classified against its rows
     (degrees, neighbour rows, insert ranks and delete locates are all per
     source vertex), with endpoints still checked against the global

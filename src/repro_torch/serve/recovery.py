@@ -26,13 +26,16 @@ serving loop recoverable, bit for bit:
   their draws by (seed, walker, step) alone, so the restored engine's
   next walk equals the uninterrupted run's.
 
-Over a sharded engine (``DynamicWalkEngine(group=...)``) every rank
-wraps its own engine and makes the same calls.  A snapshot is the whole
-state, gathered to group rank 0 and written by it alone in the
-reference's layout (so either package reads it), with a barrier around
-the write; only rank 0 appends WAL records, while every rank keeps the
-sequence.  ``restore(..., group=...)``: every rank reads the snapshot,
-keeps its rows and replays the WAL through the collective ``ingest``,
+Over a sharded engine (``DynamicWalkEngine(group=...)`` or ``(mesh=...,
+walker_axes=...)``) every rank wraps its own engine and makes the same
+calls.  A snapshot is the whole state, gathered over walker group 0's
+vertex group to its vertex shard 0 (``engine.root``, global rank 0 of a
+plain group) and written by it alone in the reference's layout (so
+either package reads it), with a barrier over every rank around the
+write; only the root appends WAL records, while every rank keeps the
+sequence.  ``restore(..., group=...)`` or ``restore(..., mesh=...,
+walker_axes=...)``: every rank reads the snapshot, keeps the rows of its
+vertex index and replays the WAL through the collective ``ingest``,
 ``walk`` seeds and ``regrow``.
 """
 
@@ -141,9 +144,10 @@ class RecoverableEngine:
         self.engine = engine
         self.ckpt_dir = ckpt_dir
         self.wal_dir = wal_dir or os.path.join(ckpt_dir, "wal")
-        self.wal = WriteAheadLog(self.wal_dir, write=engine.rank == 0)
+        self.wal = WriteAheadLog(self.wal_dir, write=engine.root)
         self.ckpt = AsyncCheckpointer(ckpt_dir, keep=keep,
-                                      group=engine.group)
+                                      group=engine.sync_group,
+                                      writer=engine.root)
         self.checkpoint_every = checkpoint_every
         self._rounds_since_snapshot = 0
         if _snapshot_now:
@@ -212,7 +216,8 @@ class RecoverableEngine:
         ``engine_kwargs`` go to ``DynamicWalkEngine`` (backend, guard,
         walk_buckets, group, ...) and must match the crashed engine's
         construction for the bit-exactness pin to hold.  With ``group=``
-        every rank of the group calls this.
+        (or ``mesh=`` and ``walker_axes=``) every rank calls this; each
+        keeps the snapshot's rows of its vertex index.
         """
         gen = latest_step(ckpt_dir)
         if gen is None:

@@ -31,8 +31,8 @@ The scheduler drives a guarded engine in *deferred* accounting mode
 escalations are recorded in the admission trace so replay retries and
 regrows at the same points.
 
-Over a sharded engine (``DynamicWalkEngine(group=...)``) every rank runs
-its own scheduler on the same submissions and ticks.  Each cohort's
+Over a sharded engine (``DynamicWalkEngine(group=...)``, or ``mesh=``
+with ``walker_axes=``) every rank runs its own scheduler on the same submissions and ticks.  Each cohort's
 paths are the whole rows on every rank (the engine stitches its home
 blocks), and the harvest waits for each cohort, so which cohorts are in
 flight — the one input of a dispatch that could depend on timing — is
@@ -397,7 +397,7 @@ class ServingScheduler:
         ready (stream order: later cohorts cannot be ready before it).
         A sharded engine's harvest always blocks (module docstring).
         """
-        block = block or self.engine.group is not None
+        block = block or self.engine.sharded
         while self._inflight:
             head = self._inflight[0]
             if head.ready is not None:

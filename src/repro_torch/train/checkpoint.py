@@ -15,8 +15,8 @@ Commit is atomic: write to ``step_<n>.tmp-<pid>`` then ``os.rename``.
 calling thread before it returns — the port updates its tables in place,
 so a writer thread holding device tensors would write a later
 generation — and writes on a background thread.  Over a process group
-only group rank 0 writes, and ``wait`` ends in a barrier, so after it
-every rank may read what was written.  The reference's
+only one rank writes (group rank 0 unless told otherwise), and ``wait``
+ends in a barrier, so after it every rank may read what was written.  The reference's
 ``shardings`` argument (re-placing leaves on another mesh) has no torch
 counterpart yet; ``restore_checkpoint`` takes a ``device`` instead.
 """
@@ -114,18 +114,19 @@ class AsyncCheckpointer:
     """Background-thread checkpointing; at most one save in flight.
 
     With ``group`` every rank of the group calls ``save`` and ``wait`` in
-    the same order; only group rank 0 writes (the others' ``tree`` is not
-    read and may be None), and ``wait``, which ``save`` calls first, ends
-    in a barrier over the group: a write starts after the previous one
-    committed on every rank's view and is committed when ``wait``
-    returns."""
+    the same order; only the ``writer`` writes (default: group rank 0; the
+    others' ``tree`` is not read and may be None), and ``wait``, which
+    ``save`` calls first, ends in a barrier over the group: a write
+    starts after the previous one committed on every rank's view and is
+    committed when ``wait`` returns."""
 
-    def __init__(self, ckpt_dir: str, keep: int = 3, group=None):
+    def __init__(self, ckpt_dir: str, keep: int = 3, group=None,
+                 writer: Optional[bool] = None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.group = group
-        self.writer = True
-        if group is not None:
+        self.writer = True if writer is None else bool(writer)
+        if group is not None and writer is None:
             import torch.distributed as dist
             self.writer = dist.get_rank(group) == 0
         self._thread: Optional[threading.Thread] = None

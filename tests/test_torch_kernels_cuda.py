@@ -39,7 +39,12 @@ phase-2 cases and limits (``FLASH_CASES``, head dims 8, 16, 64, 80 and
 bf16), which must also reject the kernel one tile off at the band's edge,
 and the inputs the card declines (D > 128, float16).  The segment
 entry runs at four occupancies of its slots (mixed, all free, about 5 %
-live, all live).  A CUDA kernel has no
+live, all live), and on each vertex shard of a (2, 2) vertex × walker
+layout, its slots carrying the walker group's global ids (``wid_base``
+past 0) and the gathered columns of the global uniforms.  The comparison
+samplers (``core/baselines.py``) draw on CUDA tensors in distribution
+(chi-square against the row's normalised biases), before and after
+updates.  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -909,3 +914,86 @@ def test_cuda_tensors_never_take_the_plain_path():
                                    "walk_sample_uniform": 1, "radix_hist": 1,
                                    "alias_build": 1, "flash_attention": 2,
                                    "flash_attention_sm90": 2}
+
+
+@pytest.mark.parametrize("fed", [True, False])
+@pytest.mark.parametrize("kind", ["deepwalk", "ppr", "simple"])
+def test_segment_kernel_under_walker_partition(kind, fed):
+    """The relay's segment launches on a (2, 2) mesh: vertex shard v of
+    walker group g walks its slots of the group's walkers, whose ids are
+    ``g·W/2 +`` local ids (``wid_base`` 0 and W/2), the fed uniforms
+    gathered from the global (L, W, 6) columns of those ids, on the view
+    of its rows; bit for bit the plain version."""
+    st, cfg = _state(40, 64, False, 1)
+    Vs, W, L = 20, 2000, 12
+    Wg = W // 2
+    g = torch.Generator(device="cuda").manual_seed(17)
+    u = torch.rand((L, W, 6), generator=g, device="cuda") if fed else None
+    kw = dict(base_log2=1, stop_prob=0.15 if kind == "ppr" else 0.0,
+              uniform=kind == "simple", length=L)
+    for gidx in range(2):
+        for sidx in range(2):
+            view = relay_view(st, sidx * Vs, Vs)
+            Wl = 700                           # slots of a group's shard
+            wid = gidx * Wg + torch.randperm(Wg, generator=g,
+                                             device="cuda")[:Wl]
+            wid = wid.to(torch.int32)
+            free = torch.rand(Wl, generator=g, device="cuda") < 0.2
+            wid[free] = -1
+            starts = torch.where(wid >= 0, torch.randint(
+                0, Vs, (Wl,), generator=g, device="cuda",
+                dtype=torch.int32), -1).to(torch.int32)
+            t0 = torch.randint(0, L + 1, (Wl,), generator=g, device="cuda",
+                               dtype=torch.int32)
+            u_slots = None if u is None else \
+                u[:, wid.clamp(min=0).long()].contiguous()
+            args = (view.itable.prob, view.itable.alias, view.bias,
+                    view.nbr, view.deg, None, starts, t0)
+            before = ops.launch_counts()["walk_segment"]
+            got = ops.walk_segment(*args, 4242, u_slots, wid, **kw)
+            assert ops.launch_counts()["walk_segment"] == before + 1
+            want = walk_segment_ref(*args, u_slots, wid, seed=4242, **kw)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                np.testing.assert_array_equal(x.cpu().numpy(),
+                                              y.cpu().numpy())
+            assert bool((got[1][:, 0] >= 0).any())     # some walkers exit
+
+
+BASELINES = ["AliasBaseline", "ITSBaseline", "RejectionBaseline",
+             "ReservoirBaseline"]
+
+
+def _baseline_chi_square_ok(nxt, want):
+    from scipy import stats
+    counts = np.bincount(nxt, minlength=len(want))
+    exp = want * counts.sum()
+    mask = exp > 0
+    assert counts[~mask].sum() == 0, "a draw of probability 0"
+    stat = float(((counts[mask] - exp[mask]) ** 2 / exp[mask]).sum())
+    return stat < stats.chi2.ppf(0.9999, max(1, int(mask.sum()) - 1))
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baselines_draw_in_distribution_on_the_card(name):
+    """``tests/test_baselines.py``'s rows on CUDA tensors: row 2 ->
+    {1: 5, 4: 4, 5: 3}; after inserting (2, 3, 3) and deleting (2, 1);
+    after inserting (2, 6, 10); 30,000 draws each from a CUDA
+    generator."""
+    from repro_torch.core import baselines as tb
+    base = getattr(tb, name).build(tb.adj_from_edges(
+        8, 8, [2, 2, 2], [1, 4, 5], [5.0, 4.0, 3.0], device="cuda"))
+    assert base.adj.nbr.is_cuda
+    u = torch.full((30000,), 2, dtype=torch.int32, device="cuda")
+    steps = [(lambda b: b, {1: 5, 4: 4, 5: 3}),
+             (lambda b: b.insert(2, 3, 3.0).delete(2, 1), {4: 4, 5: 3, 3: 3}),
+             (lambda b: b.insert(2, 6, 10.0), {4: 4, 5: 3, 3: 3, 6: 10})]
+    for i, (update, row) in enumerate(steps):
+        base = update(base)
+        want = np.zeros(8)
+        for v, w in row.items():
+            want[v] = w
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        nxt = base.sample(u, gen)
+        assert nxt.is_cuda
+        assert _baseline_chi_square_ok(nxt.cpu().numpy(), want / want.sum())

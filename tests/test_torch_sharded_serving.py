@@ -20,7 +20,12 @@ sharded pins (``tests/test_regrow.py``, ``tests/test_scheduler.py``,
   sharded engine writes is read by JAX's ``restore_checkpoint``, and a
   JAX snapshot by the port.
 * Walk buckets: multiples of S only, -1 pads, home blocks cut to the
-  real rows; the refusals left (node2vec, per-step walks, walker_axes).
+  real rows; the refusals left (node2vec, per-step walks, and
+  ``walker_axes`` on a plain group: it has no named axes).
+
+The checks are functions of the ranks' results (``check_*``), which
+``test_torch_sharded_serving_2d.py`` applies to the same scenarios on a
+2D vertex × walker mesh.
 """
 
 import datetime
@@ -98,7 +103,12 @@ def assert_np_states_equal(a, b):
 
 
 def _grp(group):
-    return {} if group is None else {"group": group}
+    """Engine keywords of a layout: none on one device, ``group=`` for a
+    process group, or a dict of them as is (``mesh=``,
+    ``walker_axes=``)."""
+    if group is None or isinstance(group, dict):
+        return group or {}
+    return {"group": group}
 
 
 def _t(*xs):
@@ -455,12 +465,9 @@ def _jax_serving(kind, guard):
     return jeng, sched, done
 
 
-# ------------------------------------------------------------------ tests
-def test_sharded_audit_counts_the_whole_state(sharded, single):
-    """Every rank's ``audit()`` reports the violation planted in rank 1's
-    rows: the single-device port's counts and JAX's
-    ``check_state_device`` of the same state."""
-    sharded, _ = sharded
+# ----------------------------------------------------------------- checks
+# Each takes the ranks' results (by rank) and the single-device ones.
+def check_audit(sharded, single):
     want = single["audit"]
     assert want["audit"]["wdec"] == 1 and sum(want["audit"].values()) == 1
     _, jcfg, tcfg = _small()
@@ -474,8 +481,7 @@ def test_sharded_audit_counts_the_whole_state(sharded, single):
     assert_np_states_equal(sharded[0]["audit"]["state"], want["state"])
 
 
-def test_lockstep_regrow_matches_single_device(sharded, single):
-    sharded, _ = sharded
+def check_regrow(sharded, single):
     want = single["regrow"]
     assert want["tier"] == 1 and want["capacity"] == 16
     st, jcfg, _ = _small(ladder=(8, 16))
@@ -495,16 +501,7 @@ def test_lockstep_regrow_matches_single_device(sharded, single):
         want["state"], jeng.cfg, device="cpu"), False)
 
 
-@pytest.mark.parametrize("kind", ["hub", "mixed"])
-@pytest.mark.parametrize("guard", [None, True], ids=["guard=off",
-                                                     "guard=on"])
-def test_sharded_scheduler_live_equals_replay(sharded, single, kind, guard):
-    """``tests/test_regrow.py:433`` (hub, across regrows) and
-    ``tests/test_scheduler.py:103`` (mixed): on every rank the trace,
-    per-request paths, stamps, books and state equal the single-device
-    port's, the replay equals the live run, and the trace, stamps, books
-    and state equal JAX's scheduler's."""
-    sharded, _ = sharded
+def check_scheduler(sharded, single, kind, guard):
     want = single[(kind, guard)]
     for out in sharded:
         got = out[(kind, guard)]
@@ -545,13 +542,7 @@ def test_sharded_scheduler_live_equals_replay(sharded, single, kind, guard):
         assert jeng.guard.snapshot() == want["guard"]
 
 
-@pytest.mark.parametrize("policy", list(GUARD_POLICIES))
-@pytest.mark.parametrize("defer", [False, True], ids=["round", "deferred"])
-def test_sharded_guarded_ingest(sharded, single, defer, policy):
-    """Per round the summed stats (the guard's tally included) and the
-    books equal the single-device port's and JAX's on every rank; so do
-    the final state and books after the last drain."""
-    sharded, _ = sharded
+def check_guarded_ingest(sharded, single, defer, policy):
     want = single[("guard", defer, policy)]
     st, jcfg, _ = _guard_state()
     jeng = JEngine(_jax_state(st), jcfg, JWalkParams(length=4),
@@ -582,13 +573,8 @@ def test_sharded_guarded_ingest(sharded, single, defer, policy):
         assert_np_states_equal(got["state"], want["state"])
 
 
-def test_sharded_crash_and_restore(sharded, single):
-    """The restored sharded engine equals its uninterrupted twin and the
-    single-device port's (state, generator, counters, books, next walk);
-    only rank 0 writes the WAL and the snapshots; JAX's
-    ``restore_checkpoint`` reads the sharded engine's last snapshot (the
-    state after both rounds), and the port reads a JAX snapshot."""
-    sharded, d = sharded
+def check_recovery(sharded, single, d):
+    """``d``: the ranks' shared directory."""
     want = single["recovery"]
     assert [o["recovery"]["writer"] for o in sharded] == \
         [(True, True)] + [(False, False)] * (S - 1)
@@ -617,6 +603,48 @@ def test_sharded_crash_and_restore(sharded, single):
         want["ref"]["state"], tcfg, device="cpu"), False)
 
 
+# ------------------------------------------------------------------ tests
+def test_sharded_audit_counts_the_whole_state(sharded, single):
+    """Every rank's ``audit()`` reports the violation planted in rank 1's
+    rows: the single-device port's counts and JAX's
+    ``check_state_device`` of the same state."""
+    check_audit(sharded[0], single)
+
+
+def test_lockstep_regrow_matches_single_device(sharded, single):
+    check_regrow(sharded[0], single)
+
+
+@pytest.mark.parametrize("kind", ["hub", "mixed"])
+@pytest.mark.parametrize("guard", [None, True], ids=["guard=off",
+                                                     "guard=on"])
+def test_sharded_scheduler_live_equals_replay(sharded, single, kind, guard):
+    """``tests/test_regrow.py:433`` (hub, across regrows) and
+    ``tests/test_scheduler.py:103`` (mixed): on every rank the trace,
+    per-request paths, stamps, books and state equal the single-device
+    port's, the replay equals the live run, and the trace, stamps, books
+    and state equal JAX's scheduler's."""
+    check_scheduler(sharded[0], single, kind, guard)
+
+
+@pytest.mark.parametrize("policy", list(GUARD_POLICIES))
+@pytest.mark.parametrize("defer", [False, True], ids=["round", "deferred"])
+def test_sharded_guarded_ingest(sharded, single, defer, policy):
+    """Per round the summed stats (the guard's tally included) and the
+    books equal the single-device port's and JAX's on every rank; so do
+    the final state and books after the last drain."""
+    check_guarded_ingest(sharded[0], single, defer, policy)
+
+
+def test_sharded_crash_and_restore(sharded, single):
+    """The restored sharded engine equals its uninterrupted twin and the
+    single-device port's (state, generator, counters, books, next walk);
+    only rank 0 writes the WAL and the snapshots; JAX's
+    ``restore_checkpoint`` reads the sharded engine's last snapshot (the
+    state after both rounds), and the port reads a JAX snapshot."""
+    check_recovery(sharded[0], single, sharded[1])
+
+
 def test_sharded_walk_buckets_cut_home_blocks(sharded, single):
     """Rank r's home block is rows ``[r·B/S, (r+1)·B/S)`` of the padded
     batch cut to the real rows; stitched, the rows equal the
@@ -636,11 +664,12 @@ def test_sharded_walk_buckets_cut_home_blocks(sharded, single):
 def test_sharded_engine_refusals(sharded):
     """guard=, defer_guard=, walk buckets and a ladder are accepted; a
     bucket that does not divide over S, node2vec, per-step walks and
-    walker_axes are refused."""
+    walker_axes on a plain group (no named axes: the reference's "not in
+    mesh") are refused."""
     for out in sharded[0]:
         got = out["refusals"]
         assert got["accepted"] == (True, True, (8, 16), (8, 16))
         assert "multiple of the shard count" in got["bucket 6"]
         assert "whole walks" in got["node2vec"]
         assert "whole walks" in got["per-step"]
-        assert "A.10" in got["walker_axes"]
+        assert "not in mesh" in got["walker_axes"]
