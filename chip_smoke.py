@@ -187,6 +187,33 @@ Phases (any failure exits non-zero and prints no result line):
    B4a's (this run), ``BASELINE_UPDATES`` inserts and deletes through
    each; the touched alias rows equal a fresh build, the ITS prefix sums
    a fresh cumulative sum, ``wmax`` the rows' maxima.
+3i. After phase 3h: the LM serving path (``lm_phase``),
+   ``examples/graph_serve.py``'s loop at qwen2-0.5b's full width.  An
+   R-MAT graph of 2^17 vertices (edge factor 8, degree biases,
+   ``BingoConfig(2**17, capacity=256, bias_bits=8)``) and
+   ``get_config("qwen2-0.5b")`` (24 layers, d_model 896, vocab 151,936,
+   bf16 activations over float32 params, random init from a seed) behind
+   ``DecodeEngine(slots=8, max_len=64)``, greedy.  Two waves of 16
+   requests: a deepwalk of length 12 from 16 random vertices (B1), each
+   path's first 16 valid vertices the prompt, 8 new tokens; between the
+   waves one ``batched_update`` round of 4,096 random inserts through
+   the backend (B2).  The counters zeroed just before and read just
+   after: ``walk_fused`` 2, ``update_fused`` 1 (and one ``plan_round``),
+   nothing else.  Checks: the walks equal ``walk_fused_ref`` and the
+   round ``batched_update`` on a copy; every consecutive pair of a prompt
+   is an edge of that wave's state; every request ends with 8 tokens
+   below the vocabulary.  Prints ms a tick, tokens/s and the peak memory
+   beside the card's name and power limit.  Then decode against forward
+   on the card, counters zeroed (the model path launches none of the
+   seven kernels): qwen2-0.5b FULL over a 32-token prompt (bf16 decode
+   within twice bf16 forward's distance from the float32 forward plus
+   2^-7 of the logits' scale, ``LM_BF16_STEP``; float32 decode within
+   ``LM_F32_TOL`` of float32 forward); every other arch at its SMOKE
+   config in float32 (decode against forward within ``LM_SMOKE_ATOL``;
+   hubert and llava forward only, with embeddings), each against the
+   same params on the CPU (``lm_cpu_limit``); Mixtral
+   8x7B's widths at one layer (~1.7 B params) the same bf16 check, and
+   its ragged MoE against the dense one in float32.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -3608,6 +3635,309 @@ def baseline_phase(report, mesh_h, starts, card):
     return out
 
 
+# --------------------------------------------------------------- phase 3i
+# phase 3i: examples/graph_serve.py's walk-grounded loop at qwen2-0.5b's
+# full width (configs/qwen2_0_5b.py: every vertex id of the 2^17-vertex
+# graph is a token id of its 151,936-word vocabulary)
+LM_ARCH = "qwen2-0.5b"
+LM_SCALE, LM_CAPACITY, LM_BITS = 17, 256, 8
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 8, 64, 8
+LM_WAVES, LM_REQUESTS, LM_WALK_LEN, LM_PROMPT = 2, 16, 12, 16
+LM_UPDATES = 4096                   # inserts in the round between waves
+LM_CHECK_LEN = 32                   # decode vs forward: prompt tokens
+# float32 logits, decode against forward (and ragged against dense MoE):
+# max |a - b| <= LM_F32_TOL * max |forward|
+LM_F32_TOL = 1e-4
+# bfloat16 logits against the float32 forward: decode's error at most
+# twice forward's, plus one bf16 step (2^-7) of the logits' scale
+LM_BF16_STEP = 2.0 ** -7
+# SMOKE configs in float32: decode against forward on the card
+# (tests/test_models.py's largest atol)
+LM_SMOKE_ATOL = 2e-4
+# float32 logits of the same params on the card and on the CPU: max |a - b|
+# <= tol * max |cpu|, tol LM_F32_TOL but for xlstm-350m: its mLSTM blocks
+# divide by max(|sum W|, e^-m), near zero at random init, which amplifies
+# each op's rounding (1.24e-4 on logits of scale ~2 on an H100)
+LM_CPU_TOL = {"xlstm-350m": 1e-3}
+
+
+def lm_cpu_limit(arch, want):
+    """The largest |card - cpu| allowed for logits ``want`` of ``arch``."""
+    return LM_CPU_TOL.get(arch, LM_F32_TOL) * float(want.abs().max())
+
+
+def lm_logits_decode(params, cfg, tokens):
+    """(B, S, V) float32 logits of ``decode_step`` fed ``tokens`` (B, S)
+    one position at a time, into a float32 cache as the engine keeps it."""
+    import torch
+    from repro_torch.models import decode_step, init_decode_cache
+    B, S = tokens.shape
+    cache = init_decode_cache(cfg, B, S, dtype=torch.float32,
+                              device=tokens.device)
+    out = []
+    for t in range(S):
+        lg, cache = decode_step(params, cfg, tokens[:, t], torch.full(
+            (B,), t, dtype=torch.int32, device=tokens.device), cache)
+        out.append(lg)
+    return torch.stack(out, 1)
+
+
+def lm_bf16_check(name, params, cfg, tokens):
+    """Decode against forward for a bfloat16 config, each held against the
+    float32 forward of the same params; and float32 decode against float32
+    forward.  Returns the errors."""
+    import torch
+    from repro_torch.models import forward
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = {"inputs": tokens}
+    fwd32 = forward(params, cfg32, batch)[0]
+    fwd16 = forward(params, cfg, batch)[0]
+    dec16 = lm_logits_decode(params, cfg, tokens)
+    dec32 = lm_logits_decode(params, cfg32, tokens)
+    for x in (fwd16, dec16, dec32):
+        need(x.shape == fwd32.shape and bool(torch.isfinite(x).all()),
+             f"{name}: logits")
+    scale = float(fwd32.abs().max())
+    e = {"scale": scale,
+         "fwd16": float((fwd16 - fwd32).abs().max()),
+         "dec16": float((dec16 - fwd32).abs().max()),
+         "dec16_fwd16": float((dec16 - fwd16).abs().max()),
+         "dec32": float((dec32 - fwd32).abs().max())}
+    e["bf16_limit"] = 2 * e["fwd16"] + LM_BF16_STEP * scale
+    e["f32_limit"] = LM_F32_TOL * scale
+    e["argmax_agree"] = float((dec16.argmax(-1) == fwd16.argmax(-1))
+                              .float().mean())
+    print(f"{name}: logits scale {scale:.4f}; bf16 forward vs f32 "
+          f"{e['fwd16']:.3e}, bf16 decode vs f32 {e['dec16']:.3e} (limit "
+          f"{e['bf16_limit']:.3e}), bf16 decode vs bf16 forward "
+          f"{e['dec16_fwd16']:.3e} (argmax equal at {e['argmax_agree']:.3f} "
+          f"of positions); f32 decode vs f32 forward {e['dec32']:.3e} "
+          f"(limit {e['f32_limit']:.3e})", flush=True)
+    need(e["dec16"] <= e["bf16_limit"], f"{name}: bf16 decode vs forward")
+    need(e["dec32"] <= e["f32_limit"], f"{name}: f32 decode vs forward")
+    return e
+
+
+def lm_smoke_checks(report):
+    """Every registry arch but qwen2-0.5b at its SMOKE config (float32),
+    params drawn on the CPU and copied to the card: forward on the card
+    against the CPU, and (decoders) decode against forward on the card
+    and the card's decode against the CPU's."""
+    import torch
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import forward, init_model
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        if arch == LM_ARCH:
+            continue
+        cfg = smoke_config(arch)
+        cpu = init_model(cfg, torch.Generator().manual_seed(100 + i))
+        dev = lm_tree(cpu, lambda t: t.to("cuda"))
+        g = torch.Generator().manual_seed(200 + i)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+        batch = {"inputs": tokens}
+        if cfg.frontend != "none":
+            batch["embeddings"] = torch.randn((2, 16, cfg.d_model),
+                                              generator=g)
+        want = forward(cpu, cfg, batch)[0]
+        got = forward(dev, cfg, {k: v.to("cuda")
+                                 for k, v in batch.items()})[0]
+        e = {"cpu_fwd": float((got.cpu() - want).abs().max())}
+        need(e["cpu_fwd"] <= lm_cpu_limit(arch, want),
+             f"{arch}: forward card != cpu ({e['cpu_fwd']:.3e})")
+        if cfg.frontend == "none" and not cfg.encoder_only:
+            dec = lm_logits_decode(dev, cfg, tokens.to("cuda"))
+            dec_cpu = lm_logits_decode(cpu, cfg, tokens)
+            e["dec_fwd"] = float((dec - got).abs().max())
+            e["cpu_dec"] = float((dec.cpu() - dec_cpu).abs().max())
+            need(e["dec_fwd"] <= LM_SMOKE_ATOL,
+                 f"{arch}: decode vs forward on the card {e['dec_fwd']:.3e}")
+            need(e["cpu_dec"] <= lm_cpu_limit(arch, dec_cpu),
+                 f"{arch}: decode card != cpu ({e['cpu_dec']:.3e})")
+        out[arch] = e
+    print("SMOKE configs on the card (f32): " + "; ".join(
+        f"{a} " + ", ".join(f"{k} {v:.1e}" for k, v in e.items())
+        for a, e in out.items()), flush=True)
+    report["smoke"] = out
+
+
+def lm_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: lm_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_phase(report, card):
+    """Phase 3i: the LM serving path (module docstring).  Returns the
+    walk-grounded loop's launches by kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import walks
+    from repro_torch.core.dyngraph import BingoConfig, from_edges
+    from repro_torch.core.updates import batched_update, make_updater
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.update_fused import plan_round
+    from repro_torch.kernels.walk_fused import walk_fused_ref
+    from repro_torch.models import forward, init_model
+    from repro_torch.serve import DecodeEngine, ServeRequest
+    out = report["lm"] = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    # ---- 1. walk-grounded serving at full width
+    V = 1 << LM_SCALE
+    src, dst = rmat_edges(LM_SCALE, 8, seed=0)
+    w = degree_bias(src, dst, V, bias_bits=LM_BITS)
+    bcfg = BingoConfig(num_vertices=V, capacity=LM_CAPACITY,
+                       bias_bits=LM_BITS)
+    state = from_edges(bcfg, src, dst, w, device="cuda")
+    update = make_updater(bcfg)
+    cfg = get_config(LM_ARCH)
+    need(cfg.num_layers == 24 and cfg.vocab_size > V, f"{LM_ARCH} config")
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in lm_leaves(params))
+    eng = DecodeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                       device="cuda")
+    rng = np.random.default_rng(23)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    plan_round.launches = 0
+    tick_ms, walk_err, upd_err, done = [], 0.0, 0.0, []
+    prompts = []
+    for wave in range(LM_WAVES):
+        seeds = torch.from_numpy(rng.integers(0, V, LM_REQUESTS).astype(
+            np.int32)).to("cuda")
+        seed = int(rng.integers(0, 2**31 - 1))
+        paths = walks.deepwalk(state, bcfg, seeds, seed, length=LM_WALK_LEN)
+        want = walk_fused_ref(state.itable.prob, state.itable.alias,
+                              state.bias, state.nbr, state.deg, None, seeds,
+                              seed=seed, length=LM_WALK_LEN,
+                              base_log2=bcfg.base_log2)
+        walk_err = max(walk_err, path_diff(paths, want, f"wave {wave} walk"))
+        rows = paths.cpu().numpy()
+        ctx = [[int(t) for t in row if t >= 0][:LM_PROMPT] for row in rows]
+        # every consecutive pair of a prompt is an edge of this wave's state
+        pairs = np.array([(a, b) for c in ctx for a, b in zip(c, c[1:])],
+                         np.int64).reshape(-1, 2)
+        a = torch.from_numpy(pairs[:, 0]).to("cuda")
+        b = torch.from_numpy(pairs[:, 1]).to("cuda")
+        col = torch.arange(bcfg.capacity, device="cuda")[None, :]
+        hit = (state.nbr[a] == b[:, None].to(torch.int32)) & \
+            (col < state.deg[a][:, None])
+        need(bool(hit.any(1).all()), f"wave {wave}: a prompt pair is no edge")
+        prompts.append([len(c) for c in ctx])
+        for i, c in enumerate(ctx):
+            eng.submit(ServeRequest(rid=wave * 100 + i, prompt=c,
+                                    max_new_tokens=LM_NEW))
+        torch.cuda.synchronize()
+        while eng.pending or any(r is not None for r in eng.slot_req):
+            t0 = time.perf_counter()
+            done += eng.step()              # ends in the tick's host read
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if wave == LM_WAVES - 1:
+            break
+        # one batched round of random inserts between the waves
+        lanes = (torch.ones(LM_UPDATES, dtype=torch.bool, device="cuda"),
+                 *(torch.from_numpy(x.astype(np.int32)).to("cuda") for x in (
+                     rng.integers(0, V, LM_UPDATES),
+                     rng.integers(0, V, LM_UPDATES),
+                     rng.integers(1, 1 << LM_BITS, LM_UPDATES))))
+        pre = clone_state(state)
+        state, stats = update(state, *lanes)
+        plain, pstats = batched_update(pre, bcfg, *lanes)
+        upd_err = state_diff(plain, state, "phase 3i round vs batched_update")
+        need(int(stats.ins_applied) == int(pstats.ins_applied) > 0,
+             "phase 3i round: inserts applied")
+        del pre, plain
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out["launches"] = counts
+    served = {k: counts[k] for k in ("walk_fused", "update_fused")}
+    need(counts["walk_fused"] == LM_WAVES
+         and counts["update_fused"] == LM_WAVES - 1
+         and plan_round.launches == LM_WAVES - 1
+         and sum(counts.values()) == 2 * LM_WAVES - 1,
+         f"phase 3i launches {counts}, plan_round {plan_round.launches}")
+    need(len(done) == LM_WAVES * LM_REQUESTS
+         and all(r.done and len(r.output) == LM_NEW
+                 and all(0 <= t < cfg.vocab_size for t in r.output)
+                 for r in done), "phase 3i: requests' outputs")
+    tokens = sum(len(r.output) for r in done)
+    fed = sum(len(r.prompt) for r in done) + tokens
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    serve_s, ticks = sum(tick_ms) / 1e3, len(tick_ms)
+    out.update(params=n_params, init_s=init_s, ticks=ticks,
+               serve_s=serve_s, ms_per_tick=serve_s / ticks * 1e3,
+               tick_ms_median=statistics.median(tick_ms),
+               first_tick_ms=tick_ms[0],
+               tokens=tokens, tokens_per_s=tokens / serve_s,
+               fed_tokens_per_s=fed / serve_s, prompt_lens=prompts,
+               walk_err=walk_err, update_err=upd_err, peak_gib=peak)
+    print(f"{card}: {LM_ARCH} ({n_params / 1e6:.1f} M params, "
+          f"{cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}) behind deepwalk retrieval on "
+          f"2^{LM_SCALE} vertices: {len(done)} requests in {LM_WAVES} waves "
+          f"(prompt lengths {prompts}), {ticks} ticks of {LM_SLOTS} slots, "
+          f"{out['ms_per_tick']:.2f} ms a tick (median "
+          f"{out['tick_ms_median']:.2f}, the first {tick_ms[0]:.1f}), "
+          f"{out['tokens_per_s']:.1f} "
+          f"new tokens/s ({out['fed_tokens_per_s']:.1f} tokens/s fed "
+          f"through the model), peak {peak:.2f} GiB above the phase's start; "
+          f"launches {counts}; walks and the round equal their plain "
+          f"versions", flush=True)
+
+    # ---- 2. decode against forward on the card
+    ops.reset_launch_counts()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, LM_CHECK_LEN), generator=g,
+                           device="cuda")
+    out["qwen2"] = lm_bf16_check(f"{LM_ARCH} FULL", params, cfg, tokens)
+    del eng, params, state
+    torch.cuda.empty_cache()
+    lm_smoke_checks(out)
+    mcfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=1)
+    mparams = init_model(mcfg, torch.Generator(device="cuda").manual_seed(1))
+    mtok = torch.randint(0, mcfg.vocab_size, (2, LM_CHECK_LEN), generator=g,
+                         device="cuda")
+    out["mixtral_params"] = sum(t.numel() for _, t in lm_leaves(mparams))
+    out["mixtral"] = lm_bf16_check("mixtral-8x7b widths, 1 layer", mparams,
+                                   mcfg, mtok)
+    m32 = dataclasses.replace(mcfg, dtype="float32")
+    ragged = forward(mparams, m32, {"inputs": mtok})[0]
+    dense = forward(mparams, dataclasses.replace(m32, moe_dispatch="dense"),
+                    {"inputs": mtok})[0]
+    e = float((ragged - dense).abs().max())
+    out["mixtral"]["ragged_dense"] = e
+    print(f"mixtral-8x7b widths ({out['mixtral_params'] / 1e9:.2f} B params "
+          f"at 1 layer), f32: ragged vs dense MoE {e:.3e} (limit "
+          f"{LM_F32_TOL * float(dense.abs().max()):.3e})", flush=True)
+    need(e <= LM_F32_TOL * float(dense.abs().max()),
+         "mixtral: ragged vs dense MoE")
+    del mparams, ragged, dense
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    need(sum(counts.values()) == 0, f"the model path launched {counts}")
+    torch.cuda.empty_cache()
+    out["peak_gib_all"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: phase 3i {out['phase_s']:.1f} s, peak "
+          f"{out['peak_gib_all']:.2f} GiB above its start", flush=True)
+    return served
+
+
+def lm_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from lm_leaves(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
 # --------------------------------------------------------------- phase 3e
 def attention_pairs(S, T, causal, window):
     """Unmasked (query, key) pairs of one head: query row i at i + T - S."""
@@ -4036,6 +4366,12 @@ def main():
     del handoff, mesh_h
     for k in kernels:
         k["launches"] += more.get(k["name"], 0)
+    torch.cuda.empty_cache()
+    # ---- phase 3i: the LM serving path behind walk-grounded retrieval
+    more = timed("3i LM serving", lm_phase, report, card)
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
+    peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     # ---- phase 3e: attention at full width
     torch.cuda.reset_peak_memory_stats()

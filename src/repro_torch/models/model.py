@@ -1,0 +1,270 @@
+"""The composable LM: stacked stages over heterogeneous blocks.
+
+Port of ``repro/models/model.py``.  ``init_model`` stacks each stage
+slot's parameters over the R repeats (a leading axis ``R`` under
+``params["stages"]["slot{i}"]``, the reference's tree and keys), and
+``forward``/``decode_step`` loop over the repeats where the reference
+scans.  Params are plain nested dicts of tensors, so
+``params_from_jax`` is a tree map and ``train/checkpoint.py`` saves and
+restores them (each package reads the other's checkpoints).
+
+Params are stored fp32 (optimizer master copy); compute casts them to
+``cfg.dtype`` at each use.  MoE aux losses sum over the repeats.
+Frontend-stub archs (llava/hubert) consume precomputed (B, S, D_in)
+embeddings through a learned projector instead of token ids.
+
+``decode_step`` writes each repeat's cache slot in place on the stacked
+cache (the port's counterpart of donation) and returns it.  The
+reference's ``unroll`` and ``act_spec`` (scan unrolling and a sharding
+constraint) have no torch counterpart and are not taken; ``loss_fn`` and
+``remat`` belong to training.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import ssm, xlstm
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.layers import dense_init, init_mlp, mlp, rms_norm
+from repro_torch.models.moe import init_moe, moe_ffn
+
+__all__ = ["init_model", "forward", "forward_hidden", "decode_step",
+           "init_decode_cache", "params_from_jax"]
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees):
+    """One tree whose leaves stack the given trees' leaves on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def params_from_jax(tree, device="cuda"):
+    """The port's params (or decode cache) from the reference's tree.
+
+    ``tree`` is what the reference's ``init_model`` (or
+    ``init_decode_cache``) returns, as nested dicts whose leaves are
+    arrays that ``numpy.asarray`` takes (JAX arrays or numpy); each leaf
+    becomes a tensor on ``device`` with the same key, shape and dtype.
+    """
+    return _tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        device), tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_slot(gen, cfg: ModelConfig, slot: int, dtype):
+    kind = cfg.block_pattern[slot]
+    dev = gen.device
+    p: Dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), device=dev)}
+    if kind == "attn":
+        p["attn"] = attn.init_attention(gen, cfg, dtype)
+    elif kind == "mamba":
+        p["mamba"] = ssm.init_mamba(gen, cfg, dtype)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm.init_mlstm(gen, cfg, dtype)
+    elif kind == "slstm":
+        p["slstm"] = xlstm.init_slstm(gen, cfg, dtype)
+    else:
+        raise ValueError(kind)
+    if kind in ("attn", "mamba") and cfg.d_ff:
+        p["norm2"] = torch.ones((cfg.d_model,), device=dev)
+        if cfg.is_moe_slot(slot):
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                dtype)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def init_model(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32):
+    """Random params drawn from ``gen``, on ``gen``'s device."""
+    dev = gen.device
+    params: Dict[str, Any] = {}
+    params["embed"] = dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                 scale=1.0, dtype=dtype)
+    if cfg.frontend != "none":
+        # modality stub: precomputed frame/patch embeddings -> projector
+        # (token embed above still serves the text side / decode path)
+        params["frontend_proj"] = dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype=dtype)
+    params["stages"] = {
+        f"slot{slot}": _stack([_init_slot(gen, cfg, slot, dtype)
+                               for _ in range(cfg.repeats)])
+        for slot in range(cfg.stage_period)}
+    params["final_norm"] = torch.ones((cfg.d_model,), device=dev)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                    dtype=dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# stage application
+# ---------------------------------------------------------------------------
+
+def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
+    kind = cfg.block_pattern[slot]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, slot_params["norm1"], cfg.norm_eps)
+    if kind == "attn":
+        x = x + attn.attention_train(slot_params["attn"], cfg, h, positions,
+                                     slot)
+    elif kind == "mamba":
+        x = x + ssm.mamba_train(slot_params["mamba"], cfg, h)
+    elif kind == "mlstm":
+        x = x + xlstm.mlstm_train(slot_params["mlstm"], cfg, h)
+    elif kind == "slstm":
+        out, _ = xlstm.slstm_apply(slot_params["slstm"], cfg, h)
+        x = x + out
+    if kind in ("attn", "mamba") and cfg.d_ff:
+        h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
+        if cfg.is_moe_slot(slot):
+            out, aux = moe_ffn(slot_params["moe"], h2, cfg.top_k,
+                               dispatch=cfg.moe_dispatch)
+            x = x + out
+        else:
+            x = x + mlp(slot_params["mlp"], h2)
+    return x, aux
+
+
+def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
+                       cache_slot):
+    kind = cfg.block_pattern[slot]
+    h = rms_norm(x, slot_params["norm1"], cfg.norm_eps)
+    new_cache = cache_slot
+    if kind == "attn":
+        out, new_cache = attn.attention_decode(slot_params["attn"], cfg, h,
+                                               pos, cache_slot, slot)
+        x = x + out
+    elif kind == "mamba":
+        out, new_cache = ssm.mamba_decode(slot_params["mamba"], cfg, h,
+                                          cache_slot)
+        x = x + out
+    elif kind == "mlstm":
+        out, new_cache = xlstm.mlstm_decode(slot_params["mlstm"], cfg, h,
+                                            cache_slot)
+        x = x + out
+    elif kind == "slstm":
+        out, new_cache = xlstm.slstm_apply(slot_params["slstm"], cfg, h,
+                                           cache_slot)
+        x = x + out
+    if kind in ("attn", "mamba") and cfg.d_ff:
+        h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
+        if cfg.is_moe_slot(slot):
+            out, _ = moe_ffn(slot_params["moe"], h2, cfg.top_k,
+                             dispatch=cfg.moe_dispatch)
+            x = x + out
+        else:
+            x = x + mlp(slot_params["mlp"], h2)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, batch):
+    dt = torch_dtype(cfg.dtype)
+    if cfg.frontend != "none" and "embeddings" in batch:
+        return batch["embeddings"].to(dt) @ params["frontend_proj"].to(dt)
+    # gather, then cast: the reference's cast-then-gather, value for value
+    return params["embed"][batch["inputs"]].to(dt)
+
+
+def _head(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def forward_hidden(params, cfg: ModelConfig, batch):
+    """Backbone only: final hidden states (B, S, D) + MoE aux loss."""
+    x = _embed(params, cfg, batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    auxs = []
+    for r in range(cfg.repeats):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for slot in range(cfg.stage_period):
+            slot_params = _tree_map(lambda t: t[r],
+                                    params["stages"][f"slot{slot}"])
+            x, a = _apply_slot_train(slot_params, cfg, slot, x, positions)
+            aux = aux + a
+        auxs.append(aux)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(auxs).sum()
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
+    x, aux = forward_hidden(params, cfg, batch)
+    logits = x.to(torch.float32) @ _head(params, cfg).to(torch.float32)
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _init_cache_slot(cfg: ModelConfig, slot: int, batch: int, max_len: int,
+                     dtype, device):
+    kind = cfg.block_pattern[slot]
+    if kind == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, slot, dtype, device)
+    if kind == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, device=device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device="cuda"):
+    """Per-slot caches stacked over the R repeats."""
+    return {f"slot{slot}": _tree_map(
+        lambda t: t[None].repeat((cfg.repeats,) + (1,) * t.dim()),
+        _init_cache_slot(cfg, slot, batch, max_len, dtype, device))
+        for slot in range(cfg.stage_period)}
+
+
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
+    """One decode step. tokens (B,) int, pos (B,) int absolute.
+
+    Returns (logits (B, V) float32, cache): every repeat's slot of the
+    stacked ``cache`` is written in place.
+    """
+    dt = torch_dtype(cfg.dtype)
+    # token decode path (VLM/audio frontends only matter at prefill)
+    x = params["embed"][tokens].to(dt)[:, None]            # (B, 1, D)
+    for r in range(cfg.repeats):
+        for slot in range(cfg.stage_period):
+            name = f"slot{slot}"
+            slot_params = _tree_map(lambda t: t[r], params["stages"][name])
+            views = {k: t[r] for k, t in cache[name].items()}
+            x, new = _apply_slot_decode(slot_params, cfg, slot, x, pos,
+                                        views)
+            for k, t in new.items():
+                if t is not views[k]:
+                    views[k].copy_(t)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x[:, 0].to(torch.float32) @ _head(params, cfg).to(torch.float32)
+    return logits, cache

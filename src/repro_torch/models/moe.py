@@ -1,0 +1,111 @@
+"""Mixture-of-Experts FFN: top-k router + dropless grouped GEMM.
+
+Port of ``repro/models/moe.py``.  Tokens (replicated top_k times) are
+sorted by expert id (a stable ``argsort``, as the reference's) and each
+expert's contiguous group of rows goes through that expert's FFN: the
+reference's ``jax.lax.ragged_dot`` grouped matmul, written here as one
+plain product per non-empty group.  Cutting the sorted rows into groups
+reads the (E,) group sizes on the host: one device-to-host read (and
+sync) per MoE layer per call, the only one; the counts themselves are
+scatter-adds.  The combine is an unsort + router-weighted sum.
+
+Supports mixtral (8e top-2), llama4-scout (16e top-1), jamba (16e top-2).
+Returns the standard switch-style load-balancing auxiliary loss.  The
+router's ``topk`` breaks ties between equal probabilities by its own
+rule; ties have probability zero on random float weights.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import dense_init, swiglu
+
+__all__ = ["init_moe", "moe_ffn"]
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
+             num_experts: int, dtype=torch.float32):
+    return {
+        "router": dense_init(gen, (d_model, num_experts),
+                             dtype=torch.float32),     # router in fp32
+        "wg": dense_init(gen, (num_experts, d_model, d_ff), dtype=dtype),
+        "wi": dense_init(gen, (num_experts, d_model, d_ff), dtype=dtype),
+        "wo": dense_init(gen, (num_experts, d_ff, d_model), dtype=dtype),
+    }
+
+
+def _grouped(xs, w, sizes):
+    """``ragged_dot``: row group e of ``xs`` (sizes[e] rows, in order)
+    times ``w[e]``."""
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            out[start:start + n] = xs[start:start + n] @ w[e]
+        start += n
+    return out
+
+
+def _counts(idx, n: int, dtype):
+    """Occurrences of each of 0..n-1 in ``idx``, by a scatter-add: no host
+    sync (a CUDA ``bincount`` reads its input's maximum on the host)."""
+    out = torch.zeros((n,), dtype=dtype, device=idx.device)
+    return out.index_add_(0, idx, torch.ones_like(idx, dtype=dtype))
+
+
+def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss ()).
+
+    ``dispatch``:
+      * ``ragged`` — sort-by-expert + one product per expert group (the
+        runtime path: top-k FLOPs, one host read of the group sizes);
+      * ``dense``  — mask-combined dense einsum over all experts, as the
+        reference lowers it for its dry run.  Both modes produce the same
+        outputs to float rounding.
+    """
+    B, S, D = x.shape
+    E = params["router"].shape[-1]
+    T = B * S
+    xf = x.reshape(T, D)
+    dt = x.dtype
+
+    logits = xf.to(torch.float32) @ params["router"]      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = eidx.reshape(-1)                              # (T·k,)
+
+    if dispatch == "dense":
+        # (T, E) combine weights: gate at the top-k experts, 0 elsewhere
+        comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
+        comb.scatter_add_(1, eidx, gate)
+        h = swiglu(torch.einsum("td,edf->tef", xf, params["wg"].to(dt)),
+                   torch.einsum("td,edf->tef", xf, params["wi"].to(dt)))
+        # weight the hidden by the combine mask BEFORE the down-projection
+        # so e and f contract in one product — never materializing (T, E, D)
+        hw = h * comb[:, :, None].to(dt)
+        out = torch.einsum("tef,efd->td", hw, params["wo"].to(dt))
+    elif dispatch == "ragged":
+        # ---- dispatch: sort the T·k routed copies by expert ----------------
+        order = torch.argsort(flat_e, stable=True)
+        tok_of = order // top_k                            # source token
+        xs = xf[tok_of]                                    # (T·k, D)
+        sizes = _counts(flat_e, E, torch.int64).tolist()     # host read
+        # ---- grouped GEMM (dropless) ---------------------------------------
+        h = swiglu(_grouped(xs, params["wg"].to(dt), sizes),
+                   _grouped(xs, params["wi"].to(dt), sizes))
+        ys = _grouped(h, params["wo"].to(dt), sizes)
+        # ---- combine: unsort + router-weighted sum -------------------------
+        gate_sorted = gate.reshape(-1)[order].to(dt)       # (T·k,)
+        out = torch.zeros((T, D), dtype=dt, device=x.device).index_add_(
+            0, tok_of, ys * gate_sorted[:, None])
+    else:
+        raise ValueError(dispatch)
+
+    # switch-style load-balancing aux loss
+    me = probs.mean(0)                                     # (E,)
+    ce = _counts(flat_e, E, torch.float32) / (T * top_k)
+    aux = E * torch.sum(me * ce)
+    return out.reshape(B, S, D), aux

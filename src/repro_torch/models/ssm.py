@@ -1,0 +1,141 @@
+"""Mamba-1 selective-SSM block (jamba's recurrent layer).
+
+Port of ``repro/models/ssm.py``.  The training path runs the discretized
+SSM along time one step at a time, in the reference's float order (its
+chunked ``lax.scan`` visits the same steps in the same order; the chunks
+only bound what its backward pass saves); decode keeps O(1) state — a
+(d_conv-1, Di) conv ring + a (Di, N) SSM state.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, silu
+
+__all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache"]
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) with no linear cut-off."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def init_mamba(gen: torch.Generator, cfg, dtype=torch.float32):
+    D = cfg.d_model
+    Di = cfg.mamba_d_inner
+    N = cfg.mamba_d_state
+    dc = cfg.mamba_d_conv
+    dtr = cfg.mamba_dt_rank
+    dev = gen.device
+    p = {
+        "in_proj": dense_init(gen, (D, 2 * Di), dtype=dtype),
+        "conv_w": dense_init(gen, (dc, Di), dtype=dtype),
+        "conv_b": torch.zeros((Di,), dtype=dtype, device=dev),
+        "x_proj": dense_init(gen, (Di, dtr + 2 * N), dtype=dtype),
+        "dt_proj": dense_init(gen, (dtr, Di), dtype=dtype),
+    }
+    # S4D-real initialization for A; dt bias init for softplus ∈ [1e-3, 0.1]
+    A = torch.arange(1, N + 1, dtype=torch.float32,
+                     device=dev).expand(Di, N)
+    u = torch.rand((Di,), generator=gen, dtype=torch.float32, device=dev)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                        + math.log(1e-3))
+    dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))  # inv-softplus
+    p.update({
+        "dt_bias": dt_bias,
+        "A_log": torch.log(A),
+        "Dskip": torch.ones((Di,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(gen, (Di, D), dtype=dtype),
+    })
+    return p
+
+
+def _ssm_inputs(params, cfg, xz):
+    """Shared projections: (x, res) halves of the input projection."""
+    x, res = torch.chunk(xz, 2, dim=-1)
+    return x, res
+
+
+def _dt_bc(params, cfg, xc):
+    N, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
+    dt = xc.dtype
+    proj = xc @ params["x_proj"].to(dt)
+    dt_r, B, C = torch.split(proj, [dtr, N, N], dim=-1)
+    delta = _softplus(
+        (dt_r @ params["dt_proj"].to(dt)).to(torch.float32)
+        + params["dt_bias"])
+    return delta, B.to(torch.float32), C.to(torch.float32)
+
+
+_CHUNK = 64   # the reference's time-chunk length (S must divide by it)
+
+
+def mamba_train(params, cfg, x):
+    """x: (B, S, D) -> (B, S, D); the selective scan, step by step."""
+    Bb, S, D = x.shape
+    Di, N, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    dt = x.dtype
+    xz = x @ params["in_proj"].to(dt)                      # (B, S, 2Di)
+    xc, res = _ssm_inputs(params, cfg, xz)
+
+    # depthwise causal conv along S
+    pad = F.pad(xc, (0, 0, dc - 1, 0))
+    conv = sum(pad[:, i:i + S] * params["conv_w"][i].to(dt)
+               for i in range(dc)) + params["conv_b"].to(dt)
+    xc = silu(conv.to(torch.float32)).to(dt)
+
+    delta, Bs, Cs = _dt_bc(params, cfg, xc)                # (B,S,Di),(B,S,N)²
+    A = -torch.exp(params["A_log"])                        # (Di, N)
+    dx = delta * xc.to(torch.float32)                      # (B,S,Di)
+
+    if S % min(_CHUNK, S):
+        raise ValueError("sequence must divide the mamba chunk length")
+
+    h = torch.zeros((Bb, Di, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA_t = torch.exp(delta[:, t, :, None] * A)         # (B,Di,N)
+        h = dA_t * h + dx[:, t, :, None] * Bs[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cs[:, t]))
+    y = torch.stack(ys, dim=1)                             # (B,S,Di)
+    y = y + xc.to(torch.float32) * params["Dskip"]
+    y = (y * silu(res.to(torch.float32))).to(dt)
+    return y @ params["out_proj"].to(dt)
+
+
+def init_mamba_cache(cfg, batch: int, dtype=torch.float32, device="cuda"):
+    Di, N, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    return {
+        "conv": torch.zeros((batch, dc - 1, Di), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, Di, N), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba_decode(params, cfg, x, cache):
+    """One-token step. x: (B, 1, D) -> ((B, 1, D), new cache)."""
+    dt = x.dtype
+    xz = x[:, 0] @ params["in_proj"].to(dt)                # (B, 2Di)
+    xc, res = torch.chunk(xz, 2, dim=-1)
+
+    hist = torch.cat([cache["conv"].to(dt), xc[:, None]], 1)
+    conv = (torch.einsum("bcd,cd->bd", hist, params["conv_w"].to(dt))
+            + params["conv_b"].to(dt))
+    new_conv = hist[:, 1:]
+    xcs = silu(conv.to(torch.float32)).to(dt)
+
+    delta, Bs, Cs = _dt_bc(params, cfg, xcs[:, None])
+    delta, Bs, Cs = delta[:, 0], Bs[:, 0], Cs[:, 0]
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(delta[..., None] * A)                   # (B,Di,N)
+    h = dA * cache["ssm"] + \
+        (delta * xcs.to(torch.float32))[..., None] * Bs[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Cs)
+    y = y + xcs.to(torch.float32) * params["Dskip"]
+    y = (y * silu(res.to(torch.float32))).to(dt)
+    out = (y @ params["out_proj"].to(dt))[:, None]
+    return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": h}

@@ -1,0 +1,229 @@
+"""xLSTM blocks — mLSTM (matrix memory) and sLSTM (scalar memory).
+
+Port of ``repro/models/xlstm.py``.  mLSTM trains in its parallel
+(attention-like) form and decodes with the O(1) recurrent form; both keep
+the reference's stabiliser order (``m`` from a max over log-gates, the
+gates exponentiated after subtracting it), so the two forms agree.  sLSTM
+has no parallel form (its recurrence is nonlinear) and steps through time
+in both modes.  Block layout follows xLSTM §4: mLSTM uses a
+pre-up-projection (pf=2) gated residual block; sLSTM uses a post-up/down
+(pf=4/3) block.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init, rms_norm, silu
+
+__all__ = ["init_mlstm", "mlstm_train", "mlstm_decode", "init_mlstm_cache",
+           "init_slstm", "slstm_apply", "init_slstm_cache"]
+
+
+_SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
+
+
+def _gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation, in its spelling."""
+    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715
+                                                     * (x * x * x))))
+    return x * cdf
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def init_mlstm(gen: torch.Generator, cfg, dtype=torch.float32):
+    D = cfg.d_model
+    Di = int(cfg.xlstm_pf * D)
+    H = cfg.num_heads
+    dev = gen.device
+    return {
+        "w_up": dense_init(gen, (D, 2 * Di), dtype=dtype),
+        "wq": dense_init(gen, (Di, Di), dtype=dtype),
+        "wk": dense_init(gen, (Di, Di), dtype=dtype),
+        "wv": dense_init(gen, (Di, Di), dtype=dtype),
+        "w_if": dense_init(gen, (Di, 2 * H), dtype=torch.float32),
+        "b_if": torch.cat([torch.zeros((H,), device=dev),
+                           3.0 * torch.ones((H,), device=dev)]),
+        "gn": torch.ones((Di,), dtype=torch.float32, device=dev),
+        "w_down": dense_init(gen, (Di, D), dtype=dtype),
+    }
+
+
+def _mlstm_qkvif(params, x_in):
+    """Projections shared by both forms. x_in: (B, S, Di)."""
+    dt = x_in.dtype
+    q = x_in @ params["wq"].to(dt)
+    k = x_in @ params["wk"].to(dt)
+    v = x_in @ params["wv"].to(dt)
+    gates = (x_in.to(torch.float32) @ params["w_if"]) + params["b_if"]
+    return q, k, v, gates
+
+
+def _heads(x, H):
+    B, S, Di = x.shape
+    return x.reshape(B, S, H, Di // H).transpose(1, 2)    # (B,H,S,dh)
+
+
+def mlstm_train(params, cfg, x):
+    """Parallel (quadratic) stabilized mLSTM. x: (B, S, D) -> (B, S, D)."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    Di = int(cfg.xlstm_pf * D)
+    dt = x.dtype
+    up = x @ params["w_up"].to(dt)
+    x_in, z = torch.chunk(up, 2, dim=-1)                   # (B,S,Di) each
+    q, k, v, gates = _mlstm_qkvif(params, x_in)
+    qh, kh, vh = _heads(q, H), _heads(k, H), _heads(v, H)  # (B,H,S,dh)
+    dh = Di // H
+    ig = gates[..., :H].transpose(1, 2)                    # (B,H,S) log-i
+    fg = F.logsigmoid(gates[..., H:]).transpose(1, 2)      # log-f
+
+    cum = torch.cumsum(fg, dim=-1)                         # (B,H,S)
+    # log D[t,s] = cum[t] - cum[s] + i[s]  for s <= t
+    logD = cum[..., :, None] - cum[..., None, :] + ig[..., None, :]
+    tril = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
+    logD = logD.masked_fill(~tril, float("-inf"))
+    m = torch.amax(logD, dim=-1)                           # (B,H,S) stabilizer
+    Dmat = torch.exp(logD - m[..., None])
+
+    Smat = torch.einsum("bhsd,bhtd->bhst", qh.to(torch.float32),
+                        kh.to(torch.float32)) * dh ** -0.5
+    W = Smat * Dmat
+    denom = torch.maximum(torch.abs(W.sum(-1)), torch.exp(-m))   # (B,H,S)
+    h = torch.einsum("bhst,bhtd->bhsd", W, vh.to(torch.float32))
+    h = h / denom[..., None]
+    h = h.transpose(1, 2).reshape(B, S, Di)
+    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)     # head group-norm
+    out = h * silu(z.to(torch.float32)).to(dt)
+    return out @ params["w_down"].to(dt)
+
+
+def init_mlstm_cache(cfg, batch: int, device="cuda"):
+    D = cfg.d_model
+    H = cfg.num_heads
+    dh = int(cfg.xlstm_pf * D) // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((batch, H, dh, dh), **f32),
+        "n": torch.zeros((batch, H, dh), **f32),
+        "m": torch.full((batch, H), -1e30, **f32),
+    }
+
+
+def mlstm_decode(params, cfg, x, cache):
+    """O(1) recurrent step. x: (B, 1, D) -> ((B, 1, D), new cache)."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    D = cfg.d_model
+    Di = int(cfg.xlstm_pf * D)
+    dh = Di // H
+    dt = x.dtype
+    up = x @ params["w_up"].to(dt)
+    x_in, z = torch.chunk(up, 2, dim=-1)
+    q, k, v, gates = _mlstm_qkvif(params, x_in)
+    qh = q[:, 0].reshape(B, H, dh).to(torch.float32)
+    kh = k[:, 0].reshape(B, H, dh).to(torch.float32) * dh ** -0.5
+    vh = v[:, 0].reshape(B, H, dh).to(torch.float32)
+    ig = gates[:, 0, :H]                                    # (B,H) log-i
+    fg = F.logsigmoid(gates[:, 0, H:])                      # (B,H) log-f
+
+    m_new = torch.maximum(fg + cache["m"], ig)
+    fp = torch.exp(fg + cache["m"] - m_new)[..., None]
+    ip = torch.exp(ig - m_new)[..., None]
+    C = fp[..., None] * cache["C"] + \
+        ip[..., None] * kh[..., :, None] * vh[..., None, :]
+    n = fp * cache["n"] + ip * kh
+    num = torch.einsum("bhde,bhd->bhe", C, qh)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qh)),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).reshape(B, 1, Di)
+    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
+    out = h * silu(z.to(torch.float32)).to(dt)
+    return out @ params["w_down"].to(dt), {"C": C, "n": n, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def init_slstm(gen: torch.Generator, cfg, dtype=torch.float32):
+    D = cfg.d_model
+    H = cfg.num_heads
+    dh = D // H
+    dff = int(D * 4 / 3)
+    dev = gen.device
+    return {
+        "w_x": dense_init(gen, (D, 4 * D), dtype=dtype),   # z,i,f,o from x
+        "r_h": dense_init(gen, (H, dh, 4 * dh), dtype=dtype),  # block-diag
+        "b": torch.cat([torch.zeros((2 * D,), device=dev),
+                        3.0 * torch.ones((D,), device=dev),
+                        torch.zeros((D,), device=dev)]),
+        "gn": torch.ones((D,), dtype=torch.float32, device=dev),
+        "w_up": dense_init(gen, (D, 2 * dff), dtype=dtype),
+        "w_down": dense_init(gen, (dff, D), dtype=dtype),
+    }
+
+
+def init_slstm_cache(cfg, batch: int, device="cuda"):
+    D = cfg.d_model
+    H = cfg.num_heads
+    dh = D // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "c": torch.zeros((batch, H, dh), **f32),
+        "n": torch.full((batch, H, dh), 1e-6, **f32),
+        "h": torch.zeros((batch, H, dh), **f32),
+        "m": torch.zeros((batch, H), **f32),
+    }
+
+
+def _slstm_cell(params, cfg, xt, state):
+    """One sLSTM step. xt: (B, 4D) preactivations from x."""
+    B = xt.shape[0]
+    D = cfg.d_model
+    H = cfg.num_heads
+    dh = D // H
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+    rec = torch.einsum("bhd,hde->bhe", h, params["r_h"].to(torch.float32))
+    pre = xt.to(torch.float32).reshape(B, H, 4 * dh) + rec + \
+        params["b"].reshape(H, 4 * dh)
+    z, i, f, o = torch.chunk(pre, 4, dim=-1)               # (B,H,dh) each
+    z = torch.tanh(z)
+    o = torch.sigmoid(o)
+    # exponential gates with per-head stabilizer state m
+    i_max = torch.amax(i, dim=-1)                          # (B,H)
+    m_new = torch.maximum(torch.amax(f, dim=-1) + m, i_max)
+    ip = torch.exp(i - m_new[..., None])
+    fp = torch.exp(f + m[..., None] - m_new[..., None])
+    c_new = fp * c + ip * z
+    n_new = torch.clamp(fp * n + ip, min=1e-6)
+    h_new = o * (c_new / n_new)
+    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+
+
+def slstm_apply(params, cfg, x, cache=None):
+    """sLSTM block: step the cell through time, then the pf=4/3 gated FFN.
+
+    x: (B, S, D).  Returns (out, state) — the final cell state (the
+    decode state; S=1 performs exactly one step).
+    """
+    B, S, D = x.shape
+    dt = x.dtype
+    state = init_slstm_cache(cfg, B, x.device) if cache is None else cache
+    pre = x @ params["w_x"].to(dt)                         # (B,S,4D)
+    hs = []
+    for t in range(S):
+        state = _slstm_cell(params, cfg, pre[:, t], state)
+        hs.append(state["h"])
+    h = torch.stack(hs, dim=1).reshape(B, S, D)   # (B,S,H,dh) -> (B,S,D)
+    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
+    up = h @ params["w_up"].to(dt)
+    g, u = torch.chunk(up, 2, dim=-1)
+    out = (_gelu(g.to(torch.float32)).to(dt) * u) @ params["w_down"].to(dt)
+    return out, state

@@ -2,8 +2,8 @@
 
 Port of ``repro/train/checkpoint.py`` (``save_checkpoint``,
 ``latest_step``, ``restore_checkpoint``, ``AsyncCheckpointer``) for state
-trees: NamedTuples of tensors or arrays (a ``BingoState``), with ``None``
-leaves skipped.  A checkpoint is the reference's on-disk
+trees: NamedTuples and dicts of tensors or arrays (a ``BingoState``, a
+model's params), with ``None`` leaves skipped.  A checkpoint is the reference's on-disk
 layout, so each package reads the other's: ``step_<n>/`` holds one
 ``.npy`` per leaf, named by the leaf's path as JAX's
 ``tree_flatten_with_path`` prints it (``.nbr.npy``, ...,
@@ -40,12 +40,16 @@ _MANIFEST = "manifest.json"
 
 def _map_tree(tree, fn, path=()):
     """``tree`` with every leaf replaced by ``fn(key, leaf)``; ``key`` is
-    the reference's leaf name (``".nbr"``, ``".itable/.prob"``)."""
+    the reference's leaf name (``".nbr"``, ``".itable/.prob"``; a dict's
+    entries by key, ``"stages/slot0/attn/wq"``)."""
     if tree is None:
         return None
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*[_map_tree(x, fn, path + ("." + f,))
                             for f, x in zip(tree._fields, tree)])
+    if isinstance(tree, dict):
+        return {k: _map_tree(x, fn, path + (str(k),))
+                for k, x in tree.items()}
     return fn("/".join(path), tree)
 
 

@@ -44,7 +44,10 @@ layout, its slots carrying the walker group's global ids (``wid_base``
 past 0) and the gathered columns of the global uniforms.  The comparison
 samplers (``core/baselines.py``) draw on CUDA tensors in distribution
 (chi-square against the row's normalised biases), before and after
-updates.  A CUDA kernel has no
+updates.  The LM side (which launches none of the kernels): every
+registry arch's SMOKE config on the card against the same params on the
+CPU (``forward``, and ``decode_step`` over 16 positions; ``lm_cpu_limit``), and the decode
+engine on the card answering with the CPU engine's greedy tokens.  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -60,6 +63,7 @@ import pytest
 
 import torch
 
+from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.core import dyngraph as tdg
 from repro_torch.core.updates import batched_update
 from repro_torch.kernels import ops
@@ -69,13 +73,15 @@ from repro_torch.kernels.radix_hist import radix_hist_ref
 from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
 from repro_torch.kernels.walk_sample import (walk_sample_ref,
                                             walk_sample_uniform_ref)
+from repro_torch.models import forward, init_model
+from repro_torch.serve import DecodeEngine, ServeRequest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (ALIAS_KS, FLASH_CASES,  # noqa: E402
                         STREAMED_CAPACITIES, UPDATE_CONFIGS, alias_weights,
                         flash_inputs, flash_limit, flash_refs, flash_route,
-                        hist_inputs, shifted_window, stale_lists,
-                        streamed_state)
+                        hist_inputs, lm_cpu_limit, lm_logits_decode,
+                        shifted_window, stale_lists, streamed_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -997,3 +1003,43 @@ def test_baselines_draw_in_distribution_on_the_card(name):
         nxt = base.sample(u, gen)
         assert nxt.is_cuda
         assert _baseline_chi_square_ok(nxt.cpu().numpy(), want / want.sum())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_model_on_the_card_equals_the_cpu(arch):
+    cfg = smoke_config(arch)
+    cpu = init_model(cfg, torch.Generator().manual_seed(3))
+    dev = _to_card(cpu)
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    batch = {"inputs": tokens}
+    if cfg.frontend != "none":
+        batch["embeddings"] = torch.randn((2, 16, cfg.d_model), generator=g)
+    want = forward(cpu, cfg, batch)[0]
+    got = forward(dev, cfg, {k: v.cuda() for k, v in batch.items()})[0]
+    assert got.is_cuda
+    assert float((got.cpu() - want).abs().max()) <= lm_cpu_limit(arch, want)
+    got = lm_logits_decode(dev, cfg, tokens.cuda())
+    want = lm_logits_decode(cpu, cfg, tokens)
+    assert float((got.cpu() - want).abs().max()) <= lm_cpu_limit(arch, want)
+
+
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+def test_decode_engine_answers_on_the_card():
+    cfg = smoke_config("qwen2-0.5b")
+    cpu = init_model(cfg, torch.Generator().manual_seed(6))
+    outs = []
+    for device, params in (("cuda", _to_card(cpu)), ("cpu", cpu)):
+        eng = DecodeEngine(cfg, params, slots=3, max_len=32, device=device)
+        for i in range(5):
+            eng.submit(ServeRequest(rid=i, prompt=list(range(i, 3 * i + 1)),
+                                    max_new_tokens=4 + i))
+        outs.append([(r.rid, r.output) for r in eng.run()])
+        assert eng.cache["slot0"]["k"].device.type == device
+    assert outs[0] == outs[1]
+    assert sorted(len(o) for _, o in outs[0]) == [4, 5, 6, 7, 8]
