@@ -214,6 +214,45 @@ Phases (any failure exits non-zero and prints no result line):
    same params on the CPU (``lm_cpu_limit``); Mixtral
    8x7B's widths at one layer (~1.7 B params) the same bf16 check, and
    its ragged MoE against the dense one in float32.
+3j. After phase 3i: training (``train_phase``), ``launch/train.py``'s
+   loop at qwen2-0.5b's full width on a live walk corpus.  An R-MAT
+   graph of 2^17 vertices (edge factor 8, ``degree_bias(bias_bits=10)``,
+   ``BingoConfig(2**17, capacity=256, bias_bits=10)``); the update
+   stream ``make_update_stream(batch_size=256, rounds=10, mode="mixed",
+   seed=1)``, a round through ``make_updater`` every 10 steps (B2);
+   ``WalkCorpusPipeline(walkers_per_round=512, seq_len=512,
+   batch_size=8)``, a deepwalk round of length 16 (B1) whenever its
+   buffer runs short; ``get_config("qwen2-0.5b")`` with the walk
+   vocabulary (2^17 + 1 tokens, ``frontend="none"``, random weights from
+   a seed), ``OptConfig(warmup_steps=10, total_steps=40)`` (the default
+   lr, 3e-4: the driver's 3e-3 is meant for its 4-layer LM) and
+   ``make_train_step(remat="none")``, 40 steps.  The counters zeroed
+   just before and read just after: ``walk_fused`` equal to the rounds
+   produced, ``update_fused`` 3 (and three ``plan_round``s), nothing
+   else.  Checks: round 1's paths equal ``walk_fused_ref``; each update
+   round equals ``batched_update`` on a copy; every consecutive pair of
+   vertex tokens the pipeline packs is an edge of the state its round
+   was sampled from; every loss finite, and the mean of the last 5
+   losses ``TRAIN_LOSS_DROP`` below the first.  Prints ms a step
+   (median, mean, first; a sync on either side) beside the pipeline's
+   walk and pack ms (timed apart), tokens/s, model TFLOP/s (6 N tokens)
+   beside the bf16 tensor-core peak, the peak memory, the host syncs of
+   one more step (``set_sync_debug_mode("warn")``) and the f32 head
+   product with its two gradient products timed alone beside their
+   bound.  Then, counters zeroed (the model path launches no kernel), at
+   the same width on 4 x 512 tokens: the bf16 loss against the f32 loss
+   within one bf16 step (2^-7) of it; ``remat`` "full" and "dots"
+   against "none" (loss equal, every gradient within ``TRAIN_GRAD_TOL``
+   of its leaf's largest value); float32 ``microbatches=4`` against 1
+   at the same limit; a ``compress=True`` step with finite error
+   feedback; every SMOKE arch's ``loss_fn`` and gradients on the card
+   against the CPU (``lm_cpu_limit``'s tolerances, per leaf); two
+   bfloat16-moment steps and a checkpoint of ``{"params", "opt"}``
+   restored bit for bit.  Last, ``repro_torch.launch.train.main`` on
+   the card with ``examples/train_walk_lm.py``'s arguments, 30 steps,
+   checkpoints every 10, into a temporary directory (the restored tree
+   equal to the saved one bit for bit), then with 40 steps, which must
+   resume from step 30.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -3939,6 +3978,450 @@ def lm_leaves(tree, path=""):
 
 
 # --------------------------------------------------------------- phase 3e
+# phase 3j: training (launch/train.py's loop) at qwen2-0.5b's full width
+TRAIN_SCALE, TRAIN_CAPACITY, TRAIN_BITS = 17, 256, 10
+TRAIN_WALKERS, TRAIN_SEQ, TRAIN_BATCH = 512, 512, 8
+TRAIN_STEPS, TRAIN_UPDATE_EVERY = 40, 10
+TRAIN_UPDATE_BATCH, TRAIN_UPDATE_ROUNDS = 256, 10
+# the mean of the last 5 losses is at least this far below the first
+# (nat): under half the 4.83 nat the first card runs measured (PERF.md);
+# the loss starts near ln(2^17 + 1) = 11.78
+TRAIN_LOSS_DROP = 2.0
+TRAIN_EQ_BATCH = 4                  # the equivalences' rows of 512 tokens
+# remat against the plain step: every gradient within this fraction of
+# its leaf's largest value; microbatches against one batch: within this
+# fraction of the largest gradient of the tree
+TRAIN_GRAD_TOL = 1e-5
+# the example driver, as examples/train_walk_lm.py calls it
+TRAIN_EXAMPLE = ["--scale", "10", "--d-model", "128", "--layers", "4",
+                 "--seq-len", "64", "--batch", "8"]
+
+
+def train_leaves(a, b):
+    """(name, leaf of ``a``, the same leaf of ``b``) over a params tree or
+    ``{"params", "opt"}``, named as a checkpoint names them."""
+    from repro_torch.train.checkpoint import _leaves
+    la, lb = _leaves(a), _leaves(b)
+    need(la.keys() == lb.keys(), "two trees with different leaves")
+    return [(k, x, lb[k]) for k, x in la.items()]
+
+
+def grad_excess(got, want, tol):
+    """(max over leaves of max|got - want| / (tol * max|want|), that leaf's
+    name); <= 1 passes (a leaf of zeros must be zeros)."""
+    worst, name = 0.0, ""
+    for k, a, b in train_leaves(got, want):
+        d = float((a.float() - b.float().to(a.device)).abs().max())
+        scale = tol * float(b.abs().max())
+        e = d / scale if scale else (0.0 if d == 0 else float("inf"))
+        if e > worst:
+            worst, name = e, k
+    return worst, name
+
+
+def tree_excess(got, want, tol):
+    """max|got - want| over every leaf / (tol * max|want| over every leaf):
+    a difference against the gradients' scale; <= 1 passes."""
+    pairs = train_leaves(got, want)
+    d = max(float((a.float() - b.float().to(a.device)).abs().max())
+            for _, a, b in pairs)
+    return d / (tol * max(float(b.abs().max()) for _, _, b in pairs))
+
+
+def tree_bits_equal(a, b):
+    import torch
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for _, x, y in train_leaves(a, b))
+
+
+def checked_pipeline(*args, **kw):
+    """A ``WalkCorpusPipeline`` that times each round's walk and packing
+    (a sync on either side), holds the first round's paths against
+    ``walk_fused_ref``, and checks that every consecutive pair of vertex
+    tokens it packs is an edge of the state the round was sampled from."""
+    import torch
+    from repro_torch.data import WalkCorpusPipeline
+    from repro_torch.kernels.walk_fused import walk_fused_ref
+
+    class Checked(WalkCorpusPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.walk_ms, self.pack_ms, self.pairs = [], [], 0
+            self.walk_err = None
+
+        def walk(self, starts, seed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = super().walk(starts, seed)
+            torch.cuda.synchronize()
+            self.walk_ms.append((time.perf_counter() - t0) * 1e3)
+            if self.walk_err is None:
+                st = self.state
+                want = walk_fused_ref(
+                    st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg,
+                    None, starts, seed=seed, length=self.params.length,
+                    base_log2=self.cfg.base_log2)
+                self.walk_err = path_diff(paths, want, "phase 3j round 1")
+            return paths
+
+        def produce(self, paths):
+            t0 = time.perf_counter()
+            packed = super().produce(paths)
+            self.pack_ms.append((time.perf_counter() - t0) * 1e3)
+            need(bool((packed >= 0).all() and (packed <= self.sep).all()),
+                 "phase 3j: a token outside the vocabulary")
+            a, b = packed[:, :-1].ravel(), packed[:, 1:].ravel()
+            keep = (a != self.sep) & (b != self.sep)
+            st = self.state
+            a = torch.from_numpy(a[keep].astype(np.int64)).cuda()
+            b = torch.from_numpy(b[keep]).cuda()
+            col = torch.arange(self.cfg.capacity, device="cuda")[None]
+            hit = (st.nbr[a] == b[:, None]) & (col < st.deg[a][:, None])
+            need(bool(hit.any(1).all()),
+                 "phase 3j: a packed pair is no edge of its state")
+            self.pairs += int(keep.sum())
+            return packed
+
+    return Checked(*args, **kw)
+
+
+def train_smoke_arch(arch, seed=0):
+    """``arch``'s SMOKE config in float32: ``loss_fn`` and every gradient
+    on the card against the CPU on the same params (``lm_cpu_limit``'s
+    tolerances, per leaf); returns the errors."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.train.train_step import value_and_grad
+    cfg = smoke_config(arch)
+    cpu = init_model(cfg, torch.Generator().manual_seed(300 + seed))
+    dev = lm_tree(cpu, lambda t: t.to("cuda"))
+    g = torch.Generator().manual_seed(400 + seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.frontend != "none":
+        batch["embeddings"] = torch.randn((2, 16, cfg.d_model), generator=g)
+    lc, _, gc_ = value_and_grad(cpu, cfg, batch, remat="none")
+    ld, _, gd = value_and_grad(
+        dev, cfg, {k: v.cuda() for k, v in batch.items()}, remat="none")
+    tol = LM_CPU_TOL.get(arch, LM_F32_TOL)
+    e = {"loss": abs(float(ld) - float(lc))}
+    e["grads"], e["leaf"] = grad_excess(gd, gc_, tol)
+    need(e["loss"] <= tol * abs(float(lc)),
+         f"{arch}: loss card != cpu ({e['loss']:.3e})")
+    need(e["grads"] <= 1.0,
+         f"{arch}: grads card != cpu ({e['grads']:.3f} of the limit "
+         f"at {e['leaf']})")
+    return e
+
+
+def bf16_checkpoint_check(ckpt_dir):
+    """Two steps of the SMOKE LM with bfloat16 moments on the card, then a
+    checkpoint of ``{"params", "opt"}`` into ``ckpt_dir``, restored bit
+    for bit."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.optim import OptConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    cfg = smoke_config(LM_ARCH)
+    oc = OptConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                   moment_dtype="bfloat16")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(7))
+    opt = adamw_init(params, oc)
+    step = make_train_step(cfg, oc, remat="dots")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (4, 17), generator=g,
+                             device="cuda")
+        params, opt, _, m = step(params, opt, None, {
+            "inputs": toks[:, :-1], "targets": toks[:, 1:]})
+    need(opt.mu["embed"].dtype == torch.bfloat16 and opt.mu["embed"].is_cuda
+         and int(opt.step) == 2 and bool(torch.isfinite(m["loss"])),
+         "phase 3j: bf16 moments")
+    save_checkpoint(ckpt_dir, 2, {"params": params, "opt": opt})
+    like = {"params": lm_tree(params, torch.zeros_like),
+            "opt": adamw_init(params, oc)}
+    back = restore_checkpoint(ckpt_dir, 2, like)
+    need(tree_bits_equal(back, {"params": params, "opt": opt}),
+         "phase 3j: bf16-moment checkpoint round trip")
+
+
+def train_smoke_checks(out):
+    """Every registry arch's SMOKE config on the card against the CPU
+    (``train_smoke_arch``), then ``bf16_checkpoint_check``."""
+    from repro_torch.configs import ARCHS
+    res = {arch: train_smoke_arch(arch, i) for i, arch in enumerate(ARCHS)}
+    print("SMOKE training on the card vs the CPU (f32): " + "; ".join(
+        f"{a} loss {e['loss']:.1e}, grads {e['grads']:.3f} of the limit "
+        f"({e['leaf']})" for a, e in res.items()), flush=True)
+    out["smoke"] = res
+    with tempfile.TemporaryDirectory() as d:
+        bf16_checkpoint_check(d)
+    out["bf16_checkpoint"] = "bit for bit"
+
+
+def train_driver_check(out, ckpt_dir=None):
+    """``launch.train.main`` on the card (its default device) with the
+    example's arguments, 30 steps, checkpoints every 10; restored bit for
+    bit; then 40 steps, which must resume from step 30.  The update rounds
+    land at steps 10, 20 and 30 (one ``update_fused`` launch each) and the
+    walks launch ``walk_fused``.  ``ckpt_dir`` defaults to a temporary
+    directory."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.checkpoint import restore_checkpoint
+    if ckpt_dir is None:
+        with tempfile.TemporaryDirectory() as d:
+            return train_driver_check(out, d)
+    ops.reset_launch_counts()
+    argv = TRAIN_EXAMPLE + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "10"]
+    t0 = time.perf_counter()
+    first = launch_train.main(argv + ["--steps", "30"])
+    first_s = time.perf_counter() - t0
+    need(next(iter(first["params"].values())).is_cuda,
+         "phase 3j: the driver's params are not on the card")
+    tree = {"params": first["params"], "opt": first["opt"]}
+    back = restore_checkpoint(ckpt_dir, 30, tree)
+    need(tree_bits_equal(back, tree), "phase 3j: driver checkpoint")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        second = launch_train.main(argv + ["--steps", "40"])
+    print(buf.getvalue(), end="", flush=True)
+    need("[train] restoring from step 30" in buf.getvalue()
+         and second["start"] == 30 and len(second["losses"]) == 10
+         and int(second["opt"].step) == 40,
+         "phase 3j: the driver did not resume from step 30")
+    losses = [float(x) for x in first["losses"] + second["losses"]]
+    need(all(math.isfinite(x) for x in losses), "phase 3j: driver losses")
+    counts = ops.launch_counts()
+    need(counts["update_fused"] == 3 and counts["walk_fused"] >= 2,
+         f"phase 3j: the driver's launches {counts}")
+    out["driver"] = {"first_s": first_s, "loss_first": losses[0],
+                     "loss_last": losses[-1], "launches": counts}
+
+
+def train_phase(report, card):
+    """Phase 3j: training at qwen2-0.5b's full width on a live walk corpus
+    (module docstring).  Returns the training loop's launches by kernel."""
+    import torch
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core.dyngraph import BingoConfig, from_edges
+    from repro_torch.core.updates import batched_update, make_updater
+    from repro_torch.distributed.compress import init_error_feedback
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    from repro_torch.graph.streams import make_update_stream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.update_fused import plan_round
+    from repro_torch.models import init_model, loss_fn
+    from repro_torch.train.optim import OptConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    out = report["train"] = {}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    # ---- 1. launch/train.py's loop at full width
+    V = 1 << TRAIN_SCALE
+    src, dst = rmat_edges(TRAIN_SCALE, 8, seed=0)
+    w = degree_bias(src, dst, V, bias_bits=TRAIN_BITS)
+    bcfg = BingoConfig(num_vertices=V, capacity=TRAIN_CAPACITY,
+                       bias_bits=TRAIN_BITS)
+    state = from_edges(bcfg, src, dst, w, device="cuda")
+    stream = make_update_stream(src, dst, w, batch_size=TRAIN_UPDATE_BATCH,
+                                rounds=TRAIN_UPDATE_ROUNDS, mode="mixed",
+                                seed=1)
+    pipe = checked_pipeline(state, bcfg, walkers_per_round=TRAIN_WALKERS,
+                            seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH)
+    update = make_updater(bcfg)
+    cfg = dataclasses.replace(get_config(LM_ARCH), vocab_size=pipe.vocab,
+                              frontend="none")
+    need(cfg.num_layers == 24 and cfg.d_model == 896, f"{LM_ARCH} config")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for _, t in lm_leaves(params))
+    oc = OptConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+    opt = adamw_init(params, oc)
+    step_fn = make_train_step(cfg, oc, remat="none")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    ops.reset_launch_counts()
+    plan_round.launches = 0
+    losses, step_ms, round_i, upd_err = [], [], 0, 0.0
+    for step in range(TRAIN_STEPS):
+        if step and step % TRAIN_UPDATE_EVERY == 0 and \
+                round_i < TRAIN_UPDATE_ROUNDS:
+            lanes = [torch.from_numpy(x[round_i]).to("cuda") for x in (
+                stream.is_insert, stream.u, stream.v, stream.w)]
+            pre = clone_state(state)
+            state, stats = update(state, *lanes)
+            plain, pstats = batched_update(pre, bcfg, *lanes)
+            upd_err = max(upd_err, state_diff(
+                plain, state, f"phase 3j round {round_i + 1}"))
+            need(stats_list(stats) == stats_list(pstats),
+                 f"phase 3j round {round_i + 1}: stats")
+            del pre, plain
+            pipe.update_graph(state)
+            round_i += 1
+        batch = next(pipe)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, None, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    counts = ops.launch_counts()
+    rounds = pipe.rounds
+    out["launches"] = counts
+    served = {k: counts[k] for k in ("walk_fused", "update_fused")}
+    need(counts["walk_fused"] == rounds
+         and counts["update_fused"] == round_i == 3
+         and plan_round.launches == round_i
+         and sum(counts.values()) == rounds + round_i,
+         f"phase 3j launches {counts}, plan_round {plan_round.launches}, "
+         f"{rounds} rounds")
+    losses = [float(x) for x in losses]
+    need(all(math.isfinite(x) for x in losses), "phase 3j: a loss is not "
+         "finite")
+    drop = losses[0] - statistics.mean(losses[-5:])
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the host syncs of one train step (outside the loop: one more batch)
+    batch = next(pipe)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            params, opt, _, m = step_fn(params, opt, None, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(x.message) for x in caught)
+    # the f32 head product and its two gradient products, timed alone
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    x = torch.randn((tokens, cfg.d_model), device="cuda")
+    emb = params["embed"]
+    gl = torch.randn((tokens, cfg.vocab_size), device="cuda")
+    head_ms, _ = cuda_ms(lambda: (x @ emb.T, gl @ emb, gl.T @ x))
+    head_bound = 3 * 2 * tokens * cfg.d_model * cfg.vocab_size / OPS_PER_S
+    del x, gl
+    med = statistics.median(step_ms)
+    pipe_ms = (sum(pipe.walk_ms) + sum(pipe.pack_ms)) / TRAIN_STEPS
+    flops = 6 * n_params * tokens
+    out.update(params=n_params, vocab=cfg.vocab_size, setup_s=setup_s,
+               losses=losses, loss_drop=drop, step_ms=step_ms,
+               step_ms_median=med, step_ms_mean=statistics.mean(step_ms),
+               step_ms_first=step_ms[0], rounds=rounds,
+               walk_ms=pipe.walk_ms, pack_ms=pipe.pack_ms,
+               pipeline_ms_per_step=pipe_ms, pairs_checked=pipe.pairs,
+               tokens_per_s=tokens / med * 1e3,
+               model_tflops=flops / med / 1e9, peak_gib=peak,
+               host_syncs_per_step=syncs, head_ms=head_ms,
+               head_bound_ms=head_bound * 1e3, walk_err=pipe.walk_err,
+               update_err=upd_err)
+    print(f"{card}: training {LM_ARCH} ({n_params / 1e6:.1f} M params, "
+          f"vocab {cfg.vocab_size} = 2^{TRAIN_SCALE} vertices + sep, "
+          f"{cfg.dtype} activations, lr {oc.lr}) on deepwalk batches "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_STEPS} steps, ms a step "
+          f"median {med:.2f} (mean {out['step_ms_mean']:.2f}, first "
+          f"{step_ms[0]:.1f}); pipeline {rounds} rounds, walk "
+          f"{statistics.median(pipe.walk_ms):.2f} ms and pack "
+          f"{statistics.median(pipe.pack_ms):.2f} ms a round (median), "
+          f"{pipe_ms:.2f} ms a step; {out['tokens_per_s']:.0f} tokens/s, "
+          f"model {out['model_tflops']:.1f} TFLOP/s (6 N tokens; bf16 "
+          f"tensor-core peak {TC_BF16_FLOPS / 1e12:.0f}); peak "
+          f"{peak:.2f} GiB above the phase's start; {syncs} host syncs in "
+          f"one step; the f32 head product and its two gradient products "
+          f"alone {head_ms:.2f} ms (bound {head_bound * 1e3:.2f} ms at "
+          f"{OPS_PER_S / 1e12:.0f} TFLOP/s); loss {losses[0]:.4f} -> last 5 mean "
+          f"{statistics.mean(losses[-5:]):.4f} (drop {drop:.3f}, limit "
+          f"{TRAIN_LOSS_DROP}); launches {counts}; the first round and the "
+          f"{round_i} update rounds equal their plain versions; "
+          f"{pipe.pairs} packed pairs are edges", flush=True)
+    need(drop >= TRAIN_LOSS_DROP, f"phase 3j: loss fell {drop:.3f} nat, "
+         f"less than {TRAIN_LOSS_DROP}")
+    del opt, state, pipe
+
+    # ---- 2. equivalences at full width, batch 4 x 512
+    ops.reset_launch_counts()
+    b4 = {k: v[:TRAIN_EQ_BATCH] for k, v in batch.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        l32 = float(loss_fn(params, cfg32, b4)[0])
+        l16 = float(loss_fn(params, cfg, b4)[0])
+    eq = {"loss_f32": l32, "loss_bf16": l16, "bf16_limit":
+          LM_BF16_STEP * abs(l32)}
+    need(abs(l16 - l32) <= eq["bf16_limit"],
+         f"phase 3j: bf16 loss {l16} vs f32 {l32}")
+    ln, _, gn = value_and_grad(params, cfg, b4, remat="none")
+    for remat in ("full", "dots"):
+        lr_, _, gr = value_and_grad(params, cfg, b4, remat=remat)
+        eq[f"{remat}_loss"] = abs(float(lr_) - float(ln))
+        eq[f"{remat}_grads"], eq[f"{remat}_leaf"] = grad_excess(
+            gr, gn, TRAIN_GRAD_TOL)
+        need(eq[f"{remat}_loss"] == 0.0 and eq[f"{remat}_grads"] <= 1.0,
+             f"phase 3j: remat {remat} != none ({eq[f'{remat}_loss']}, "
+             f"{eq[f'{remat}_grads']:.3f} of the limit at "
+             f"{eq[f'{remat}_leaf']})")
+        del gr
+    del gn
+    _, _, g1 = value_and_grad(params, cfg32, b4, remat="none")
+    _, _, g4 = value_and_grad(params, cfg32, b4, remat="none",
+                              microbatches=TRAIN_EQ_BATCH)
+    # against the gradients' scale (test_substrate.py's atol on O(1)
+    # grads): splitting the batch reorders each weight's sum over its
+    # 2,048 token terms, and a leaf whose terms cancel keeps that
+    # rounding relative to the terms, not to its own largest value
+    eq["micro_grads"] = tree_excess(g4, g1, TRAIN_GRAD_TOL)
+    eq["micro_leaf_excess"], eq["micro_leaf"] = grad_excess(
+        g4, g1, TRAIN_GRAD_TOL)
+    need(eq["micro_grads"] <= 1.0, f"phase 3j: microbatches "
+         f"{eq['micro_grads']:.3f} of the limit")
+    del g1, g4
+    ef = init_error_feedback(params)
+    cstep = make_train_step(cfg, OptConfig(warmup_steps=10,
+                                           total_steps=TRAIN_STEPS),
+                            remat="dots", compress=True)
+    params, _, ef, mc = cstep(params, adamw_init(params, oc), ef, b4)
+    need(bool(torch.isfinite(mc["loss"])) and all(
+        bool(torch.isfinite(t).all()) for _, t in lm_leaves(ef)),
+        "phase 3j: compressed step")
+    del ef, params
+    torch.cuda.empty_cache()
+    print(f"{card}: full width, batch {TRAIN_EQ_BATCH} x {TRAIN_SEQ}: loss "
+          f"f32 {l32:.5f}, bf16 {l16:.5f} (|diff| {abs(l16 - l32):.2e}, "
+          f"limit {eq['bf16_limit']:.2e}); remat full / dots vs none: loss "
+          f"diff {eq['full_loss']:.1e} / {eq['dots_loss']:.1e}, grads "
+          f"{eq['full_grads']:.3f} / {eq['dots_grads']:.3f} of the limit "
+          f"({TRAIN_GRAD_TOL} of each leaf's largest value); f32 "
+          f"microbatches {TRAIN_EQ_BATCH} vs 1: {eq['micro_grads']:.3f} of "
+          f"{TRAIN_GRAD_TOL} of the gradients' largest value (per leaf "
+          f"{eq['micro_leaf_excess']:.3f} of the remat limit, at "
+          f"{eq['micro_leaf']}); a compressed step's loss {float(mc['loss']):.4f}, "
+          f"error feedback finite", flush=True)
+    out["equivalences"] = eq
+
+    # ---- 3. SMOKE configs on the card against the CPU
+    train_smoke_checks(out)
+    counts = ops.launch_counts()
+    need(sum(counts.values()) == 0, f"the training model path launched "
+         f"{counts}")
+    # ---- 4. the driver itself
+    train_driver_check(out)
+    out["peak_gib_all"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: phase 3j {out['phase_s']:.1f} s (set-up "
+          f"{setup_s:.1f} s), peak {out['peak_gib_all']:.2f} GiB above its "
+          f"start; the driver: 30 steps in {out['driver']['first_s']:.1f} s, "
+          f"resumed at step 30, loss {out['driver']['loss_first']:.4f} -> "
+          f"{out['driver']['loss_last']:.4f}, launches "
+          f"{out['driver']['launches']}", flush=True)
+    return served
+
+
 def attention_pairs(S, T, causal, window):
     """Unmasked (query, key) pairs of one head: query row i at i + T - S."""
     qpos = np.arange(S, dtype=np.int64) + (T - S)
@@ -4190,7 +4673,10 @@ def trace_counts(events, span=None):
         if float(e["ts"]) >= end:
             top.append(e)
             end = float(e["ts"]) + float(e.get("dur", 0))
-    rt = [e for e in inside if e.get("cat") == "cuda_runtime"]
+    # launches through the runtime API and, cuBLAS's among them, through
+    # the driver API
+    rt = [e for e in inside
+          if e.get("cat") in ("cuda_runtime", "cuda_driver")]
     corr = {e.get("args", {}).get("correlation") for e in rt}
     dev = sorted((e for e in events
                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
@@ -4369,6 +4855,12 @@ def main():
     torch.cuda.empty_cache()
     # ---- phase 3i: the LM serving path behind walk-grounded retrieval
     more = timed("3i LM serving", lm_phase, report, card)
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    # ---- phase 3j: training on a live walk corpus at full width
+    more = timed("3j training", train_phase, report, card)
     for k in kernels:
         k["launches"] += more.get(k["name"], 0)
     peak = max(peak, torch.cuda.max_memory_allocated())

@@ -83,7 +83,9 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
     Hkv, T = k.shape[1], k.shape[2]
     rep = H // Hkv
     scale = (D ** -0.5) if scale is None else scale
-    qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # the scale in q's type, made on the device (a fill, not a host copy,
+    # so a forward pass on the card never waits for the host)
+    qg = (q * torch.full((), scale, dtype=q.dtype, device=q.device)
           ).reshape(B, Hkv, rep, S, D)
     logits = torch.einsum("bkrsd,bktd->bkrst", qg.to(torch.float32),
                           k.to(torch.float32))

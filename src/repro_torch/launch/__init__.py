@@ -1,1 +1,2 @@
-"""Drivers (mirrors ``repro.launch``): the LM serving driver."""
+"""Drivers (mirrors ``repro.launch``): the LM serving and training
+drivers."""

@@ -16,36 +16,40 @@ embeddings through a learned projector instead of token ids.
 ``decode_step`` writes each repeat's cache slot in place on the stacked
 cache (the port's counterpart of donation) and returns it.  The
 reference's ``unroll`` and ``act_spec`` (scan unrolling and a sharding
-constraint) have no torch counterpart and are not taken; ``loss_fn`` and
-``remat`` belong to training.
+constraint) have no torch counterpart and are not taken.
+
+``remat`` recomputes each repeat's stage in the backward pass, as the
+reference's ``jax.checkpoint(stage)``: ``"full"`` saves nothing inside
+the stage (``torch.utils.checkpoint``); ``"dots"`` is the reference's
+``dots_with_no_batch_dims_saveable``, a selective checkpoint that saves
+the outputs of the products with no batch dims (``aten.mm`` and
+``aten.addmm``: every ``x @ W`` of an activation by a weight) and
+recomputes everything else, the attention's batched products included.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.layers import dense_init, init_mlp, mlp, rms_norm
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.tree import tree_map
 
-__all__ = ["init_model", "forward", "forward_hidden", "decode_step",
-           "init_decode_cache", "params_from_jax"]
+__all__ = ["init_model", "forward", "forward_hidden", "loss_fn",
+           "decode_step", "init_decode_cache", "params_from_jax"]
 
 
 # ---------------------------------------------------------------------------
 # trees
 # ---------------------------------------------------------------------------
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
 
 def _stack(trees):
     """One tree whose leaves stack the given trees' leaves on a new axis 0."""
@@ -62,7 +66,7 @@ def params_from_jax(tree, device="cuda"):
     arrays that ``numpy.asarray`` takes (JAX arrays or numpy); each leaf
     becomes a tensor on ``device`` with the same key, shape and dtype.
     """
-    return _tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
         device), tree)
 
 
@@ -193,30 +197,77 @@ def _head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def forward_hidden(params, cfg: ModelConfig, batch):
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the 2-D products."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(stage, remat: str):
+    """``stage`` under the reference's ``remat`` policy."""
+    if remat == "none":
+        return stage
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, stage, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, stage, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {remat!r}")
+
+
+def forward_hidden(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     """Backbone only: final hidden states (B, S, D) + MoE aux loss."""
     x = _embed(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    auxs = []
-    for r in range(cfg.repeats):
+
+    def stage(x, stage_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for slot in range(cfg.stage_period):
-            slot_params = _tree_map(lambda t: t[r],
-                                    params["stages"][f"slot{slot}"])
-            x, a = _apply_slot_train(slot_params, cfg, slot, x, positions)
+            x, a = _apply_slot_train(stage_params[f"slot{slot}"], cfg, slot,
+                                     x, positions)
             aux = aux + a
+        return x, aux
+
+    stage = _remat(stage, remat)
+    # one view per repeat of each stacked leaf: the backward stacks their
+    # gradients once (indexing t[r] per repeat would zero-fill and add a
+    # whole stacked leaf per repeat)
+    repeats = tree_map(lambda t: t.unbind(0), params["stages"])
+    auxs = []
+    for r in range(cfg.repeats):
+        x, aux = stage(x, tree_map(lambda ts: ts[r], repeats))
         auxs.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.stack(auxs).sum()
 
 
-def forward(params, cfg: ModelConfig, batch):
+def forward(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
-    x, aux = forward_hidden(params, cfg, batch)
+    x, aux = forward_hidden(params, cfg, batch, remat=remat)
     logits = x.to(torch.float32) @ _head(params, cfg).to(torch.float32)
     return logits, aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none"):
+    """Mean CE over valid targets (+ MoE aux). Returns (loss, metrics)."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    targets = batch["targets"]
+    valid = (targets >= 0).to(torch.float32)
+    tsafe = torch.clamp(targets, min=0).to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tsafe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1.0)
+    ce = (nll * valid).sum() / denom
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": valid.sum()}
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +291,7 @@ def _init_cache_slot(cfg: ModelConfig, slot: int, batch: int, max_len: int,
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cuda"):
     """Per-slot caches stacked over the R repeats."""
-    return {f"slot{slot}": _tree_map(
+    return {f"slot{slot}": tree_map(
         lambda t: t[None].repeat((cfg.repeats,) + (1,) * t.dim()),
         _init_cache_slot(cfg, slot, batch, max_len, dtype, device))
         for slot in range(cfg.stage_period)}
@@ -258,7 +309,7 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     for r in range(cfg.repeats):
         for slot in range(cfg.stage_period):
             name = f"slot{slot}"
-            slot_params = _tree_map(lambda t: t[r], params["stages"][name])
+            slot_params = tree_map(lambda t: t[r], params["stages"][name])
             views = {k: t[r] for k, t in cache[name].items()}
             x, new = _apply_slot_decode(slot_params, cfg, slot, x, pos,
                                         views)

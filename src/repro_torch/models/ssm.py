@@ -1,18 +1,22 @@
 """Mamba-1 selective-SSM block (jamba's recurrent layer).
 
 Port of ``repro/models/ssm.py``.  The training path runs the discretized
-SSM along time one step at a time, in the reference's float order (its
-chunked ``lax.scan`` visits the same steps in the same order; the chunks
-only bound what its backward pass saves); decode keeps O(1) state — a
-(d_conv-1, Di) conv ring + a (Di, N) SSM state.
+SSM along time one step at a time, in the reference's float order, in
+chunks of ``_CHUNK`` steps; with grad enabled each chunk runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(chunk)``,
+so the backward pass saves one (B, Di, N) state a chunk, not a step.
+Decode keeps O(1) state — a (d_conv-1, Di) conv ring + a (Di, N) SSM
+state.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import dense_init, silu
 
@@ -92,16 +96,27 @@ def mamba_train(params, cfg, x):
     A = -torch.exp(params["A_log"])                        # (Di, N)
     dx = delta * xc.to(torch.float32)                      # (B,S,Di)
 
-    if S % min(_CHUNK, S):
+    L = min(_CHUNK, S)
+    if S % L:
         raise ValueError("sequence must divide the mamba chunk length")
 
+    def chunk(h, delta_c, dx_c, B_c, C_c):
+        ys = []
+        for t in range(delta_c.shape[1]):
+            dA_t = torch.exp(delta_c[:, t, :, None] * A)   # (B,Di,N)
+            h = dA_t * h + dx_c[:, t, :, None] * B_c[:, t, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, C_c[:, t]))
+        return h, torch.stack(ys, dim=1)
+
+    if torch.is_grad_enabled():
+        chunk = functools.partial(ckpt.checkpoint, chunk, use_reentrant=False)
     h = torch.zeros((Bb, Di, N), dtype=torch.float32, device=x.device)
     ys = []
-    for t in range(S):
-        dA_t = torch.exp(delta[:, t, :, None] * A)         # (B,Di,N)
-        h = dA_t * h + dx[:, t, :, None] * Bs[:, t, None, :]
-        ys.append(torch.einsum("bdn,bn->bd", h, Cs[:, t]))
-    y = torch.stack(ys, dim=1)                             # (B,S,Di)
+    for c in range(0, S, L):
+        h, y_c = chunk(h, delta[:, c:c + L], dx[:, c:c + L], Bs[:, c:c + L],
+                       Cs[:, c:c + L])
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1)                               # (B,S,Di)
     y = y + xc.to(torch.float32) * params["Dskip"]
     y = (y * silu(res.to(torch.float32))).to(dt)
     return y @ params["out_proj"].to(dt)

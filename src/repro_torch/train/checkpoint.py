@@ -10,6 +10,10 @@ layout, so each package reads the other's: ``step_<n>/`` holds one
 ``.itable__.prob.npy``, ``.itable__.alias.npy``; ``ginv`` absent when it
 is ``None``), and a ``manifest.json`` with ``leaves`` and ``extra``.
 Commit is atomic: write to ``step_<n>.tmp-<pid>`` then ``os.rename``.
+A bfloat16 leaf is written as the reference writes it: its 16-bit
+patterns in a ``'<V2'`` array, ``"dtype": "bfloat16"`` in the manifest;
+it is read back by viewing those bits as ``torch.bfloat16`` (numpy has
+no bfloat16 of its own, and nothing here needs ``ml_dtypes``).
 
 ``AsyncCheckpointer.save`` copies every tensor to the host on the
 calling thread before it returns — the port updates its tables in place,
@@ -59,11 +63,55 @@ def _leaves(tree) -> dict:
     return out
 
 
+_BF16 = "bfloat16"
+
+
+def _is_bf16_bits(arr: np.ndarray) -> bool:
+    """A 2-byte void array: bfloat16 bits (``_to_numpy``'s, or an
+    ``ml_dtypes.bfloat16`` array, whose kind is also ``'V'``)."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
 def _to_numpy(x) -> np.ndarray:
-    """A host copy of a leaf (never a view of a tensor's memory)."""
+    """A host copy of a leaf (never a view of a tensor's memory); a
+    bfloat16 tensor's bits come back as a ``'V2'`` array."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view("V2")
+        return x.numpy()
     return np.array(x, copy=True)
+
+
+def _save_leaf(path: str, arr: np.ndarray) -> str:
+    """Write one leaf's ``.npy``; returns the manifest's dtype name."""
+    if not _is_bf16_bits(arr):
+        np.save(path, arr)
+        return str(arr.dtype)
+    arr = np.ascontiguousarray(arr)
+    with open(path, "wb") as f:           # the reference's '<V2' header
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes())
+    return _BF16
+
+
+def leaf_from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``arr`` (anything ``numpy.asarray``
+    takes: a loaded leaf, a JAX array); bfloat16 bits become
+    ``torch.bfloat16``."""
+    arr = np.asarray(arr)
+    if _is_bf16_bits(arr):
+        bits = np.array(arr, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    arr = np.load(path, mmap_mode="r")
+    if dtype == _BF16:
+        return leaf_from_numpy(arr)
+    return leaf_from_numpy(np.asarray(arr, dtype=dtype))
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
@@ -76,9 +124,9 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     for key, leaf in _leaves(tree).items():
         arr = leaf if isinstance(leaf, np.ndarray) else _to_numpy(leaf)
         fname = key.replace("/", "__") + ".npy"
-        np.save(os.path.join(tmp, fname), arr)
+        dtype = _save_leaf(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {
-            "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            "file": fname, "shape": list(arr.shape), "dtype": dtype}
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -106,11 +154,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, like: Any,
 
     def load(key, leaf):
         meta = manifest["leaves"][key]
-        arr = np.load(os.path.join(d, meta["file"]), mmap_mode="r")
-        arr = np.asarray(arr, dtype=meta["dtype"])
+        t = _load_leaf(os.path.join(d, meta["file"]), meta["dtype"])
         dev = leaf.device if device is None else torch.device(device)
-        return torch.from_numpy(np.array(arr, copy=True)).to(
-            device=dev, dtype=leaf.dtype)
+        return t.to(device=dev, dtype=leaf.dtype)
     return _map_tree(like, load)
 
 

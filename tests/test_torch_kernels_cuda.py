@@ -47,7 +47,11 @@ samplers (``core/baselines.py``) draw on CUDA tensors in distribution
 updates.  The LM side (which launches none of the kernels): every
 registry arch's SMOKE config on the card against the same params on the
 CPU (``forward``, and ``decode_step`` over 16 positions; ``lm_cpu_limit``), and the decode
-engine on the card answering with the CPU engine's greedy tokens.  A CUDA kernel has no
+engine on the card answering with the CPU engine's greedy tokens.  Training: every SMOKE
+arch's ``loss_fn`` and gradients on the card against the CPU; remat and microbatches against
+the plain step on the card; the walk-corpus pipeline's batches on the card equal to the CPU's
+for the same seed (the whole-walk kernel against its plain version); a bfloat16-moment
+checkpoint round trip; ``launch.train`` defaulting to the card and resuming there.  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -55,6 +59,7 @@ nothing of JAX, so on a card without JAX it runs with
 tests/test_torch_kernels_cuda.py``.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -78,10 +83,12 @@ from repro_torch.serve import DecodeEngine, ServeRequest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (ALIAS_KS, FLASH_CASES,  # noqa: E402
-                        STREAMED_CAPACITIES, UPDATE_CONFIGS, alias_weights,
-                        flash_inputs, flash_limit, flash_refs, flash_route,
+                        STREAMED_CAPACITIES, TRAIN_GRAD_TOL, UPDATE_CONFIGS,
+                        alias_weights, bf16_checkpoint_check, flash_inputs,
+                        flash_limit, flash_refs, flash_route, grad_excess,
                         hist_inputs, lm_cpu_limit, lm_logits_decode,
-                        shifted_window, stale_lists, streamed_state)
+                        shifted_window, stale_lists, streamed_state,
+                        train_driver_check, train_smoke_arch, tree_excess)
 
 pytestmark = pytest.mark.cuda
 
@@ -1043,3 +1050,78 @@ def test_decode_engine_answers_on_the_card():
         assert eng.cache["slot0"]["k"].device.type == device
     assert outs[0] == outs[1]
     assert sorted(len(o) for _, o in outs[0]) == [4, 5, 6, 7, 8]
+
+
+# ---------------------------------------------------------------------------
+# training (no kernel on the model path; the pipeline's walks and the
+# driver's update rounds run B1 and B2)
+# ---------------------------------------------------------------------------
+
+def _smoke_batch(cfg, seed, B=2, S=16):
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.frontend != "none":
+        batch["embeddings"] = torch.randn((B, S, cfg.d_model), generator=g)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_loss_and_grads_on_the_card_equal_the_cpu(arch):
+    train_smoke_arch(arch, ARCHS.index(arch))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen2-0.5b"])
+def test_remat_and_microbatches_on_the_card(arch):
+    """remat against the plain step; microbatches against the full batch.
+    The MoE arch's microbatches run with ``router_aux_coef=0``: its aux
+    loss is a per-call statistic of the routing (a microbatch's is not a
+    quarter of the batch's, in either package), while the cross entropy
+    is a mean over equal microbatches, so a fault in dispatching a
+    microbatch's tokens to the experts shows in the gradients."""
+    from repro_torch.train.train_step import value_and_grad
+    cfg = smoke_config(arch)
+    params = _to_card(init_model(cfg, torch.Generator().manual_seed(13)))
+    batch = _to_card(_smoke_batch(cfg, 14, B=4, S=32))
+    ln, _, gn = value_and_grad(params, cfg, batch, remat="none")
+    for remat in ("full", "dots"):
+        lr, _, gr = value_and_grad(params, cfg, batch, remat=remat)
+        assert float(lr) == float(ln)
+        assert grad_excess(gr, gn, TRAIN_GRAD_TOL)[0] <= 1.0, remat
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, router_aux_coef=0.0)
+        ln, _, gn = value_and_grad(params, cfg, batch, remat="none")
+    l4, m4, g4 = value_and_grad(params, cfg, batch, remat="none",
+                                microbatches=4)
+    assert m4 == {} and tree_excess(g4, gn, TRAIN_GRAD_TOL) <= 1.0
+    assert abs(float(l4) - float(ln)) <= 1e-5 * abs(float(ln))
+
+
+def test_pipeline_batches_on_the_card_equal_the_cpu():
+    from repro_torch.data import WalkCorpusPipeline
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    V = 1 << 12
+    src, dst = rmat_edges(12, 8, seed=0)
+    w = degree_bias(src, dst, V, bias_bits=10)
+    cfg = tdg.BingoConfig(num_vertices=V, capacity=256, bias_bits=10)
+    out = {}
+    for device in ("cpu", "cuda"):
+        state = tdg.from_edges(cfg, src, dst, w, device=device)
+        pipe = WalkCorpusPipeline(state, cfg, walkers_per_round=512,
+                                  seq_len=128, batch_size=8, seed=21)
+        ops.reset_launch_counts()
+        out[device] = [next(pipe) for _ in range(12)]
+        assert ops.launch_counts()["walk_fused"] == \
+            (pipe.rounds if device == "cuda" else 0)
+        assert all(b["inputs"].device.type == device for b in out[device])
+    for a, b in zip(out["cpu"], out["cuda"]):
+        for k in ("inputs", "targets"):
+            assert torch.equal(a[k], b[k].cpu())
+
+
+def test_bf16_moment_checkpoint_round_trip_on_the_card(tmp_path):
+    bf16_checkpoint_check(str(tmp_path))
+
+
+def test_launch_train_on_the_card(tmp_path):
+    train_driver_check({}, str(tmp_path))
