@@ -72,7 +72,7 @@ Phases (any failure exits non-zero and prints no result line):
    counters zeroed just before and read just after: a node2vec batch
    (``WalkParams("node2vec", 80, p=0.5, q=2.0)``), a per-step deepwalk and
    a per-step simple batch (``whole_walk=False``), all through
-   ``DynamicWalkEngine.walk`` from the same 262,144 starts; then 2,000
+   ``DynamicWalkEngine.walk`` from the same 262,144 starts; then 500
    mixed single-edge updates through ``stream_updates``, held against a
    host simulation of the same sequence and against a rebuild of the
    touched vertices.  Each batch is checked as the main path's are, and
@@ -253,6 +253,30 @@ Phases (any failure exits non-zero and prints no result line):
    checkpoints every 10, into a temporary directory (the restored tree
    equal to the saved one bit for bit), then with 40 steps, which must
    resume from step 30.
+3k. After phase 3j: the dry run of the walk cells (``dryrun_phase``).
+   ``python -m repro_torch.launch.dryrun --all`` in a subprocess: the
+   eight cells on a fake world of 256 ranks (fake tensors, nothing
+   launched), every cell must run; beside it, in another, the dry run
+   of one rank's share on a fake world of one.  Then that share of FULL (its
+   163,840 rows at C = 1024, 16 bias bits, 16,384 walkers of L = 80,
+   102,400-update batches; the serving round's walk bucket cut to 256 of
+   its 65,536 starts) on a power-law graph of mean degree 35, capped at
+   C (``rank_graph``): ``walk_step``, ``walk_whole``, ``update_step``,
+   ``update_walk``, ``walk_relay``, ``serve_round`` and ``update_walk`` at
+   C' = 2C (``RANK_CELLS``), each for real through ``build_walk_cell``
+   on ``make_local_mesh()`` (a one-rank NCCL group;
+   ``rank_cell_checks``): the argument bytes must equal the dry run's,
+   the fake peak be at most 10 % under the real one
+   (``RANK_PEAK_UNDER``), each cell's kernels (B4a; B1; B2; B2 + B1; B3;
+   B3 + B2) must launch, and its outputs (paths, updated state, stats)
+   must equal the same cell's built on ``plain_backend()`` (each
+   kernel's plain version, the same draws) at C = 1024 and 2048; the
+   real ms (median of 5) beside the
+   predicted max(compute, memory) and the kernel byte model beside the
+   walks' real needs are printed.  Last, one dependent row gather's
+   latency (``dma_latency``: B1 with 2 walkers an SM, ms / L) beside
+   ``launch/hw.py``'s ``DMA_LATENCY``, and the card's ``total_memory``
+   beside ``HBM_BYTES``.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -295,6 +319,7 @@ import gc
 import hashlib
 import json
 import math
+import os
 import pickle
 import shutil
 import statistics
@@ -311,15 +336,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-OPS_PER_S = 67e12                  # H100 SXM float32 outside the tensor cores
-TC_BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
-TC_TF32_FLOPS = 494.7e12           # H100 SXM dense TF32 tensor-core rate
+from repro_torch.launch import hw  # noqa: E402  (the card's constants)
+from repro_torch.launch.roofline import MEAN_DEGREE, bound  # noqa: E402,F401
 WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
 FRONTIER_STEP = 40                 # B4b timed on this column of simple paths
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
-STREAM_UPDATES = 2000
+STREAM_UPDATES = 500
 SHARDS = 4                         # ranks of the sharded phase, on one card
 SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
 RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
@@ -1134,14 +1157,6 @@ def check_distribution(name, nxt, want, V):
     return {"tv": tv, "tv_bound": b, "samples": n}
 
 
-def bound(nbytes, nops):
-    """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and 32-bit operations over the float32 rate outside the tensor cores
-    (the published table has no separate integer rate)."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def walk_work(path, deg, uniform):
     """The work this run's walks need, each input word read once.
 
@@ -1342,7 +1357,7 @@ def main_path(args, report):
         b_ms, b_by = bound(work["bytes"], work["ops"])
         walks[kind] = dict(work, ms=ms, plain_ms=plain_ms, max_abs_err=err,
                            bound_ms=b_ms, bound_by=b_by,
-                           step_bytes_ms=work["step_bytes"] / HBM_BYTES_PER_S * 1e3,
+                           step_bytes_ms=work["step_bytes"] / hw.HBM_BW * 1e3,
                            steps_per_s=work["alive_steps"] / ms * 1e3)
         print(f"walk_fused {kind}: {ms:.3f} ms, {work['alive_steps']} alive "
               f"steps ({work['alive_steps'] / ms / 1e3:.1f} M steps/s); "
@@ -1782,7 +1797,7 @@ def per_step_paths(engine, cfg, starts, report, profile_dir=None):
         if uniform:
             work["sector_bytes"] = uniform_sectors(
                 rows, got[1], st.nbr.shape[1], uu.shape[1])
-            work["sector_ms"] = work["sector_bytes"] / HBM_BYTES_PER_S * 1e3
+            work["sector_ms"] = work["sector_bytes"] / hw.HBM_BW * 1e3
             sectors = (f"; at 32 B a sector {work['sector_bytes'] / 1e6:.3f} MB "
                        f"-> {work['sector_ms']:.5f} ms")
         print(f"{name}: {ms:.4f} ms for {len(rows)} walkers in place at the "
@@ -2414,7 +2429,7 @@ MESH_SHAPE, MESH_DIMS = (2, 2), ("data", "walker")
 WALKER_AXES = ("walker",)
 MESH_TIMEOUT_S = 360                # phase 3h's ranks, all together
 MESH_BATCHES = (("deepwalk", True), ("deepwalk", False), ("simple", False))
-BASELINE_UPDATES, BASELINE_SEED = 100, 30
+BASELINE_UPDATES, BASELINE_SEED = 20, 30
 
 
 def growth_edges(src, dst, w, V, C, n, rng):
@@ -2615,7 +2630,7 @@ class ServingProbe:
             self.migration = {
                 "ms": a.elapsed_time(b), "wall_ms": wall,
                 "old_bytes": old, "new_bytes": new,
-                "bound_ms": (old + new) / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": (old + new) / hw.HBM_BW * 1e3,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                 "digest": digest(state_leaves(eng.state)),
                 "edges": row_edges(eng.state),
@@ -2633,7 +2648,7 @@ class ServingProbe:
         for w, a, b, B, slots in self.classify_log:
             nbytes = B * (1 + 4 + 4 + 4 + 4 + 4) + 4 * int(slots)
             row = {"ms": a.elapsed_time(b), "bytes": nbytes,
-                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                   "bound_ms": nbytes / hw.HBM_BW * 1e3}
             (retry.append(row) if w is None else cls.__setitem__(w, row))
         ops_ = [op for op in trace if isinstance(op, UpdateOp)]
         for i, (win, op) in enumerate(zip(self.windows, ops_)):
@@ -4306,7 +4321,7 @@ def train_phase(report, card):
     emb = params["embed"]
     gl = torch.randn((tokens, cfg.vocab_size), device="cuda")
     head_ms, _ = cuda_ms(lambda: (x @ emb.T, gl @ emb, gl.T @ x))
-    head_bound = 3 * 2 * tokens * cfg.d_model * cfg.vocab_size / OPS_PER_S
+    head_bound = 3 * 2 * tokens * cfg.d_model * cfg.vocab_size / hw.OPS_PER_S
     del x, gl
     med = statistics.median(step_ms)
     pipe_ms = (sum(pipe.walk_ms) + sum(pipe.pack_ms)) / TRAIN_STEPS
@@ -4332,11 +4347,11 @@ def train_phase(report, card):
           f"{statistics.median(pipe.pack_ms):.2f} ms a round (median), "
           f"{pipe_ms:.2f} ms a step; {out['tokens_per_s']:.0f} tokens/s, "
           f"model {out['model_tflops']:.1f} TFLOP/s (6 N tokens; bf16 "
-          f"tensor-core peak {TC_BF16_FLOPS / 1e12:.0f}); peak "
+          f"tensor-core peak {hw.PEAK_FLOPS_BF16 / 1e12:.0f}); peak "
           f"{peak:.2f} GiB above the phase's start; {syncs} host syncs in "
           f"one step; the f32 head product and its two gradient products "
           f"alone {head_ms:.2f} ms (bound {head_bound * 1e3:.2f} ms at "
-          f"{OPS_PER_S / 1e12:.0f} TFLOP/s); loss {losses[0]:.4f} -> last 5 mean "
+          f"{hw.OPS_PER_S / 1e12:.0f} TFLOP/s); loss {losses[0]:.4f} -> last 5 mean "
           f"{statistics.mean(losses[-5:]):.4f} (drop {drop:.3f}, limit "
           f"{TRAIN_LOSS_DROP}); launches {counts}; the first round and the "
           f"{round_i} update rounds equal their plain versions; "
@@ -4420,6 +4435,400 @@ def train_phase(report, card):
           f"{out['driver']['loss_last']:.4f}, launches "
           f"{out['driver']['launches']}", flush=True)
     return served
+
+
+# phase 3k: the kernels each one-rank cell must launch (its dry run's
+# cells are ``repro_torch.launch.dryrun.RANK_CELLS``)
+RANK_KERNELS = {"walk_step": ("walk_sample",), "walk_whole": ("walk_fused",),
+                "update_step": ("update_fused",),
+                "update_walk": ("update_fused", "walk_fused"),
+                "walk_relay": ("walk_segment",),
+                "serve_round": ("walk_segment", "update_fused")}
+RANK_REPS = 5                      # timed runs a cell (median)
+RANK_PEAK_UNDER = 0.10             # the fake peak may sit this far under
+DMA_WALKERS_PER_SM = 2
+DRYRUN_TIMEOUT_S = 300
+
+
+def rank_graph(V, C, seed=0):
+    """``(src, dst, w)``: a power-law graph on V vertices whose degrees
+    (Pareto, tail exponent 2.2, capped at C) average MEAN_DEGREE (FULL's
+    source, roofline.py);
+    neighbours uniform, biases in [1, 2^16)."""
+    rng = np.random.default_rng(seed)
+    x = rng.pareto(1.2, V) + 1.0
+
+    def mean_at(s):
+        return np.minimum(np.floor(s * x), C).mean()
+    lo, hi = 0.1, 100.0
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if mean_at(mid) < MEAN_DEGREE else (lo, mid)
+    deg = np.minimum(np.floor(lo * x), C).astype(np.int64)
+    src = np.repeat(np.arange(V, dtype=np.int32), deg)
+    dst = rng.integers(0, V, src.size, dtype=np.int32)
+    w = rng.integers(1, 1 << 16, src.size, dtype=np.int32)
+    return src, dst, w
+
+
+def rank_args(cell, proto, state, src, dst, rng):
+    """Real arguments of ``cell`` shaped as its fake ``proto``: ``state``
+    for the state, start vertices uniform over its rows, an update batch
+    of half inserts of new edges and half deletes of existing ones, every
+    lane live."""
+    import torch
+    V, dev = state.nbr.shape[0], state.nbr.device
+    out = []
+    for name, p in zip(cell.meta["args"], proto):
+        if name == "state":
+            out.append(state)
+        elif name == "seed":
+            out.append(7)
+        elif name in ("walkers", "starts"):
+            out.append(torch.from_numpy(rng.integers(
+                0, V, p.shape[0], dtype=np.int32)).to(dev))
+        elif name == "is_insert":
+            ins = np.zeros(p.shape[0], bool)
+            ins[: p.shape[0] // 2] = True
+            rng.shuffle(ins)
+            pick = rng.integers(0, src.size, p.shape[0])
+            uv = {"u": np.where(ins, rng.integers(0, V, ins.size), src[pick]),
+                  "v": np.where(ins, rng.integers(0, V, ins.size), dst[pick]),
+                  "w": rng.integers(1, 1 << 16, ins.size)}
+            out.append(torch.from_numpy(ins).to(dev))
+        elif name in ("u", "v", "w"):
+            out.append(torch.from_numpy(uv[name].astype(np.int32)).to(dev))
+        elif name == "lanes":
+            out.append(torch.ones(p.shape[0], dtype=torch.bool, device=dev))
+        else:
+            raise SmokeFailure(f"{cell.shape_name}: no real argument for "
+                               f"{name!r}")
+    return tuple(out)
+
+
+def storage_bytes(tree):
+    """Bytes of the distinct storages among ``tree``'s tensors."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+    seen = {}
+    for t in tree_flatten(tree)[0]:
+        if isinstance(t, torch.Tensor):
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_runs(*runs):
+    """Each of ``runs``, ``(out_dir, *args)``, as ``python -m
+    repro_torch.launch.dryrun --all --out out_dir *args`` in a subprocess
+    of its own, all at once (their fake worlds never meet this process's
+    groups); their output printed, each run's JSONs returned by label
+    (shape[tag]), in the order of ``runs``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for out_dir, *args in runs:
+            Path(out_dir).mkdir(parents=True, exist_ok=True)
+            log = open(Path(out_dir) / "dryrun.log", "w+")
+            procs.append((out_dir, args, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--out", str(out_dir), *args], stdout=log,
+                stderr=subprocess.STDOUT, text=True, env=env,
+                cwd=str(ROOT))))
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        out = []
+        for out_dir, args, log, proc in procs:
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log.seek(0)
+            text = log.read()
+            print(text, end="", flush=True)
+            need(rc == 0, f"the dry run {args} exited {rc}: {text[-2000:]}")
+            docs = {}
+            for f in sorted(Path(out_dir).glob("*.json")):
+                d = json.loads(f.read_text())
+                tag = d["meta"].get("overrides", {}).get("tag")
+                docs[d["shape"] + (f"[{tag}]" if tag else "")] = d
+            out.append(docs)
+        return out
+    finally:
+        for _, _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def dryrun_cli(out_dir, *args):
+    """``dryrun_runs`` of the one run ``(out_dir, *args)``: its docs."""
+    return dryrun_runs((out_dir, *args))[0]
+
+
+def plain_backend():
+    """The fused engine backend with each kernel's plain version in its
+    place, on the same draws: a cell built on it computes what the
+    kernels of the same cell must."""
+    import torch
+    from repro_torch.core.backend import FusedBackend, segment_args
+    from repro_torch.kernels.update_fused import update_fused_ref
+    from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
+    from repro_torch.kernels.walk_sample import walk_sample_ref
+
+    class Plain(FusedBackend):
+        name = "plain"
+
+        def sample_step(self, state, cfg, u, gen):
+            rows = u.to(torch.int32).contiguous()
+            extended = cfg.fp_bias or cfg.base_log2 > 1
+            uu = torch.rand((rows.shape[0], 5 if extended else 3),
+                            generator=gen, device=gen.device)
+            return walk_sample_ref(
+                state.itable.prob, state.itable.alias, state.bias, state.nbr,
+                state.deg, uu, state.frac if cfg.fp_bias else None,
+                base_log2=cfg.base_log2, rows=rows)
+
+        def sample_walk(self, state, cfg, starts, seed, params, u=None):
+            need(params.kind in ("deepwalk", "ppr", "simple"),
+                 f"plain_backend: no whole walk for {params.kind}")
+            stop = float(params.stop_prob) if params.kind == "ppr" else 0.0
+            return walk_fused_ref(
+                state.itable.prob, state.itable.alias, state.bias, state.nbr,
+                state.deg, state.frac if cfg.fp_bias else None, starts, u,
+                seed=seed, length=params.length, base_log2=cfg.base_log2,
+                stop_prob=stop, uniform=params.kind == "simple")
+
+        def sample_walk_segment(self, state, cfg, starts, t0, seed, params,
+                                u=None, wid=None):
+            args, kw = segment_args(state, cfg, starts, t0, seed, params, u,
+                                    wid)
+            return walk_segment_ref(*args, **kw)
+
+        def apply_updates(self, state, cfg, is_insert, u, v, w, active=None):
+            return update_fused_ref(state, cfg, is_insert, u, v, w, active)
+
+    return Plain()
+
+
+def same_outputs(got, want, what):
+    """Fails unless a cell's kernel outputs ``got`` equal its plain
+    outputs ``want`` leaf by leaf (states through ``state_diff``)."""
+    import torch
+    from repro_torch.core.dyngraph import BingoState
+    if isinstance(got, BingoState):
+        state_diff(got, want, what)
+    elif isinstance(got, torch.Tensor):
+        need(isinstance(want, torch.Tensor) and got.shape == want.shape
+             and got.dtype == want.dtype,
+             f"{what}: kernel {tuple(got.shape)} {got.dtype}, plain "
+             f"{getattr(want, 'shape', want)}")
+        need(torch.equal(got, want), f"{what}: kernel != plain "
+             f"({int((got != want).sum())} of {got.numel()} entries differ)")
+    elif isinstance(got, (tuple, list)):
+        need(type(got) is type(want) and len(got) == len(want),
+             f"{what}: kernel and plain outputs differ in structure")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_outputs(g, w, f"{what}[{i}]")
+    else:
+        need(got == want, f"{what}: kernel {got!r}, plain {want!r}")
+
+
+def rank_cell_checks(out, docs, wcfg, card):
+    """Each one-rank cell of the dry run's ``docs`` (``dryrun_cli`` with
+    ``--mesh 1x1 --sizing rank``) run for real through ``build_walk_cell``
+    on ``make_local_mesh()`` over the caller's one-rank NCCL world:
+    argument bytes equal, the fake peak at most RANK_PEAK_UNDER under the
+    real one, the cell's kernels (RANK_KERNELS) launched, and its outputs
+    (paths, updated state, stats) equal to the same cell's on
+    ``plain_backend()`` on the same inputs; real against predicted ms and
+    the kernel byte models against the walks' real needs printed; then
+    ``dma_latency``.  Returns the launches by kernel."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core.dyngraph import BingoConfig, from_edges
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import RANK_CELLS, fake_device
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.walk_cell import build_walk_cell
+    V, C = wcfg.num_vertices, wcfg.capacity
+    t0 = time.perf_counter()
+    src, dst, w = rank_graph(V, C)
+    states = {}
+    for mult in sorted({(ov or {}).get("capacity_mult", 1)
+                        for _, ov in RANK_CELLS}):
+        cfg = BingoConfig(V, C * mult, bias_bits=wcfg.bias_bits)
+        states[mult] = from_edges(cfg, src, dst, w, device="cuda")
+    torch.cuda.synchronize()
+    out["graph"] = {"vertices": V, "edges": int(src.size),
+                    "mean_degree": src.size / V,
+                    "max_degree": int(np.bincount(src, minlength=V).max()),
+                    "build_s": time.perf_counter() - t0}
+    print(f"phase 3k: one rank of FULL: {V} rows, C = {C}, {src.size} edges "
+          f"(mean degree {src.size / V:.1f}, max {out['graph']['max_degree']}), "
+          f"built in {out['graph']['build_s']:.1f} s", flush=True)
+    launches = {}
+    rng = np.random.default_rng(3)
+    mesh = make_local_mesh()
+    plain_bk = plain_backend()
+    cells = out["cells"] = {}
+    need(len(docs) == len(RANK_CELLS), f"the one-rank dry run wrote "
+         f"{len(docs)} cells, want {len(RANK_CELLS)}")
+    for shape, ov in RANK_CELLS:
+        ov = ov or {}
+        want = RANK_KERNELS[shape]
+        label = shape + (f"[{ov['tag']}]" if "tag" in ov else "")
+        doc = docs[label]
+        cell = build_walk_cell(shape, mesh, ov, wcfg)
+        with FakeTensorMode():
+            proto = cell.args(fake_device())
+        base = states[ov.get("capacity_mult", 1)]
+        args = rank_args(cell, proto, base, src, dst, rng)
+        donating = bool(cell.donate)
+
+        def fresh():
+            return (clone_state(base),) + args[1:] if donating else args
+        call = fresh()
+        real_args = storage_bytes(call)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = cell.fn(*call)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        real_peak = torch.cuda.max_memory_allocated() - before + real_args
+        ms, res = cuda_ms(lambda a: cell.fn(*a), reps=RANK_REPS,
+                          setup=fresh)
+        for k, v in ops.launch_counts().items():    # the first run's too
+            launches[k] = launches.get(k, 0) + v
+        mem = doc["memory_analysis"]
+        pred_ms = max(doc["t_compute"], doc["t_memory"]) * 1e3
+        row = {"real_ms": ms, "pred_ms": pred_ms, "ratio": ms / pred_ms,
+               "t_collective_ms": doc["t_collective"] * 1e3,
+               "real_arg_bytes": real_args,
+               "fake_arg_bytes": mem["argument_size_in_bytes"],
+               "real_peak_bytes": real_peak,
+               "fake_peak_bytes": mem["total_nonalias_bytes"],
+               "launches": {k: counts[k] for k in want},
+               "kernel_model": doc["meta"]["kernels"]}
+        row["peak_fake_over_real"] = row["fake_peak_bytes"] / real_peak
+        walked = kernel_need(shape, cell, call, res)
+        if walked is not None:
+            name, need_b = walked
+            row["kernel_need_bytes"] = {name: need_b}
+            row["model_over_need"] = \
+                doc["meta"]["kernels"][name]["bytes"] / need_b
+        cells[label] = row
+        print(f"  {label}: real {ms:.3f} ms, predicted max(compute, "
+              f"memory) {pred_ms:.3f} ms (ratio {ms / pred_ms:.2f}); "
+              f"peak real {real_peak / 2**30:.3f} GiB, fake "
+              f"{row['fake_peak_bytes'] / 2**30:.3f} GiB "
+              f"({row['peak_fake_over_real']:.3f}); arguments "
+              f"{real_args} B real, {row['fake_arg_bytes']} B fake; "
+              f"launches {row['launches']}"
+              + ("" if walked is None else
+                 f"; {walked[0]} model {doc['meta']['kernels'][walked[0]]['bytes'] / 1e9:.3f} "
+                 f"GB against {walked[1] / 1e9:.3f} GB needed "
+                 f"({row['model_over_need']:.1f}x)"), flush=True)
+        need(real_args == row["fake_arg_bytes"],
+             f"{label}: argument bytes {real_args} real, "
+             f"{row['fake_arg_bytes']} fake")
+        need(row["fake_peak_bytes"] >= (1 - RANK_PEAK_UNDER) * real_peak,
+             f"{label}: the fake peak {row['fake_peak_bytes']} B is more "
+             f"than {RANK_PEAK_UNDER:.0%} under the real {real_peak} B")
+        need(all(counts[k] > 0 for k in want),
+             f"{label}: launches {counts}, want {want}")
+        t_plain = time.perf_counter()
+        plain = build_walk_cell(shape, mesh, ov, wcfg, backend=plain_bk)
+        counted = ops.launch_counts()
+        same_outputs(res, plain.fn(*fresh()), f"phase 3k {label}")
+        torch.cuda.synchronize()
+        need(ops.launch_counts() == counted, f"{label}: the plain cell "
+             f"launched a kernel")
+        row["plain_s"] = time.perf_counter() - t_plain
+        print(f"  {label}: outputs equal the plain cell's at C = "
+              f"{base.nbr.shape[1]} ({row['plain_s']:.1f} s)", flush=True)
+        del call, res
+    out["dma"] = dma_latency(states[1], wcfg, card)
+    return launches
+
+
+def kernel_need(shape, cell, call, res):
+    """``(kernel, bytes)`` the cell's walk kernel needed on this run's data
+    (``walk_work``/``sample_work``), or None for an update-only cell."""
+    st = call[0]
+    if shape in ("walk_whole", "update_walk"):
+        paths = res if shape == "walk_whole" else res[1]
+        return "walk_fused", walk_work(paths, st.deg, False)["bytes"]
+    if shape in ("walk_relay", "serve_round"):
+        paths = res[0] if shape == "walk_relay" else res[1]
+        return "walk_segment", walk_work(paths, st.deg, False)["bytes"]
+    if shape == "walk_step":
+        import torch
+        rows = call[1].clamp(0, st.nbr.shape[0] - 1)
+        nxt = torch.zeros_like(rows)          # every row drawn, one hop each
+        return "walk_sample", sample_work(rows, nxt, st.deg, 3, False)["bytes"]
+    return None
+
+
+def dma_latency(state, wcfg, card):
+    """One dependent row gather's latency: B1's whole walk of
+    DMA_WALKERS_PER_SM walkers an SM over L steps on the one-rank state,
+    median device ms / L, beside ``hw.DMA_LATENCY``."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, L = DMA_WALKERS_PER_SM * sms, wcfg.walk_length
+    starts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, state.nbr.shape[0], B, dtype=np.int32)).cuda()
+    st = state
+    ms, _ = cuda_ms(lambda: ops.walk_fused(
+        st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg, None,
+        starts, 11, length=L), reps=5)
+    lat = ms / L * 1e-3
+    print(f"{card}: DMA_LATENCY measured {lat * 1e6:.3f} us ({B} walkers, "
+          f"L = {L}, {ms:.3f} ms); launch/hw.py holds "
+          f"{hw.DMA_LATENCY * 1e6:.3f} us", flush=True)
+    return {"walkers": B, "length": L, "ms": ms, "seconds": lat,
+            "hw_seconds": hw.DMA_LATENCY}
+
+
+def dryrun_phase(report, card):
+    """Phase 3k: the dry run of the walk cells on a fake 256-rank world
+    and on a fake world of one at one rank's share (two subprocesses at
+    once, ``dryrun_runs``), then that share for real on the card over a
+    one-rank NCCL group (``rank_cell_checks``).  Returns the real runs'
+    launches by kernel."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.walk_cell import one_rank_share
+    out = report["dryrun"] = {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    t0 = time.perf_counter()
+    docs, fake = dryrun_runs((tmp / "pod16x16",),
+                             (tmp / "rank", "--mesh", "1x1", "--sizing",
+                              "rank"))
+    need(len(docs) == 8, f"the dry run wrote {len(docs)} cells, want 8")
+    out["pod16x16"] = {k: {"gib": d["memory_analysis"]["total_nonalias_bytes"]
+                           / 2**30, "fit": d["hbm_fit"],
+                           "t_ms": {t: d[t] * 1e3 for t in (
+                               "t_compute", "t_memory", "t_collective")}}
+                       for k, d in docs.items()}
+    out["dryruns_s"] = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["total_memory"] = total
+    print(f"{card}: total_memory {total} B ({total / 2**30:.2f} GiB); "
+          f"launch/hw.py's HBM_BYTES {hw.HBM_BYTES} B", flush=True)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1)
+    try:
+        launches = rank_cell_checks(out, fake, one_rank_share(), card)
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: phase 3k {out['phase_s']:.1f} s (the two dry runs "
+          f"{out['dryruns_s']:.1f} s)", flush=True)
+    return launches
 
 
 def attention_pairs(S, T, causal, window):
@@ -4539,13 +4948,13 @@ def attention_phase(report):
         flops = 4 * D * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         # f32 to f32 accuracy on the tensor cores is three TF32 products
-        work, rate = (flops, TC_BF16_FLOPS) if is16 else \
-            (3 * flops, TC_TF32_FLOPS)
-        b_ms = max(work / rate, nbytes / HBM_BYTES_PER_S) * 1e3
-        b_by = "operations" if work / rate >= nbytes / HBM_BYTES_PER_S \
+        work, rate = (flops, hw.PEAK_FLOPS_BF16) if is16 else \
+            (3 * flops, hw.TC_TF32_FLOPS)
+        b_ms = max(work / rate, nbytes / hw.HBM_BW) * 1e3
+        b_by = "operations" if work / rate >= nbytes / hw.HBM_BW \
             else "bytes"
         old_b_ms = None if is16 else max(
-            flops / OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            flops / hw.OPS_PER_S, nbytes / hw.HBM_BW) * 1e3
         try:        # the yardstick: a library fault does not fail the smoke
             if w:
                 pos = torch.arange(S, device="cuda")
@@ -4861,6 +5270,12 @@ def main():
     torch.cuda.empty_cache()
     # ---- phase 3j: training on a live walk corpus at full width
     more = timed("3j training", train_phase, report, card)
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    # ---- phase 3k: the walk cells' dry run, held against one rank's share
+    more = timed("3k dry run", dryrun_phase, report, card)
     for k in kernels:
         k["launches"] += more.get(k["name"], 0)
     peak = max(peak, torch.cuda.max_memory_allocated())

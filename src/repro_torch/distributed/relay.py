@@ -70,6 +70,7 @@ import time
 import torch
 
 from repro_torch.distributed.walker_exchange import exchange_walkers, route_tag
+from repro_torch.kernels import _fake
 
 __all__ = ["slot_count", "round_bound", "RelayPendingCensus",
            "RelayIntegrityError", "RelayLayout", "relay_layout", "relay_view",
@@ -356,6 +357,10 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     issuing and waiting on its exchanges and ``reduce_s`` those of its
     closing all-reduce, which waits for the round's device work.
 
+    On fake tensors (the dry run) the loop runs exactly one round, issues
+    every collective and reads nothing on the host; ``diagnostics`` and
+    ``census`` raise there.
+
     Returns ``(home (W/S, L+1) int32, rounds, overflow)`` — this rank's
     home block of the stitched paths (vertex ids global; walker wid's row
     lives on vertex shard ``(wid - wid_base) // (W/S)`` of its group), the
@@ -426,7 +431,12 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
     if census:      # a bitmap of finished wids (+ a drop row), faults
         fin = torch.zeros(W + 1, dtype=torch.bool, device=dev)
         faults = torch.zeros(3, dtype=i32, device=dev)
-    pending = int(_all_reduce(resident0.sum().reshape(1), sync_group)[0])
+    # Fake tensors (the dry run) cannot be read on the host: the loop
+    # runs exactly one round with every collective issued and nothing
+    # read, as the reference's cost analysis counts a while body once.
+    fake = _fake.is_fake(state.nbr)
+    pending = _all_reduce(resident0.sum().reshape(1), sync_group)
+    pending = 1 if fake else int(pending[0])
     rounds = ovf = 0
 
     def to_home(wid, rows, ok):
@@ -553,7 +563,8 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
             (waiting[:, 0] >= 0).sum() + (outbox[:, 0] >= 0).sum()
             + (pend_wid >= 0).sum(), (n_spill_w + n_spill_p).to(torch.int64)])
         t_x = time.perf_counter()
-        pending, spilled = _all_reduce(counts, sync_group).tolist()
+        counts = _all_reduce(counts, sync_group)
+        pending, spilled = (0, 0) if fake else counts.tolist()
         ovf += spilled
         rounds += 1
         if trace is not None:
@@ -564,6 +575,9 @@ def relay_local(bk, lcfg, params, state, walkers, seed: int, u=None, *,
         raise RelayIntegrityError(RelayPendingCensus(
             rounds=rounds, pending_at_exit=pending, max_rounds=max_rounds))
     outs = (acc[:Wb], rounds, ovf)
+    if fake and (diagnostics or census):
+        raise ValueError("a dry run (fake tensors) reads no diagnostics "
+                         "or census")
     if diagnostics:
         outs += (int(_all_reduce(peak.reshape(1), sync_group, "max")[0]),)
     if census:

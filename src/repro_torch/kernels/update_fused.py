@@ -31,7 +31,8 @@ and nothing waits on the host.
 
 ``update_fused`` dispatches by the device of the state: CPU tensors run
 the plain version ``update_fused_ref`` (= ``core/updates.batched_update``),
-CUDA tensors launch the kernels, anything else raises.
+CUDA tensors launch the kernels, fake tensors launch nothing (``_fake``),
+anything else raises.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from repro_torch.core.dyngraph import BingoConfig, BingoState
 from repro_torch.core.updates import (NUM_REASONS, R_ABSENT, R_CAPACITY,
                                       R_VERTEX, UpdateStats, _padded_unique,
                                       batched_update)
+from repro_torch.kernels import _fake
 
 __all__ = ["update_fused", "update_fused_ref", "UpdatePlan", "plan_round",
            "launch_round", "stats_of"]
@@ -252,15 +254,36 @@ def launch_round(state: BingoState, cfg: BingoConfig,
     return stats_of(plan.stats)
 
 
+def _fake_round(state, cfg, u) -> UpdateStats:
+    """A round on fake tensors: ``plan_round``'s buffers (the sort key,
+    the sorted key and its order; the split biases, the first flags and
+    their running count, the plan's ten lane arrays), the stats buffer
+    returned, and the kernel's record."""
+    B = u.shape[0]
+    _fake.record("update_fused", lanes=B, vertices=state.nbr.shape[0],
+                 capacity=cfg.capacity,
+                 num_radix=cfg.num_radix, group_capacity=cfg.group_capacity,
+                 kin=cfg.num_inter, fp=int(cfg.fp_bias),
+                 adaptive=int(cfg.adaptive))
+    dev = state.nbr.device
+    plan = [torch.empty(B, dtype=torch.int64, device=dev) for _ in range(3)]
+    plan += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(14)]
+    del plan
+    return stats_of(torch.zeros(STATS_LEN, dtype=torch.int32, device=dev))
+
+
 def update_fused(state: BingoState, cfg: BingoConfig, is_insert, u, v, w,
                  active=None):
     """One batched §5.2 round: ``(state, UpdateStats)``, state in place.
 
     Same contract as ``core/updates.batched_update``, which is also what
     runs for CPU tensors.  For CUDA tensors: the prepass, one kernel
-    launch, the stats read from the kernel's buffer; no host sync.
+    launch, the stats read from the kernel's buffer; no host sync.  Fake
+    tensors launch nothing (``_fake``).
     """
     dev = state.nbr.device
+    if _fake.is_fake(state.nbr):
+        return state, _fake_round(state, cfg, u)
     if dev.type == "cpu":
         return update_fused_ref(state, cfg, is_insert, u, v, w, active)
     if dev.type != "cuda":

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels.walk_sample import sample_rows, uniform_pick
 
 __all__ = ["NUM_UNIFORMS", "fmix32", "uniforms_at", "hash_uniforms",
@@ -216,6 +217,17 @@ def _tables(prob, alias, bias, nbr, deg, frac, starts, u, length, uniform,
     return prob, alias, bias, frac, V, C, Kin, ucols
 
 
+def _fake_walk(name, prob, nbr, frac, starts, length, uniform):
+    """A walk kernel's ``(path, frontier)`` shapes on fake tensors, and
+    its record (walkers, steps, row width, alias-row width, fp mode)."""
+    B = starts.shape[0]
+    _fake.record(name, walkers=B, length=length, capacity=nbr.shape[1],
+                 kin=0 if uniform else prob.shape[1],
+                 fp=int(frac is not None and not uniform))
+    i32 = dict(dtype=torch.int32, device=nbr.device)
+    return torch.empty((B, length + 1), **i32), torch.empty((B, 2), **i32)
+
+
 def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
                length: int, base_log2: int = 1, stop_prob: float = 0.0,
                uniform: bool = False):
@@ -225,7 +237,11 @@ def walk_fused(prob, alias, bias, nbr, deg, frac, starts, seed=0, u=None, *,
     ``u`` optional fed uniforms).  CPU tensors run ``walk_fused_ref``;
     CUDA tensors launch ``csrc/walk_fused.cu``; anything else raises.
     ``uniform=True`` (the ``simple`` kind) reads only ``nbr``/``deg``.
+    Fake tensors launch nothing (``_fake``).
     """
+    if _fake.is_fake(nbr):
+        return _fake_walk("walk_fused", prob, nbr, frac, starts, length,
+                          uniform)[0]
     if nbr.device.type == "cpu":
         return walk_fused_ref(prob, alias, bias, nbr, deg, frac, starts, u,
                               base_log2=base_log2, stop_prob=stop_prob,
@@ -264,8 +280,12 @@ def walk_segment(prob, alias, bias, nbr, deg, frac, starts, t0, seed, u=None,
     ``wid`` (B,) int32 slot → walker id map (default ``arange(B)``).  CPU
     tensors run ``walk_segment_ref``; CUDA tensors launch the segment entry
     of ``csrc/walk_fused.cu``; anything else raises.  Returns ``(path
-    (B, L+1), frontier (B, 2))`` int32.
+    (B, L+1), frontier (B, 2))`` int32.  Fake tensors launch nothing
+    (``_fake``).
     """
+    if _fake.is_fake(nbr):
+        return _fake_walk("walk_segment", prob, nbr, frac, starts, length,
+                          uniform)
     if nbr.device.type == "cpu":
         return walk_segment_ref(prob, alias, bias, nbr, deg, frac, starts, t0,
                                 u, wid, length=length, base_log2=base_log2,

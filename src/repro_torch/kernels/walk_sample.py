@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _fake
 
 __all__ = ["its_pick", "sample_rows", "uniform_pick", "walk_sample_ref",
            "walk_sample_uniform_ref", "walk_sample", "walk_sample_uniform"]
@@ -174,6 +174,12 @@ def _batch(nbr, u, rows):
     return B, nbr.shape[0]
 
 
+def _fake_pair(u, nbr):
+    """``(nxt, slot)`` shapes on fake tensors (``_fake``)."""
+    return tuple(torch.empty(u.shape[0], dtype=torch.int32, device=nbr.device)
+                 for _ in range(2))
+
+
 def walk_sample(prob, alias, bias, nbr, deg, u, frac=None, *,
                 base_log2: int = 1, rows=None):
     """One two-stage Bingo sample per walker, dispatched by the device of
@@ -186,9 +192,15 @@ def walk_sample(prob, alias, bias, nbr, deg, u, frac=None, *,
     position).  R == B (gathered rows) unless ``rows`` (B,) int32 names
     each walker's row of the (V, ·) tables; every entry must lie in
     [0, V), which the kernel does not check.  Returns ``(nxt (B,), slot
-    (B,))`` int32; -1 on empty rows.
+    (B,))`` int32; -1 on empty rows.  Fake tensors launch nothing
+    (``_fake``).
     """
     _check_u(u, base_log2, frac)
+    if _fake.is_fake(nbr):
+        _fake.record("walk_sample", walkers=u.shape[0], capacity=nbr.shape[1],
+                     kin=prob.shape[1], fp=int(frac is not None),
+                     ucols=u.shape[1])
+        return _fake_pair(u, nbr)
     if nbr.device.type == "cpu":
         return walk_sample_ref(prob, alias, bias, nbr, deg, u, frac,
                                base_log2=base_log2, rows=rows)
@@ -224,8 +236,13 @@ def walk_sample_uniform(nbr, deg, u, *, rows=None):
 
     nbr (R, C) i32, deg (R,) i32, u (B, ≥1) uniforms (column 0 is used);
     R == B unless ``rows`` (B,) int32 names each walker's row.  Returns
-    ``(nxt (B,), slot (B,))`` int32; -1 where the degree is 0.
+    ``(nxt (B,), slot (B,))`` int32; -1 where the degree is 0.  Fake
+    tensors launch nothing (``_fake``).
     """
+    if _fake.is_fake(nbr):
+        _fake.record("walk_sample_uniform", walkers=u.shape[0],
+                     capacity=nbr.shape[1], kin=0, fp=0, ucols=u.shape[1])
+        return _fake_pair(u, nbr)
     if nbr.device.type == "cpu":
         return walk_sample_uniform_ref(nbr, deg, u, rows=rows)
     if nbr.device.type != "cuda":

@@ -1,2 +1,3 @@
 """Drivers (mirrors ``repro.launch``): the LM serving and training
-drivers."""
+drivers, and the dry-run harness of the walk cells (``dryrun``,
+``report``)."""

@@ -51,7 +51,10 @@ engine on the card answering with the CPU engine's greedy tokens.  Training: eve
 arch's ``loss_fn`` and gradients on the card against the CPU; remat and microbatches against
 the plain step on the card; the walk-corpus pipeline's batches on the card equal to the CPU's
 for the same seed (the whole-walk kernel against its plain version); a bfloat16-moment
-checkpoint round trip; ``launch.train`` defaulting to the card and resuming there.  A CUDA kernel has no
+checkpoint round trip; ``launch.train`` defaulting to the card and resuming there.  The dry
+run: B1, B3, B4a and B2's wrappers launch once on CUDA tensors and never on
+fake ones (the kernel's output shapes), and ``chip_smoke.py`` phase 3k's
+one-rank cells against their dry run (``rank_cell_checks``).  A CUDA kernel has no
 CPU mode, so these tests carry the ``cuda`` marker and skip where there
 is no card.  The file imports
 nothing of JAX, so on a card without JAX it runs with
@@ -392,17 +395,21 @@ def test_wide_rows_walk_sample_kernels_equal_plain(base_log2, fp, in_place):
 
 
 @pytest.mark.parametrize("base_log2,fp", [(1, False), (2, True)])
-@pytest.mark.parametrize("C", [37, 300, 512])
+@pytest.mark.parametrize("C", [37, 300, 512, 1024, 2048])
 def test_unaligned_and_long_rows_equal_plain(C, base_log2, fp):
     """Capacities the sampler's 16-byte loads cannot take (C = 37: rows
     not 16-byte aligned) and rows past its 256-slot window (C = 300,
     degrees up to 300; C = 512, the serving ladder's regrown width,
-    degrees up to 512): whole walks (deepwalk, simple), the segment entry
-    and the per-step samples (in place and gathered), bit for bit."""
+    degrees up to 512; C = 1024 and 2048 at 16 bias bits, FULL's widths
+    and its capacity-ladder top tier): whole walks (deepwalk, simple), the
+    segment entry and the per-step samples (in place and gathered), bit
+    for bit."""
     degrees = tuple(d for d in (0, 1, 3, 4, 5, 15, 16, 17, 31, 32, 33, 36,
-                                37, 255, 256, 257, 299, 300, 511, 512)
+                                37, 255, 256, 257, 299, 300, 511, 512, 513,
+                                1023, 1024, 1025, 2047, 2048)
                     if d <= C)
-    st, cfg = _wide_state(fp, base_log2, V=640, C=C, degrees=degrees)
+    st, cfg = _wide_state(fp, base_log2, V=max(640, C + 64), C=C,
+                          bits=16 if C >= 1024 else 8, degrees=degrees)
     V, B, L = cfg.num_vertices, 600, 12
     rows = _wide_rows(B, V, 13, n=len(degrees))
     tabs = (st.itable.prob, st.itable.alias, st.bias, st.nbr, st.deg)
@@ -484,14 +491,16 @@ def _same_stats(s_ref, s_got):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
-@pytest.mark.parametrize("C", [37, 256, 300, 512])
+@pytest.mark.parametrize("C", [37, 256, 300, 512, 1024, 2048])
 @pytest.mark.parametrize("adaptive,fp,base_log2", UPDATE_CONFIGS)
 def test_update_kernel_unaligned_and_wide_rows(C, adaptive, fp, base_log2):
     """Mixed rounds at a capacity that is not a multiple of 32, at the
-    main path's 256, past it and at the regrown 512 (fewer rows a block);
-    rows of degree up to C // 2 + a round."""
+    main path's 256, past it, at the regrown 512 (fewer rows a block) and
+    at FULL's 1024 and its top tier's 2048 with 16 bias bits; rows of
+    degree up to C // 2 + a round."""
     V = 24
-    st, cfg = _state(V, C, fp, base_log2, adaptive=adaptive, seed=C)
+    st, cfg = _state(V, C, fp, base_log2, adaptive=adaptive, seed=C,
+                     bits=16 if C >= 1024 else 6)
     ref = _clone(st)
     rng = np.random.default_rng(C + base_log2 * 7 + fp * 3 + adaptive)
     nbr = st.nbr.cpu().numpy()
@@ -1125,3 +1134,65 @@ def test_bf16_moment_checkpoint_round_trip_on_the_card(tmp_path):
 
 def test_launch_train_on_the_card(tmp_path):
     train_driver_check({}, str(tmp_path))
+
+
+# ---------------------------------------------------------------------------
+# the dry run: fake tensors launch nothing, real ones always launch
+# ---------------------------------------------------------------------------
+
+def _wrapper_call(name, st, cfg):
+    """One call of kernel wrapper ``name`` (B1, B3, B4a or B2) on ``st``;
+    returns its output tensors."""
+    dev = st.nbr.device
+    zeros = torch.zeros(4, dtype=torch.int32, device=dev)
+    if name == "walk_fused":
+        return (ops.walk_fused(st.itable.prob, st.itable.alias, st.bias,
+                               st.nbr, st.deg, None, zeros, 1, length=4),)
+    if name == "walk_segment":
+        return ops.walk_segment(st.itable.prob, st.itable.alias, st.bias,
+                                st.nbr, st.deg, None, zeros, zeros, 1,
+                                length=4)
+    if name == "walk_sample":
+        return ops.walk_sample(st.itable.prob, st.itable.alias, st.bias,
+                               st.nbr, st.deg,
+                               torch.zeros((4, 3), device=dev), rows=zeros)
+    lanes = (torch.ones(4, dtype=torch.bool, device=dev), zeros,
+             zeros + 3, zeros + 5)
+    _, stats = ops.update_fused(st, cfg, *lanes)
+    return tuple(stats[:4])
+
+
+@pytest.mark.parametrize("name", ["walk_fused", "walk_segment", "walk_sample",
+                                  "update_fused"])
+def test_wrappers_launch_on_real_tensors_and_never_on_fake(name):
+    """On CUDA tensors each wrapper of the dry run's path launches once; on
+    fake copies of the same tensors it launches nothing and returns the
+    kernel's output shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    st, cfg = _state(16, 32, False, 1)
+    ops.reset_launch_counts()
+    real = _wrapper_call(name, _clone(st), cfg)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == 1
+    mode = FakeTensorMode()
+    fake_st = tdg.BingoState(*[
+        None if x is None else
+        (type(x)(*[mode.from_tensor(y) for y in x]) if isinstance(x, tuple)
+         else mode.from_tensor(x)) for x in st])
+    with mode:
+        fake = _wrapper_call(name, fake_st, cfg)
+    assert ops.launch_counts()[name] == 1
+    assert [(f.shape, f.dtype) for f in fake] == \
+        [(r.shape, r.dtype) for r in real]
+
+
+def test_rank_cells_hold_their_dry_run(nccl_group, tmp_path):
+    """Phase 3k's checks: one rank's share of each walk cell through the
+    dry run (a subprocess) and for real on the card."""
+    from chip_smoke import dryrun_cli, rank_cell_checks
+    from repro_torch.launch.walk_cell import one_rank_share
+    docs = dryrun_cli(tmp_path, "--mesh", "1x1", "--sizing", "rank")
+    out = {}
+    launches = rank_cell_checks(out, docs, one_rank_share(), "card")
+    assert all(launches.get(k, 0) > 0 for k in (
+        "walk_fused", "walk_segment", "walk_sample", "update_fused"))

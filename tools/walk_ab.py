@@ -310,12 +310,13 @@ def main():
     if not torch.cuda.is_available():
         print("walk_ab: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import (FRONTIER_STEP, HBM_BYTES_PER_S, WALK_LEN,
+    from chip_smoke import (FRONTIER_STEP, WALK_LEN,
                             PPR_LEN, PPR_STOP, annotation_span, bound,
                             card_line, clone_state, cuda_ms,
                             degree_histogram, flash_excess, sample_launches,
                             sample_work, trace_counts, uniform_sectors)
     from repro_torch.kernels.flash_attention import flash_attention_ref32
+    from repro_torch.launch import hw
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.walk_fused import walk_fused_ref, walk_segment_ref
     from repro_torch.kernels.walk_sample import (walk_sample_ref,
@@ -586,7 +587,7 @@ def main():
         report["uniform"][case] = dict(work, bound_ms=b_ms, sector_bytes=sb)
         print(f"{case}: word bound {work['bytes'] / 1e6:.3f} MB -> "
               f"{b_ms:.5f} ms; at 32 B a sector {sb / 1e6:.3f} MB -> "
-              f"{sb / HBM_BYTES_PER_S * 1e3:.5f} ms", flush=True)
+              f"{sb / hw.HBM_BW * 1e3:.5f} ms", flush=True)
     if args.uniform:
         # the kernel on its path: one per-step simple walk a tree, all
         # in one profiler session
