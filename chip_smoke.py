@@ -116,7 +116,7 @@ Phases (any failure exits non-zero and prints no result line):
    unbounded queues, takes seeded open-loop bursts of 1-3 requests a tick:
    the main path's 10 mixed rounds, then four insert-only windows of
    100,000 edges that a capacity-256 build drops from rows of degree at
-   most 512 (``growth_edges``), and 40 walk requests of 1-65,536 starts.
+   most 512 (``growth_edges``), and 18 walk requests of 1-65,536 starts.
    ``ServingProbe`` times each window (host ingest; the classifier by CUDA
    events beside its bytes bound), each drain and the migration (beside
    old tables read once + new written once at 3.35 TB/s), and pins the
@@ -254,8 +254,8 @@ Phases (any failure exits non-zero and prints no result line):
    equal to the saved one bit for bit), then with 40 steps, which must
    resume from step 30.
 3k. After phase 3j: the dry run of the walk cells (``dryrun_phase``).
-   ``python -m repro_torch.launch.dryrun --all`` in a subprocess: the
-   eight cells on a fake world of 256 ranks (fake tensors, nothing
+   ``python -m repro_torch.launch.dryrun --all --arch-filter bingo-walk``
+   in a subprocess: the eight cells on a fake world of 256 ranks (fake tensors, nothing
    launched), every cell must run; beside it, in another, the dry run
    of one rank's share on a fake world of one.  Then that share of FULL (its
    163,840 rows at C = 1024, 16 bias bits, 16,384 walkers of L = 80,
@@ -277,6 +277,29 @@ Phases (any failure exits non-zero and prints no result line):
    latency (``dma_latency``: B1 with 2 walkers an SM, ms / L) beside
    ``launch/hw.py``'s ``DMA_LATENCY``, and the card's ``total_memory``
    beside ``HBM_BYTES``.
+3l. After phase 3k: the dry run's LM cells (``lm_dryrun_phase``).
+   qwen2-0.5b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+   through ``dryrun --all --arch-filter qwen2-0.5b`` on a fake world of
+   256 ranks (DTensor params, moments, batch and cache; fake tensors on
+   ``cuda``; every cell must run), and beside it at one rank's share on
+   a fake world of one (``--mesh 1x1 --sizing rank``: each shape's
+   global batch cut to 1); both start beside phase 3k's dry runs and
+   are collected with them, before 3k's timed part
+   (``lm_dryrun_start``, ``lm_dryrun_collect``).  Then the counter
+   on fake ``cuda`` DTensors of this torch (``counter_check``: an FSDP x
+   TP matmul counts the rank's local work and the weight's all-gather,
+   a second call and a second SMOKE decode cell count what the first
+   did).  Then that share for real at FULL width
+   (vocab 151,936, 24 layers, bf16 compute) through ``build_cell`` on
+   ``make_local_mesh()`` over a one-rank NCCL group
+   (``lm_rank_cell_checks``): argument bytes equal the dry run's, the
+   fake peak at most 10 % under the real one, the DTensor cell's outputs
+   (the step's loss, params and moments; prefill's last-position
+   logits; decode's logits and cache) equal to the same function on
+   plain tensors bit for bit (the k projection's bias, whose gradient
+   is zero in exact arithmetic, within 1e-6: ``LM_NOISE_LEAVES``), no
+   kernel launched (the LM cells call none); real ms (median of 5)
+   beside the predicted max(compute, memory) and their ratio, printed.
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -346,7 +369,7 @@ STREAM_UPDATES = 500
 SHARDS = 4                         # ranks of the sharded phase, on one card
 SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
 RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
-PPR_RELAY_STRIDE = 4               # phase 3c's ppr relay: every 4th start
+PPR_RELAY_STRIDE = 8               # phase 3c's ppr relay: every 8th start
 # (B, H, Hkv, S, T, D, dtype, causal, window): flash_attention vs plain
 FLASH_CASES = [
     (1, 32, 8, 8192, 8192, 128, "bfloat16", True, 4096),    # Mixtral widths
@@ -2415,7 +2438,7 @@ SERVE_SEED = 20
 SERVE_LADDER = (256, 512)
 SERVE_WALK_BUCKETS = (16384, 65536, 262144)
 SERVE_RETRY_BATCH = 65536
-SERVE_WALKS, SERVE_MAX_REQ = 40, 65536
+SERVE_WALKS, SERVE_MAX_REQ = 18, 65536
 GROWTH_WINDOWS = 4
 NO_SYNC_WINDOW = 1                 # this window runs under sync debug "error"
 CHECK_VERTICES = 4096
@@ -4518,12 +4541,11 @@ def storage_bytes(tree):
     return sum(seen.values())
 
 
-def dryrun_runs(*runs):
-    """Each of ``runs``, ``(out_dir, *args)``, as ``python -m
+def dryrun_start(*runs):
+    """Start each of ``runs``, ``(out_dir, *args)``, as ``python -m
     repro_torch.launch.dryrun --all --out out_dir *args`` in a subprocess
-    of its own, all at once (their fake worlds never meet this process's
-    groups); their output printed, each run's JSONs returned by label
-    (shape[tag]), in the order of ``runs``."""
+    of its own (their fake worlds never meet this process's groups);
+    ``dryrun_collect`` waits for them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
     try:
@@ -4535,10 +4557,29 @@ def dryrun_runs(*runs):
                  "--out", str(out_dir), *args], stdout=log,
                 stderr=subprocess.STDOUT, text=True, env=env,
                 cwd=str(ROOT))))
-        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    except BaseException:
+        dryrun_stop(procs)
+        raise
+    return {"procs": procs, "deadline": time.monotonic() + DRYRUN_TIMEOUT_S}
+
+
+def dryrun_stop(procs):
+    for _, _, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_collect(started):
+    """The started runs' output printed, each run's JSONs returned by
+    label (shape[tag]), in the order they were started; every run must
+    exit 0 by its deadline."""
+    try:
         out = []
-        for out_dir, args, log, proc in procs:
-            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        for out_dir, args, log, proc in started["procs"]:
+            rc = proc.wait(timeout=max(1.0, started["deadline"]
+                                       - time.monotonic()))
             log.seek(0)
             text = log.read()
             print(text, end="", flush=True)
@@ -4551,11 +4592,12 @@ def dryrun_runs(*runs):
             out.append(docs)
         return out
     finally:
-        for _, _, log, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
+        dryrun_stop(started["procs"])
+
+
+def dryrun_runs(*runs):
+    """``dryrun_start`` then ``dryrun_collect`` of ``runs``."""
+    return dryrun_collect(dryrun_start(*runs))
 
 
 def dryrun_cli(out_dir, *args):
@@ -4791,12 +4833,14 @@ def dma_latency(state, wcfg, card):
             "hw_seconds": hw.DMA_LATENCY}
 
 
-def dryrun_phase(report, card):
+def dryrun_phase(report, card, lm=None):
     """Phase 3k: the dry run of the walk cells on a fake 256-rank world
     and on a fake world of one at one rank's share (two subprocesses at
     once, ``dryrun_runs``), then that share for real on the card over a
-    one-rank NCCL group (``rank_cell_checks``).  Returns the real runs'
-    launches by kernel."""
+    one-rank NCCL group (``rank_cell_checks``).  ``lm``, phase 3l's dry
+    runs (``lm_dryrun_start``), is collected before the real part, so
+    that no dry run shares the host with its timing.  Returns the real
+    runs' launches by kernel."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.walk_cell import one_rank_share
@@ -4804,15 +4848,17 @@ def dryrun_phase(report, card):
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
     t0 = time.perf_counter()
-    docs, fake = dryrun_runs((tmp / "pod16x16",),
-                             (tmp / "rank", "--mesh", "1x1", "--sizing",
-                              "rank"))
+    docs, fake = dryrun_runs((tmp / "pod16x16", "--arch-filter", "bingo-walk"),
+                             (tmp / "rank", "--arch-filter", "bingo-walk",
+                              "--mesh", "1x1", "--sizing", "rank"))
     need(len(docs) == 8, f"the dry run wrote {len(docs)} cells, want 8")
     out["pod16x16"] = {k: {"gib": d["memory_analysis"]["total_nonalias_bytes"]
                            / 2**30, "fit": d["hbm_fit"],
                            "t_ms": {t: d[t] * 1e3 for t in (
                                "t_compute", "t_memory", "t_collective")}}
                        for k, d in docs.items()}
+    if lm is not None:
+        lm_dryrun_collect(lm)
     out["dryruns_s"] = time.perf_counter() - t0
     total = torch.cuda.get_device_properties(0).total_memory
     out["total_memory"] = total
@@ -4826,9 +4872,302 @@ def dryrun_phase(report, card):
         dist.destroy_process_group()
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"{card}: phase 3k {out['phase_s']:.1f} s (the two dry runs "
-          f"{out['dryruns_s']:.1f} s)", flush=True)
+    print(f"{card}: phase 3k {out['phase_s']:.1f} s (the dry runs "
+          f"{out['dryruns_s']:.1f} s" + (", phase 3l's among them)"
+                                         if lm is not None else ")"),
+          flush=True)
     return launches
+
+
+# phase 3l: the dry run's LM cells, LM_ARCH's three
+LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+LM_SEED = 9
+
+
+def local_tree(tree):
+    """``tree`` with each DTensor replaced by its local shard."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.to_local() if type(t).__name__ == "DTensor"
+                    else t, tree)
+
+
+def clone_tree(tree):
+    """A copy of ``tree`` (dicts, tuples, OptStates, tensors, None)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*[clone_tree(v) for v in tree]) \
+            if hasattr(tree, "_fields") else tuple(clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def lm_inputs(name, shape, cfg, plan):
+    """The plain global inputs of qwen2-0.5b's cell ``name`` at ``shape``
+    on the card: params drawn from a seeded generator, zero moments of
+    the plan's type, uniform token ids, a zero cache written at position
+    ``seq_len // 2``."""
+    import torch
+    from repro_torch.models.model import init_decode_cache, init_model
+    from repro_torch.train.optim import OptConfig, adamw_init
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    params = init_model(cfg, gen)
+    B, S = shape.global_batch, shape.seq_len
+
+    def ids(*dims):
+        return torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                             device="cuda", dtype=torch.int32)
+    if name == "decode_32k":
+        return (params, ids(B), torch.full((B,), S // 2, dtype=torch.int32,
+                                           device="cuda"),
+                init_decode_cache(cfg, B, S, device="cuda"))
+    if name == "prefill_32k":
+        return (params, {"inputs": ids(B, S)})
+    opt = adamw_init(params, OptConfig(moment_dtype=plan["moment_dtype"]))
+    return (params, opt, None, {"inputs": ids(B, S), "targets": ids(B, S)})
+
+
+# phase 3l: a leaf of the train step whose gradient is zero in exact
+# arithmetic (a bias added to every key shifts all of a query's logits
+# alike, which the softmax ignores), so its update, moments included, is
+# rounding noise: held within this of the plain run's, not bit for bit
+# (on the card 4 of its 3,072 entries differed by up to 1.04e-9 in the
+# params; every other leaf of every cell was equal bit for bit)
+LM_NOISE_LEAVES = (".attn.bk",)
+LM_NOISE_ABS = 1e-6
+
+
+def same_tree(got, want, what, noise=None):
+    """Fails unless ``got`` equals ``want`` leaf by leaf, bit for bit;
+    leaves whose path ends with one of ``LM_NOISE_LEAVES`` within
+    LM_NOISE_ABS, their largest difference appended to ``noise``."""
+    import torch
+    if isinstance(want, dict):
+        need(isinstance(got, dict) and sorted(got) == sorted(want),
+             f"{what}: keys differ")
+        for k in want:
+            same_tree(got[k], want[k], f"{what}.{k}", noise)
+    elif isinstance(want, (tuple, list)):
+        need(len(got) == len(want), f"{what}: lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_tree(g, w, f"{what}[{i}]", noise)
+    elif isinstance(want, torch.Tensor):
+        need(got.shape == want.shape and got.dtype == want.dtype,
+             f"{what}: {tuple(got.shape)} {got.dtype} against "
+             f"{tuple(want.shape)} {want.dtype}")
+        if noise is not None and what.endswith(LM_NOISE_LEAVES):
+            d = float((got.double() - want.double()).abs().max())
+            noise.append((what, d))
+            need(d <= LM_NOISE_ABS, f"{what}: {d:.3e} from the plain run")
+            return
+        need(torch.equal(got, want), f"{what}: "
+             f"{int((got != want).sum())} of {got.numel()} entries differ")
+    else:
+        need(got == want, f"{what}: {got!r} against {want!r}")
+
+
+def lm_rank_cell_checks(out, docs, card):
+    """qwen2-0.5b's three cells at one rank's share (``rank_shape``: the
+    global batch cut to 1 of 256) at FULL width, built through
+    ``build_cell`` on ``make_local_mesh()`` over the caller's one-rank
+    NCCL world, for real: argument bytes equal the dry run's
+    (``docs``, ``--mesh 1x1 --sizing rank``), the fake peak at most
+    RANK_PEAK_UNDER under the real one, the outputs (the train step's
+    loss and updated params and moments, prefill's logits, decode's
+    logits and cache) equal to the same function's on plain tensors bit
+    for bit (``LM_NOISE_LEAVES`` within LM_NOISE_ABS), no kernel
+    launched; real ms (median of RANK_REPS) printed
+    beside the predicted max(compute, memory)."""
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.specs import build_cell, place, rank_shape
+    mesh = make_local_mesh()
+    cfg = get_config(LM_ARCH)
+    cells = out["lm_cells"] = {}
+    need(sorted(docs) == sorted(LM_SHAPES), f"the one-rank LM dry run wrote "
+         f"{sorted(docs)}, want {sorted(LM_SHAPES)}")
+    for name in LM_SHAPES:
+        doc = docs[name]
+        shape = rank_shape(SHAPES[name])
+        cell = build_cell(LM_ARCH, name, mesh, shape=shape)
+        vals = lm_inputs(name, shape, cfg, cell.meta.get("plan"))
+        plain = clone_tree(vals)
+        args = place(vals, cell.specs, mesh)
+        real_args = storage_bytes(local_tree(args))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counted = ops.launch_counts()
+        res = cell.fn(*args)
+        torch.cuda.synchronize()
+        real_peak = torch.cuda.max_memory_allocated() - before + real_args
+        res = local_tree(res)
+        want = cell.fn(*plain)
+        torch.cuda.synchronize()
+        noise = []
+        same_tree(res, want, f"phase 3l {name}: the DTensor cell against "
+                  f"the plain one", noise)
+        del want, plain
+        ms, _ = cuda_ms(lambda: cell.fn(*args), reps=RANK_REPS)
+        need(ops.launch_counts() == counted, f"phase 3l {name}: a kernel "
+             f"launched")
+        mem = doc["memory_analysis"]
+        pred_ms = max(doc["t_compute"], doc["t_memory"]) * 1e3
+        row = cells[name] = {
+            "real_ms": ms, "pred_ms": pred_ms, "ratio": ms / pred_ms,
+            "real_arg_bytes": real_args,
+            "fake_arg_bytes": mem["argument_size_in_bytes"],
+            "real_peak_bytes": real_peak,
+            "fake_peak_bytes": mem["total_nonalias_bytes"],
+            "batch": shape.global_batch, "seq_len": shape.seq_len,
+            "noise_leaves_max_abs": max((d for _, d in noise), default=0.0)}
+        row["peak_fake_over_real"] = row["fake_peak_bytes"] / real_peak
+        print(f"  {name} ({shape.global_batch} x {shape.seq_len}): real "
+              f"{ms:.3f} ms, predicted max(compute, memory) {pred_ms:.3f} "
+              f"ms (ratio {ms / pred_ms:.2f}); peak real "
+              f"{real_peak / 2**30:.3f} GiB, fake "
+              f"{row['fake_peak_bytes'] / 2**30:.3f} GiB "
+              f"({row['peak_fake_over_real']:.3f}); arguments {real_args} B "
+              f"real, {row['fake_arg_bytes']} B fake; outputs equal the "
+              f"plain function's bit for bit"
+              + (f" but {', '.join(w.rsplit(']', 1)[-1] for w, _ in noise)} "
+                 f"(zero gradient in exact arithmetic) within "
+                 f"{row['noise_leaves_max_abs']:.2e}" if noise else ""),
+              flush=True)
+        need(real_args == row["fake_arg_bytes"],
+             f"phase 3l {name}: argument bytes {real_args} real, "
+             f"{row['fake_arg_bytes']} fake")
+        need(row["fake_peak_bytes"] >= (1 - RANK_PEAK_UNDER) * real_peak,
+             f"phase 3l {name}: the fake peak {row['fake_peak_bytes']} B is "
+             f"more than {RANK_PEAK_UNDER:.0%} under the real {real_peak} B")
+        del args, res, vals
+        torch.cuda.empty_cache()
+
+
+def counter_check(card, device="cuda"):
+    """The cost counter on DTensors over fake ``device`` tensors, as this
+    torch runs it: on a fake world of 16 ranks (a 4 x 4 ``data`` x
+    ``model`` mesh) an FSDP x TP matmul counts the rank's local
+    ``2 m k n``, its local operands' and output's bytes and exactly the
+    all-gather of the weight's FSDP shard, and a second identical call
+    counts what the first did (DTensor's sharding propagation, cached
+    after the first call, is never counted: ``roofline._hide_propagation``
+    raises where it cannot hide it); then qwen2-0.5b SMOKE's decode cell
+    on a fake world of 256 counts the same twice.  No group may be alive
+    in this process."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.launch import dryrun, roofline
+    F32 = 4
+    want = (2 * 8 * 64 * 32, F32 * (8 * 64 + 64 * 32 + 8 * 32),
+            F32 * 16 * 32)
+    got = []
+    with dryrun.fake_world(16):
+        mesh = init_device_mesh(device, (4, 4),
+                                mesh_dim_names=("data", "model"))
+        mode = FakeTensorMode()
+        with mode:
+            x = DTensor.from_local(torch.zeros(8, 64, device=device), mesh,
+                                   [Shard(0), Replicate()], run_check=False)
+            w = DTensor.from_local(torch.zeros(16, 32, device=device), mesh,
+                                   [Shard(0), Shard(1)], run_check=False)
+        for _ in range(2):
+            c = roofline.CostCounter()
+            c.track_args((x, w))
+            with mode, c:
+                c.finish(torch.matmul(x, w))
+            got.append((c.flops, c.bytes, sum(c.coll.values()),
+                        c.coll["all_gather"]))
+    need(got[0] == got[1], f"counter: a second matmul counted {got[1]}, "
+         f"the first {got[0]}")
+    need(got[0][:3] == want and got[0][3] == want[2],
+         f"counter: the FSDP x TP matmul counted (FLOPs, bytes, collective "
+         f"bytes, all-gather) {got[0]}, want {want + want[2:]}")
+    cfg = smoke_config(LM_ARCH)
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=16,
+                                global_batch=16)
+    docs = []
+    with dryrun.fake_world(256):
+        mesh = init_device_mesh(device, (16, 16),
+                                mesh_dim_names=("data", "model"))
+        for _ in range(2):
+            d = dryrun.run_cell(LM_ARCH, "decode_32k", mesh=mesh, cfg=cfg,
+                                lm_shape=shape, out_dir=None, verbose=False)
+            docs.append((d["flops_per_device"], d["bytes_per_device"],
+                         d["coll_breakdown"]))
+    need(docs[0] == docs[1], f"counter: {LM_ARCH} SMOKE decode counted "
+         f"{docs[1]} the second time, {docs[0]} the first")
+    print(f"{card}: counter on fake {device} DTensors (torch "
+          f"{torch.__version__}): matmul {got[0][0]:.0f} FLOPs, "
+          f"{got[0][1]:.0f} B, all-gather {got[0][3]:.0f} B, twice the same; "
+          f"{LM_ARCH} SMOKE decode {docs[0][0]:.0f} FLOPs twice the same",
+          flush=True)
+    return {"matmul": got[0], "smoke_decode": docs[0][:2]}
+
+
+def lm_dryrun_start():
+    """Phase 3l's two dry runs of qwen2-0.5b's LM cells, started: on a
+    fake 256-rank world, and on a fake world of one at one rank's share
+    (the smoke starts them beside phase 3k's dry runs and collects them
+    with those, before 3k's timed part: ``lm_dryrun_collect``)."""
+    tmp = Path(tempfile.mkdtemp(prefix="lm_dryrun_"))
+    return {"tmp": tmp, "t0": time.perf_counter(), "docs": None,
+            "runs": dryrun_start(
+                (tmp / "pod16x16", "--arch-filter", LM_ARCH),
+                (tmp / "rank", "--arch-filter", LM_ARCH, "--mesh", "1x1",
+                 "--sizing", "rank"))}
+
+
+def lm_dryrun_collect(lm):
+    """Wait for ``lm``'s dry runs (``lm_dryrun_start``), once: their
+    docs."""
+    if lm["docs"] is None:
+        t = time.perf_counter()
+        lm["docs"] = dryrun_collect(lm["runs"])
+        lm["dryruns_s"] = time.perf_counter() - lm["t0"]
+        lm["wait_s"] = time.perf_counter() - t
+    return lm["docs"]
+
+
+def lm_dryrun_phase(report, card, started=None):
+    """Phase 3l: qwen2-0.5b's LM cells through the dry run
+    (``lm_dryrun_start``, unless ``started``), then one rank's share for
+    real on the card over a one-rank NCCL group
+    (``lm_rank_cell_checks``)."""
+    import torch.distributed as dist
+    out = report["lm_dryrun"] = {}
+    t_phase = time.perf_counter()
+    lm = started or lm_dryrun_start()
+    tmp = lm["tmp"]
+    docs, fake = lm_dryrun_collect(lm)
+    need(sorted(docs) == sorted(LM_SHAPES), f"the LM dry run wrote "
+         f"{sorted(docs)}, want {sorted(LM_SHAPES)}")
+    out["pod16x16"] = {k: {"gib": d["memory_analysis"]["total_nonalias_bytes"]
+                           / 2**30, "fit": d["hbm_fit"],
+                           "useful": d["useful_ratio"],
+                           "bottleneck": d["bottleneck"],
+                           "t_ms": {t: d[t] * 1e3 for t in (
+                               "t_compute", "t_memory", "t_collective")}}
+                       for k, d in docs.items()}
+    out["dryruns_s"] = lm["dryruns_s"]
+    out["dryruns_wait_s"] = lm["wait_s"]
+    out["counter"] = counter_check(card)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1)
+    try:
+        lm_rank_cell_checks(out, fake, card)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: phase 3l {out['phase_s']:.1f} s (the two dry runs "
+          f"{out['dryruns_s']:.1f} s from their start, "
+          f"{out['dryruns_wait_s']:.1f} s waited for, before 3k's "
+          f"timing when 3k collected them)", flush=True)
 
 
 def attention_pairs(S, T, causal, window):
@@ -5275,9 +5614,18 @@ def main():
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     # ---- phase 3k: the walk cells' dry run, held against one rank's share
-    more = timed("3k dry run", dryrun_phase, report, card)
-    for k in kernels:
-        k["launches"] += more.get(k["name"], 0)
+    # (phase 3l's dry runs run beside its dry runs, done before its timing)
+    lm_runs = lm_dryrun_start()
+    try:
+        more = timed("3k dry run", dryrun_phase, report, card, lm_runs)
+        for k in kernels:
+            k["launches"] += more.get(k["name"], 0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        torch.cuda.empty_cache()
+        # ---- phase 3l: the LM cells' dry run, against one rank's share
+        timed("3l LM dry run", lm_dryrun_phase, report, card, lm_runs)
+    finally:
+        dryrun_stop(lm_runs["runs"]["procs"])
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
     # ---- phase 3e: attention at full width

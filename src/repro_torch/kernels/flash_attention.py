@@ -100,17 +100,20 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
 
 
 def attention_ref_chunked(q, k, v, *, causal=True, window=0, scale=None,
-                          q_chunk=1024):
+                          q_chunk=1024, q_offset=None):
     """``attention_ref`` over query chunks of ``q_chunk`` rows, chunk i at
-    ``q_offset = i * q_chunk`` as the reference places it; the whole at
-    once when S is not a multiple of the chunk."""
+    ``q_offset = i * q_chunk`` as the reference places it (plus
+    ``q_offset``, if given: the queries' first position, for a block of
+    the sequence); the whole at once when S is not a multiple of the
+    chunk."""
     S = q.shape[2]
     qc = min(q_chunk, S)
     if S % qc:
         return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+                             scale=scale, q_offset=q_offset)
     return torch.cat([attention_ref(q[:, :, i:i + qc], k, v, causal=causal,
-                                    window=window, scale=scale, q_offset=i)
+                                    window=window, scale=scale,
+                                    q_offset=(q_offset or 0) + i)
                       for i in range(0, S, qc)], dim=2)
 
 

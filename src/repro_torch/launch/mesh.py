@@ -18,10 +18,12 @@ def mesh_axes(shape: tuple) -> tuple:
     return ("pod", "data", "model")[-len(shape):]
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
-    return init_device_mesh("cuda", shape, mesh_dim_names=mesh_axes(shape))
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=mesh_axes(shape))
 
 
 def make_local_mesh():

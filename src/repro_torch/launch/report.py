@@ -4,10 +4,12 @@ Port of ``repro/launch/report.py``:
 
   PYTHONPATH=src python -m repro_torch.launch.report
 
-prints the table of every cell, the tagged variants (the capacity-ladder
-tiers), the GiB/dev changes against the JSONs committed at HEAD
-(``mem_deltas``) and, given bench snapshot files, their throughput
-changes against HEAD's (``perf_deltas``, same-stamp and
+prints the table of every cell (the LM cells' and the walk cells'; with
+``--arch-filter``, those of the archs whose name contains it), the cells
+``CELLS`` skips with their reasons, the tagged variants (the
+capacity-ladder tiers), the GiB/dev changes against the JSONs committed
+at HEAD (``mem_deltas``) and, given bench snapshot files, their
+throughput changes against HEAD's (``perf_deltas``, same-stamp and
 same-factorisation pairs only).
 """
 
@@ -18,6 +20,8 @@ import glob
 import json
 import os
 import subprocess
+
+from repro_torch.configs import CELLS
 
 __all__ = ["OUT_DIR", "REPO_ROOT", "load_all", "mem_deltas", "perf_deltas",
            "fmt_row", "HEADER", "main"]
@@ -165,8 +169,11 @@ def main(argv=None):
     ap.add_argument("--dir", default=OUT_DIR)
     ap.add_argument("--bench", nargs="*", default=(),
                     help="bench snapshot JSONs to diff against HEAD")
+    ap.add_argument("--arch-filter", default="",
+                    help="only the archs whose name contains it")
     args = ap.parse_args(argv)
-    rows = load_all(args.dir)
+    rows = {k: v for k, v in load_all(args.dir).items()
+            if args.arch_filter in k[1]}
     print("## Roofline table (generated by repro_torch.launch.report; "
           "H100 constants of launch/hw.py, predictions)\n")
     print(HEADER)
@@ -174,6 +181,13 @@ def main(argv=None):
     for key in sorted(rows):
         if not key[3]:
             print(fmt_row(rows[key]))
+    skips = [(a, c["shape"].name, c["reason"])
+             for a, cs in CELLS.items() for c in cs
+             if c["skip"] and args.arch_filter in a]
+    if skips:
+        print("\n### Skipped cells (DESIGN.md §4 policy)\n")
+        for a, sh, r in skips:
+            print(f"- {a} × {sh}: {r}")
     tagged = [(k, v) for k, v in rows.items() if k[3]]
     if tagged:
         print("\n### Capacity-ladder and other tagged variants\n")
@@ -182,7 +196,7 @@ def main(argv=None):
         for k, v in sorted(tagged):
             print(fmt_row(v).replace(f"| {v['shape']} ",
                                      f"| {v['shape']}[{k[3]}] "))
-    deltas = mem_deltas(args.dir)
+    deltas = [d for d in mem_deltas(args.dir) if args.arch_filter in d[0][1]]
     if deltas:
         print("\n### GiB/dev deltas vs committed snapshots (HEAD)\n")
         print("| mesh | arch | shape | GiB/dev HEAD | GiB/dev now "

@@ -19,8 +19,10 @@ c10d collective and every kernel wrapper's fake branch:
     (``kernel_work``) for each kernel wrapper;
   * bytes accessed — each aten op's tensor inputs plus outputs (views
     and uninitialised allocations move nothing), and a kernel's model;
-  * collective bytes — each c10d op's operand bytes by kind, as the
-    reference's HLO parse sums them, split by where the peers sit: a
+  * collective bytes — each c10d op's operand bytes by kind, and each
+    functional collective's (``_c10d_functional``: what DTensor
+    redistributes with), as the reference's HLO parse sums them, split
+    by where the peers sit: a
     collective over a group of S ranks sends to S − 1 peers equally (an
     all-to-all keeps its own 1/S), and the peers on this rank's node
     (ranks in blocks of ``hw.NODE_CARDS``) take their share over NVLink,
@@ -29,6 +31,17 @@ c10d collective and every kernel wrapper's fake branch:
   * memory — the bytes of the live fake storages, tracked op by op: the
     arguments, the outputs, the aliased outputs (arguments written in
     place and returned), and the peak during the call.
+
+On DTensors the counter counts one rank's work: it defers every op on a
+DTensor to DTensor's own dispatch (``NotImplemented``), and so sees the
+rank's local ops on its shards and the collectives that redistribute
+them; a DTensor's storage is its local shard's.  DTensor's planning
+(its sharding propagation, which runs the op at global shapes once per
+op signature, and its strided shards' offset helpers) runs hidden from
+it and outside the fake mode (``_hide_propagation``); on a CPU mesh a
+shard-to-shard move on fake tensors is the card's all-to-all, not
+gloo's all-gather fallback (``_alltoall_on_fake``).  Work inside a
+costed loop of ``models.steps`` counts ``scale`` times.
 
 MODEL_FLOPS keeps the reference's 6·N·D (train) / 2·N·D (inference)
 convention with N = active parameters.
@@ -68,6 +81,23 @@ _C10D = {"alltoall_base_": ("all_to_all_single", 1),
          "broadcast_": ("broadcast", 0),
          "send": ("send_recv", 0), "recv_": ("send_recv", 0)}
 
+# functional collective (and DTensor's all-to-all) -> kind (the operand
+# is argument 0, the group the last)
+_FUNCTIONAL = {"all_gather_into_tensor": "all_gather",
+               "all_gather_into_tensor_coalesced": "all_gather",
+               "reduce_scatter_tensor": "reduce_scatter",
+               "reduce_scatter_tensor_coalesced": "reduce_scatter",
+               "all_reduce": "all_reduce",
+               "all_reduce_coalesced": "all_reduce",
+               "all_to_all_single": "all_to_all_single",
+               "shard_dim_alltoall": "all_to_all_single",
+               "broadcast": "broadcast"}
+
+# the live-storage check (``CostCounter._note``): every storage while at
+# most this many are tracked, else the old ones this often (in ops)
+_OLD_EXACT = 512
+_OLD_EVERY = 64
+
 # ops that allocate without writing: no bytes, no operations
 _UNWRITTEN = ("empty", "empty_like", "empty_strided", "new_empty",
               "new_empty_strided")
@@ -75,6 +105,86 @@ _UNWRITTEN = ("empty", "empty_like", "empty_strided", "new_empty",
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+_PROPAGATING = [0]      # depth of DTensor's planning (sharding propagation)
+
+# DTensor's planning: the sharding propagation (whose shape inference
+# runs the op on global-shape fake tensors) and the shard-offset helpers
+# of its strided placements, which compute offsets with small tensors
+_PLANNING = (("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+              ("propagate_op_sharding_non_cached",
+               "_propagate_tensor_meta_non_cached")),
+             ("torch.distributed.tensor.placement_types", "_StridedShard",
+              ("local_shard_size_and_offset", "_local_shard_size_and_offset",
+               "_local_shard_size")))
+
+
+def _hide_propagation():
+    """Run DTensor's planning unseen by the counter and outside the fake
+    mode: it is bookkeeping at global shapes (once per op signature,
+    then cached), and its offset helpers read small tensors on the host,
+    which a fake tensor cannot give.  Raises if this torch lacks one of
+    the methods: the counter would then count the planning's ops."""
+    import importlib
+    import inspect
+    for mod, cls_name, names in _PLANNING:
+        cls = getattr(importlib.import_module(mod), cls_name, None)
+        for name in names:
+            raw = inspect.getattr_static(cls, name, None) if cls else None
+            if raw is None:
+                raise RuntimeError(
+                    f"roofline: torch {torch.__version__} has no "
+                    f"{mod}.{cls_name}.{name}, which the counter hides "
+                    f"(DTensor's planning, _PLANNING)")
+            if getattr(raw, "_hidden", False):
+                continue
+            kind = type(raw) if isinstance(raw, (staticmethod,
+                                                 classmethod)) else None
+            fn = raw.__func__ if kind else raw
+            hidden = _planning(fn)
+            setattr(cls, name, kind(hidden) if kind else hidden)
+
+
+def _alltoall_on_fake():
+    """DTensor's shard-to-shard move is an all-to-all
+    (``_dtensor.shard_dim_alltoall``), but on a CPU mesh DTensor falls
+    back to an all-gather and a chunk (gloo has no all-to-all).  On fake
+    tensors take the all-to-all, so a dry run on a CPU counts what the
+    card's would."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import placement_types as pt
+    fallback = pt.shard_dim_alltoall
+    if getattr(fallback, "_hidden", False):
+        return
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu" or not isinstance(input, FakeTensor):
+            return fallback(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
+
+    alltoall._hidden = True
+    pt.shard_dim_alltoall = alltoall
+
+
+def _planning(fn):
+    import functools
+
+    @functools.wraps(fn)
+    def hidden(*args, **kwargs):
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        _PROPAGATING[0] += 1
+        try:
+            with unset_fake_temporarily():
+                return fn(*args, **kwargs)
+        finally:
+            _PROPAGATING[0] -= 1
+
+    hidden._hidden = True
+    return hidden
 
 
 @dataclasses.dataclass
@@ -116,11 +226,14 @@ def analyze(*, arch: str, shape: str, mesh_name: str, chips: int,
     (``CostCounter.cost()``: ``flops``, ``bytes accessed``,
     ``collectives`` by kind, ``on_node``/``off_node`` bytes) and its
     ``mem`` (``CostCounter.memory()``).  The counter sees every
-    dispatch, each loop iteration included, so none of the reference's
-    loop-cost corrections applies; the relay's rounds are costed once
-    (``meta["rounds_costed"]``)."""
+    dispatch, each loop iteration included, so of the reference's
+    corrections only ``meta["flops_scale"]`` applies (an LM cell's MoE
+    lowered with every expert computed); the relay's rounds are costed
+    once (``meta["rounds_costed"]``) and the recurrences' time loops on
+    a bounded number of steps (``meta["steps_costed"]``)."""
     meta = meta or {}
-    flops = float(cost.get("flops", 0.0))
+    # dense MoE dispatch computes every expert: keep the active share
+    flops = float(cost.get("flops", 0.0)) * meta.get("flops_scale", 1.0)
     byts = float(cost.get("bytes accessed", 0.0))
     coll = {k: int(v) for k, v in cost.get("collectives", {}).items()}
     coll_total = float(sum(coll.values()))
@@ -269,14 +382,21 @@ class CostCounter(TorchDispatchMode):
 
     def __init__(self, share: Optional[dict] = None):
         super().__init__()
+        from torch.distributed.tensor import DTensor
+        _hide_propagation()
+        _alltoall_on_fake()
+        self._dtensor = DTensor
         self.share = dict(share or {})
+        self.scale = 1.0               # set by ``models.steps.costed``
         self.flops = 0.0
         self.bytes = 0.0
         self.coll = {k: 0 for k in COLLECTIVES}
         self.on_node = 0.0
         self.off_node = 0.0
         self.kernels: Dict[str, dict] = {}
-        self._live: dict = {}          # storage id -> (weak ref, bytes)
+        self._young: dict = {}         # storage id -> (weak ref, bytes)
+        self._old: dict = {}
+        self._ops = self._swept = 0
         self._live_bytes = 0
         self.peak = 0
         self.arg_ids: set = set()
@@ -289,20 +409,49 @@ class CostCounter(TorchDispatchMode):
         from torch.multiprocessing.reductions import StorageWeakRef
         out = {}
         for t in tree_flatten(tree)[0]:
+            if isinstance(t, self._dtensor):
+                t = t._local_tensor
             if isinstance(t, torch.Tensor):
                 ref = StorageWeakRef(t.untyped_storage())
                 out[ref.cdata] = (ref, t.untyped_storage().nbytes())
         return out
 
     def _note(self, tree):
-        """Track new storages, drop freed ones, update the peak."""
-        for k, (ref, n) in self._storages(tree).items():
-            if k not in self._live:
-                self._live[k] = (ref, n)
-                self._live_bytes += n
-        for k in [k for k, (ref, _) in self._live.items() if ref.expired()]:
-            self._live_bytes -= self._live.pop(k)[1]
+        """Track new storages; where the tracked bytes could set a new
+        peak, first drop the freed ones (those noted since the last
+        check, and all of them while at most ``_OLD_EXACT`` are tracked,
+        else every ``_OLD_EVERY`` ops), then update the peak.  Checking
+        every storage at every op costs time quadratic in a long call's
+        ops; the storages skipped can only raise the peak, never lower
+        it."""
+        for k, v in self._storages(tree).items():
+            if k not in self._young and k not in self._old:
+                self._young[k] = v
+                self._live_bytes += v[1]
+        self._ops += 1
+        if self._live_bytes <= self.peak:
+            return
+        self._sweep(self._young)
+        self._old.update(self._young)
+        self._young = {}
+        if self._live_bytes > self.peak and (
+                len(self._old) <= _OLD_EXACT
+                or self._ops - self._swept >= _OLD_EVERY):
+            self._sweep(self._old)
+            self._swept = self._ops
         self.peak = max(self.peak, self._live_bytes)
+
+    def _sweep(self, tracked: dict):
+        expired = torch.UntypedStorage._expired
+        for k in [k for k, (ref, _) in tracked.items() if expired(ref.cdata)]:
+            self._live_bytes -= tracked.pop(k)[1]
+
+    @property
+    def live_bytes(self) -> int:
+        """The bytes of the storages alive now (every one checked)."""
+        self._sweep(self._young)
+        self._sweep(self._old)
+        return self._live_bytes
 
     def track_args(self, args, donated=()):
         """Register the call's arguments (``donated``: indices of those
@@ -342,28 +491,40 @@ class CostCounter(TorchDispatchMode):
         k = self.kernels.setdefault(name, {"records": 0, "bytes": 0.0,
                                            "ops": 0.0})
         k["records"] += 1
-        k["bytes"] += nb
-        k["ops"] += nops
-        self.bytes += nb
-        self.flops += nops
+        k["bytes"] += nb * self.scale
+        k["ops"] += nops * self.scale
+        self.bytes += nb * self.scale
+        self.flops += nops * self.scale
 
     def __enter__(self):
         from repro_torch.kernels import _fake
+        from repro_torch.models import steps
         _fake.LISTENERS.append(self._kernel)
+        steps.COUNTERS.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         from repro_torch.kernels import _fake
+        from repro_torch.models import steps
         _fake.LISTENERS.remove(self._kernel)
+        steps.COUNTERS.remove(self)
         return super().__exit__(*exc)
 
     def _collective(self, func, args):
         import torch.distributed as dist
-        kind, at = _C10D.get(func._opname, ("send_recv", 0))
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            kind, at = _FUNCTIONAL[func._opname], 0
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+            pg = args[-1]
+            if isinstance(pg, str):
+                pg = _resolve_process_group(pg)
+        else:
+            kind, at = _C10D.get(func._opname, ("send_recv", 0))
+            pg = _process_group(args)
         n = sum(_nbytes(t) for t in tree_flatten(args[at])[0]
-                if isinstance(t, torch.Tensor))
+                if isinstance(t, torch.Tensor)) * self.scale
         self.coll[kind] += n
-        pg = _process_group(args)
         ranks = dist.get_process_group_ranks(pg) if pg is not None else [0]
         S = len(ranks)
         if S < 2:
@@ -376,10 +537,19 @@ class CostCounter(TorchDispatchMode):
         self.off_node += sent * (S - 1 - near) / (S - 1)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented       # DTensor's dispatch: the local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _PROPAGATING[0]:
+            return out                  # shape inference at global shapes
         if func.namespace == "c10d":
             self._collective(func, args)
+            return out
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            if func._opname in _FUNCTIONAL:
+                self._collective(func, args)
+            self._note(out)
             return out
         self._note(out)
         if func.namespace == "prim" or func.is_view \
@@ -389,12 +559,12 @@ class CostCounter(TorchDispatchMode):
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
-        self.bytes += sum(_nbytes(t) for t in ins + outs)
+        self.bytes += sum(_nbytes(t) for t in ins + outs) * self.scale
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
+            self.flops += formula(*args, **kwargs, out_val=out) * self.scale
         else:
-            self.flops += sum(t.numel() for t in outs)
+            self.flops += sum(t.numel() for t in outs) * self.scale
         return out
 
     def cost(self) -> dict:

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  attention_ref_chunked)
-from repro_torch.models.layers import dense_init, rope_partial
+from repro_torch.models.layers import (dense_init, local_parts, merge_last,
+                                       placed, rope_partial, split_last)
 
 _Q_CHUNK_THRESHOLD = 8192   # q-chunk long sequences (flash-like memory)
 
@@ -56,9 +57,9 @@ def _project_qkv(params, cfg, x, positions, *, use_rope: bool):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, Hkv, dh)
-    v = v.reshape(B, S, Hkv, dh)
+    q = split_last(q, H, dh)                      # (B, S, H, dh)
+    k = split_last(k, Hkv, dh)
+    v = split_last(v, Hkv, dh)
     if use_rope and cfg.rope_fraction > 0:
         q = rope_partial(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = rope_partial(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -79,16 +80,106 @@ def attention_train(params, cfg, x, positions, slot: int = 0):
     window, use_rope = _window_for_slot(cfg, slot)
     q, k, v = _project_qkv(params, cfg, x, positions, use_rope=use_rope)
     B, S = x.shape[:2]
+    if type(q).__name__ == "DTensor":
+        out = _attend_sharded(q, k, v, cfg, window)
+    else:
+        out = _attend(q, k, v, cfg, window)
+    return merge_last(out) @ params["wo"].to(x.dtype)
+
+
+def _attend(q, k, v, cfg, window, q_offset=None):
+    """(B, S, H, dh) queries over (B, T, Hkv, dh) keys -> (B, S, H, dh);
+    ``q_offset``: the queries' first position (a block of the sequence;
+    default: the keys' end)."""
+    S = max(q.shape[1], k.shape[1])       # a block of queries: its keys'
     if cfg.chunk_attn and window:
         # llama4 chunked-local: token t attends within its chunk only.
-        out = _chunked_attention(q, k, v, cfg.chunk_attn, causal=cfg.causal)
-    else:
-        fn = attention_ref_chunked if S >= _Q_CHUNK_THRESHOLD \
+        return _chunked_attention(q, k, v, cfg.chunk_attn, causal=cfg.causal)
+    fn = attention_ref_chunked if S >= _Q_CHUNK_THRESHOLD else attention_ref
+    out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             causal=cfg.causal, window=window, q_offset=q_offset)
+    return out.transpose(1, 2)
+
+
+def _attend_sharded(q, k, v, cfg, window):
+    """``_attend`` on DTensors, each rank on its shard: the batch over
+    the FSDP axes, and over ``model`` the KV heads where they divide;
+    else the query heads where they divide into whole GQA groups (each
+    rank slices the KV heads its queries read from keys and values
+    whole); else the queries' sequence (keys and values whole: each
+    rank's block of queries sees every key it needs, at its offset)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed.sharding import fsdp_axes
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    B, S = q.shape[:2]
+    T, Hkv = k.shape[1], k.shape[2]
+    m = sizes.get("model", 1)
+    pq = [Replicate() for _ in names]
+    pkv = [Replicate() for _ in names]
+    dp = [a for a in fsdp_axes(mesh) if a in sizes]
+    n_dp = 1
+    for a in dp:
+        n_dp *= sizes[a]
+    if B % n_dp or not dp:
+        dp = ["data"] if "data" in sizes and B % sizes["data"] == 0 else []
+    for a in dp:
+        pq[names.index(a)] = pkv[names.index(a)] = Shard(0)
+    by_seq = by_head = False
+    H = q.shape[2]
+    n, rep = H // m, H // Hkv
+    if m > 1 and Hkv % m == 0:
+        pq[names.index("model")] = pkv[names.index("model")] = Shard(2)
+    elif m > 1 and H % m == 0 and (n % rep == 0 or rep % n == 0):
+        pq[names.index("model")] = Shard(2)
+        by_head = True
+    elif m > 1 and S % m == 0 and _blocks_ok(cfg, window, S // m, S):
+        pq[names.index("model")] = Shard(1)
+        by_seq = True
+    pq, pkv = placed(pq, mesh), placed(pkv, mesh)
+    ql, kl, vl = local_parts(mesh, ((q, pq), (k, pkv), (v, pkv)))
+    if by_head:                           # the KV heads of these queries
+        a = mesh.get_coordinate()[names.index("model")] * n
+        kv = slice(a // rep, (a + n - 1) // rep + 1)
+        kl, vl = kl[:, :, kv], vl[:, :, kv]
+    if not by_seq:
+        return DTensor.from_local(_attend(ql, kl, vl, cfg, window), mesh, pq,
+                                  run_check=False)
+    s = S // m
+    o = mesh.get_coordinate()[names.index("model")] * s
+    out = DTensor.from_local(_attend_block(ql, kl, vl, cfg, window, o, T),
+                             mesh, pq, run_check=False)
+    # the sequence whole again: a view merging a batch and a sequence
+    # sharded over two axes has no sharding rule that DTensor can follow
+    return out.redistribute(mesh, pkv)
+
+
+def _blocks_ok(cfg, window, s: int, S: int) -> bool:
+    """Whether a block of ``s`` queries lines up with the attention's
+    chunks (chunked-local slots): whole chunks, or within one."""
+    if not (cfg.chunk_attn and window):
+        return True
+    c = min(cfg.chunk_attn, S)
+    return s % c == 0 or c % s == 0
+
+
+def _attend_block(q, k, v, cfg, window, o: int, T: int):
+    """Queries ``[o, o + s)`` of the sequence over the whole keys."""
+    s = q.shape[1]
+    if cfg.chunk_attn and window:
+        c = min(cfg.chunk_attn, T)
+        if s % c == 0:                       # whole chunks: their own keys
+            return _chunked_attention(q, k[:, o:o + s], v[:, o:o + s], c,
+                                      causal=cfg.causal)
+        cs = o // c * c                      # within one chunk: its keys
+        fn = attention_ref_chunked if c >= _Q_CHUNK_THRESHOLD \
             else attention_ref
-        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 causal=cfg.causal, window=window)
-        out = out.transpose(1, 2)
-    return out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+        out = fn(q.transpose(1, 2), k[:, cs:cs + c].transpose(1, 2),
+                 v[:, cs:cs + c].transpose(1, 2), causal=cfg.causal,
+                 q_offset=o - cs)
+        return out.transpose(1, 2)
+    return _attend(q, k, v, cfg, window, q_offset=o)
 
 
 def _chunked_attention(q, k, v, chunk: int, *, causal: bool):
@@ -130,6 +221,34 @@ def init_kv_cache(cfg, batch: int, max_len: int, slot: int = 0,
     }
 
 
+def _ring_write_sharded(c, new, widx):
+    """``c[b, :, widx[b]] = new[b]`` on a DTensor cache (B, Hkv, T, dh),
+    in place on each rank's shard: the rank whose block of T holds the
+    slot writes it (DTensor has no in-place rule for the indexed write
+    on a sharded cache)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = c.device_mesh
+    pl = c.placements
+    # the new rows and slots on the cache's batch and head shards
+    pn = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in pl]
+    pw = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in pl]
+    nl = new.to(c.dtype).redistribute(mesh, pn).to_local()
+    wl = widx.redistribute(mesh, pw).to_local()
+    cl = c.to_local()
+    t, o = cl.shape[2], 0
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(pl):                 # the rank's offset in T
+        if isinstance(p, Shard) and p.dim == 2:
+            o = o * mesh.shape[i] + coord[i]
+    wl = wl - o * t
+    inside = (wl >= 0) & (wl < t)
+    wl = wl.clamp(0, t - 1)
+    bl = torch.arange(cl.shape[0], device=cl.device)
+    cl[bl, :, wl] = torch.where(inside[:, None, None], nl, cl[bl, :, wl])
+
+
 def attention_decode(params, cfg, x, pos, cache, slot: int = 0):
     """One-token decode. x: (B, 1, D); pos: (B,) absolute positions.
 
@@ -145,9 +264,13 @@ def attention_decode(params, cfg, x, pos, cache, slot: int = 0):
     T = ck.shape[2]
     pos = pos.to(torch.int64)
     widx = pos % T
-    bidx = torch.arange(B, device=pos.device)
-    ck[bidx, :, widx] = k[:, 0].to(ck.dtype)
-    cv[bidx, :, widx] = v[:, 0].to(cv.dtype)
+    if type(ck).__name__ == "DTensor":
+        _ring_write_sharded(ck, k[:, 0], widx)
+        _ring_write_sharded(cv, v[:, 0], widx)
+    else:
+        bidx = torch.arange(B, device=pos.device)
+        ck[bidx, :, widx] = k[:, 0].to(ck.dtype)
+        cv[bidx, :, widx] = v[:, 0].to(cv.dtype)
 
     # absolute position of ring slot t: the largest p <= pos with p%T == t
     tpos = torch.arange(T, device=pos.device)[None, :]    # (B, T) ring slots
@@ -163,11 +286,12 @@ def attention_decode(params, cfg, x, pos, cache, slot: int = 0):
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     rep = H // Hkv
     # grouped-GQA einsum: never materializes rep-expanded KV
-    qh = (q[:, 0].to(torch.float32) * dh ** -0.5).reshape(B, Hkv, rep, dh)
+    qh = split_last((q[:, 0].to(torch.float32) * dh ** -0.5).reshape(
+        B, H * dh), Hkv, rep, dh)
     logits = torch.einsum("bkrd,bktd->bkrt", qh, ck.to(torch.float32))
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrt,bktd->bkrd", p, cv.to(torch.float32)
                        ).to(x.dtype)
-    out = out.reshape(B, 1, H * dh) @ params["wo"].to(x.dtype)
+    out = merge_last(out, 3)[:, None] @ params["wo"].to(x.dtype)
     return out, cache

@@ -7,14 +7,187 @@ cast back, SiLU spelled as the reference's ``x * sigmoid(x)``.
 on the generator's device; a truncated normal in [-2, 2]
 standard deviations, as the reference's, but not its numbers (weights
 carried over from the reference go through ``model.params_from_jax``).
+The DTensor helpers (``on_mesh``, ``pin_batch``, ``unshard``,
+``split_last``, ``merge_last``, ``pointwise``, ``local_parts``,
+``placed``, ``batch_placements``, ``shard_offset``) are what the model needs to run on a
+``DeviceMesh``; each is the plain operation, or nothing, on a plain
+tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 
 __all__ = ["rms_norm", "dense_init", "silu", "swiglu", "rope",
-           "rope_partial", "init_mlp", "mlp"]
+           "rope_partial", "init_mlp", "mlp", "on_mesh", "split_last",
+           "merge_last", "pointwise", "pin_batch", "shard_offset",
+           "unshard", "placed", "local_parts", "batch_placements"]
+
+
+def on_mesh(fn):
+    """``fn(params, ...)`` where, if ``params`` holds DTensors, the plain
+    tensors the model makes on the way (positions, rotary angles, masks,
+    zero accumulators: the same on every rank) read as replicated
+    DTensors, in the backward pass too.  On plain params, ``fn`` as is."""
+    @functools.wraps(fn)
+    def wrapped(params, *args, **kwargs):
+        with _replicated_constants(params):
+            return fn(params, *args, **kwargs)
+    return wrapped
+
+
+def split_last(x, *sizes):
+    """``x`` with its last dim split into ``sizes`` (heads).  A DTensor
+    whose last dim is sharded over mesh dims that ``sizes[0]`` does not
+    divide is gathered over them first: the split has no sharding rule
+    there."""
+    if type(x).__name__ == "DTensor":
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.dim() - 1
+        dims = [i for i, p in enumerate(x.placements)
+                if isinstance(p, Shard) and p.dim == last]
+        n = 1
+        for i in dims:
+            n *= x.device_mesh.shape[i]
+        if sizes[0] % n:
+            pl = [Replicate() if i in dims else p
+                  for i, p in enumerate(x.placements)]
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], *sizes)
+
+
+def merge_last(x, n: int = 2):
+    """``x`` with its last ``n`` dims merged into one (heads back into
+    features).  On a DTensor the result is pinned to its placements, so
+    that the backward pass's split gets its gradient on a layout it can
+    split (``split_last``'s)."""
+    y = x.reshape(*x.shape[:-n], -1)
+    if type(y).__name__ == "DTensor" and any(p.is_shard()
+                                             for p in y.placements):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y
+
+
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, on its local
+    shard (for the ops DTensor has no sharding rule for, or none for
+    their backward: ``log_sigmoid``)."""
+    if type(x).__name__ != "DTensor":
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, pl,
+                              run_check=False)
+
+
+def placed(pl, mesh) -> list:
+    """Placements with every mesh dim of size 1 replicated: a shard (or
+    a partial sum) over one rank is the whole, and DTensor's view rules
+    refuse some shards of size-1 mesh dims."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate() if n == 1 else p for p, n in zip(pl, mesh.shape)]
+
+
+def local_parts(mesh, items) -> list:
+    """Each DTensor of ``items`` (pairs of a DTensor and placements)
+    redistributed to its placements, as its local shard, for a
+    computation on the shards.  A tensor whole on a mesh dim that another
+    one splits takes its gradient there as a partial sum: each rank's
+    part of the computation contributes to it."""
+    from torch.distributed.tensor import Partial, Shard
+    split = [any(isinstance(pl[i], Shard) for _, pl in items)
+             for i in range(mesh.ndim)]
+    out = []
+    for x, pl in items:
+        grad = [Partial() if cut and not isinstance(p, Shard) else p
+                for p, cut in zip(pl, split)]
+        if list(x.placements) != list(pl):
+            x = x.redistribute(mesh, pl)
+        out.append(x.to_local(grad_placements=grad))
+    return out
+
+
+def batch_placements(x, mesh):
+    """Dim 0 over the FSDP axes (``data`` alone if they do not divide
+    it), every other mesh dim replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.sharding import fsdp_axes
+    names = list(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.shape))
+    out = [Replicate() for _ in names]
+    for axes in (fsdp_axes(mesh), ("data",)):
+        axes = [a for a in axes if a in sizes]
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if axes and x.shape[0] % n == 0:
+            for a in axes:
+                out[names.index(a)] = Shard(0)
+            break
+    return placed(out, mesh)
+
+
+def pin_batch(x):
+    """The residual stream between blocks: on a DTensor, the batch over
+    the FSDP axes and everything else whole on each rank (a block's
+    tensor-parallel partial sums are reduced here; the reference's
+    ``act_spec`` also splits the sequence over ``model``, which torch
+    2.11's DTensor cannot flatten into a product's rows); a plain
+    tensor as is."""
+    if type(x).__name__ != "DTensor":
+        return x
+    mesh = x.device_mesh
+    pl = batch_placements(x, mesh)
+    return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
+
+
+def unshard(w):
+    """A weight at its use: a DTensor gathered over the FSDP axes (pod,
+    data), its tensor-parallel split over ``model`` kept, as FSDP
+    gathers a layer's weights before its compute (the backward pass
+    reduce-scatters the gradient back); a plain tensor as is."""
+    if type(w).__name__ != "DTensor":
+        return w
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    pl = [Replicate() if name in ("pod", "data") and not p.is_partial()
+          else p for name, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w.redistribute(mesh, pl) if pl != list(w.placements) else w
+
+
+def shard_offset(x, dim: int) -> int:
+    """The first global index along ``dim`` of this rank's shard of the
+    DTensor ``x`` (even shards, mesh dims outermost first)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx = idx * mesh.shape[i] + coord[i]
+            n *= mesh.shape[i]
+    return idx * (x.shape[dim] // n)
+
+
+@contextlib.contextmanager
+def _replicated_constants(params):
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    if not any(type(t).__name__ == "DTensor" for t in leaves):
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    disp = DTensor._op_dispatcher
+    old = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = old
 
 
 def dense_init(gen: torch.Generator, shape, scale: float = 1.0,

@@ -25,6 +25,15 @@ the stage (``torch.utils.checkpoint``); ``"dots"`` is the reference's
 the outputs of the products with no batch dims (``aten.mm`` and
 ``aten.addmm``: every ``x @ W`` of an activation by a weight) and
 recomputes everything else, the attention's batched products included.
+
+The same functions take DTensor params on a ``DeviceMesh`` (the dry
+run's LM cells, ``launch/specs.py``; values as on one device): plain
+tensors made on the way read as replicated (``layers.on_mesh``), the
+residual stream is pinned to batch over the FSDP axes, whole on the
+other axes (``layers.pin_batch``), each slot's weights are gathered over
+the FSDP axes at use in the forward pass (``layers.unshard``), and the
+token embedding and the cross-entropy are vocab-parallel
+(``_embed_sharded``, ``_nll``).  On plain tensors none of this runs.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.layers import dense_init, init_mlp, mlp, rms_norm
+from repro_torch.models.layers import (dense_init, init_mlp, mlp, on_mesh,
+                                       pin_batch, rms_norm, unshard)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
@@ -138,6 +148,7 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
     elif kind == "slstm":
         out, _ = xlstm.slstm_apply(slot_params["slstm"], cfg, h)
         x = x + out
+    x = pin_batch(x)
     if kind in ("attn", "mamba") and cfg.d_ff:
         h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
         if cfg.is_moe_slot(slot):
@@ -146,7 +157,7 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
             x = x + out
         else:
             x = x + mlp(slot_params["mlp"], h2)
-    return x, aux
+    return pin_batch(x), aux
 
 
 def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
@@ -170,6 +181,7 @@ def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
         out, new_cache = xlstm.slstm_apply(slot_params["slstm"], cfg, h,
                                            cache_slot)
         x = x + out
+    x = pin_batch(x)
     if kind in ("attn", "mamba") and cfg.d_ff:
         h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
         if cfg.is_moe_slot(slot):
@@ -178,7 +190,7 @@ def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
             x = x + out
         else:
             x = x + mlp(slot_params["mlp"], h2)
-    return x, new_cache
+    return pin_batch(x), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +200,82 @@ def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
 def _embed(params, cfg: ModelConfig, batch):
     dt = torch_dtype(cfg.dtype)
     if cfg.frontend != "none" and "embeddings" in batch:
-        return batch["embeddings"].to(dt) @ params["frontend_proj"].to(dt)
+        return batch["embeddings"].to(dt) @ unshard(
+            params["frontend_proj"]).to(dt)
+    if type(params["embed"]).__name__ == "DTensor":
+        return _embed_sharded(params["embed"], batch["inputs"]).to(dt)
     # gather, then cast: the reference's cast-then-gather, value for value
     return params["embed"][batch["inputs"]].to(dt)
+
+
+def _embed_sharded(table, ids):
+    """The token embedding on a DTensor table (V, D): every rank looks up
+    all the ids in its block of the table; a block of the vocab holds
+    zeros for the ids outside it, so the rows are partial sums over the
+    vocab's mesh dims and split over the features' (the vocab-parallel
+    lookup, the table never gathered)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.models.layers import shard_offset
+    mesh = table.device_mesh
+    ids_l = ids.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    t_l = table.to_local()
+    v = ids_l.to(torch.int64) - shard_offset(table, 0)
+    inside = (v >= 0) & (v < t_l.shape[0])
+    rows = t_l[v.clamp(0, t_l.shape[0] - 1)] * inside[..., None]
+    out = [Partial() if isinstance(p, Shard) and p.dim == 0 else
+           Shard(ids.dim()) if isinstance(p, Shard) else Replicate()
+           for p in table.placements]
+    return DTensor.from_local(rows, mesh, out, run_check=False)
+
+
+def _nll(logits, targets):
+    """-log softmax(logits) at each target (targets clamped at 0)."""
+    tsafe = torch.clamp(targets, min=0).to(torch.int64)
+    if type(logits).__name__ != "DTensor":
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, tsafe[..., None])[..., 0]
+    if not any(p.is_shard(logits.dim() - 1) for p in logits.placements):
+        return _nll_whole_vocab(logits, tsafe)
+    # vocab-parallel, on each rank's shard: the max and the sum of the
+    # exponentials reduce over the vocab's mesh dims, and each rank
+    # picks the targets that fall in its block of the vocab
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.models.layers import batch_placements, shard_offset
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    bpl = batch_placements(targets, mesh)
+    vocab = [isinstance(p, Shard) and p.dim == last for p in logits.placements]
+    zpl = [Shard(last) if v else b for b, v in zip(bpl, vocab)]
+    z = logits.redistribute(mesh, zpl)
+    z_l = z.to_local()
+
+    def reduce(t, op):
+        part = [Partial(op) if v else b for b, v in zip(bpl, vocab)]
+        whole = [Replicate() if v else b for b, v in zip(bpl, vocab)]
+        return DTensor.from_local(t, mesh, part, run_check=False) \
+            .redistribute(mesh, whole).to_local()
+
+    m = reduce(z_l.detach().amax(-1), "max")
+    lse = m + torch.log(reduce(torch.exp(z_l - m[..., None]).sum(-1), "sum"))
+    v = tsafe.redistribute(mesh, bpl).to_local() - shard_offset(z, last)
+    inside = (v >= 0) & (v < z_l.shape[-1])
+    picked = torch.gather(z_l, -1, v.clamp(0, z_l.shape[-1] - 1)[..., None])
+    picked = reduce(picked[..., 0] * inside, "sum")
+    return DTensor.from_local(lse - picked, mesh, bpl, run_check=False)
+
+
+def _nll_whole_vocab(logits, tsafe):
+    """``_nll`` of a DTensor whose vocab no rank splits: the plain
+    log-softmax on each rank's rows."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import batch_placements, local_parts
+    mesh = logits.device_mesh
+    pl = batch_placements(tsafe, mesh)
+    z_l, = local_parts(mesh, [(logits, pl)])
+    t_l = tsafe.redistribute(mesh, pl).to_local()
+    logp = torch.log_softmax(z_l, dim=-1)
+    nll = -torch.gather(logp, -1, t_l[..., None])[..., 0]
+    return DTensor.from_local(nll, mesh, pl, run_check=False)
 
 
 def _head(params, cfg: ModelConfig):
@@ -221,9 +306,10 @@ def _remat(stage, remat: str):
     raise ValueError(f"remat {remat!r}")
 
 
+@on_mesh
 def forward_hidden(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     """Backbone only: final hidden states (B, S, D) + MoE aux loss."""
-    x = _embed(params, cfg, batch)
+    x = pin_batch(_embed(params, cfg, batch))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -231,8 +317,9 @@ def forward_hidden(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     def stage(x, stage_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for slot in range(cfg.stage_period):
-            x, a = _apply_slot_train(stage_params[f"slot{slot}"], cfg, slot,
-                                     x, positions)
+            x, a = _apply_slot_train(
+                tree_map(unshard, stage_params[f"slot{slot}"]), cfg, slot,
+                x, positions)
             aux = aux + a
         return x, aux
 
@@ -252,7 +339,8 @@ def forward_hidden(params, cfg: ModelConfig, batch, *, remat: str = "none"):
 def forward(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
     x, aux = forward_hidden(params, cfg, batch, remat=remat)
-    logits = x.to(torch.float32) @ _head(params, cfg).to(torch.float32)
+    logits = x.to(torch.float32) @ unshard(_head(params, cfg)).to(
+        torch.float32)
     return logits, aux
 
 
@@ -261,9 +349,7 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     logits, aux = forward(params, cfg, batch, remat=remat)
     targets = batch["targets"]
     valid = (targets >= 0).to(torch.float32)
-    tsafe = torch.clamp(targets, min=0).to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, tsafe[..., None])[..., 0]
+    nll = _nll(logits, targets)
     denom = torch.clamp(valid.sum(), min=1.0)
     ce = (nll * valid).sum() / denom
     loss = ce + cfg.router_aux_coef * aux
@@ -297,6 +383,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
         for slot in range(cfg.stage_period)}
 
 
+@on_mesh
 def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     """One decode step. tokens (B,) int, pos (B,) int absolute.
 
@@ -305,7 +392,7 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     """
     dt = torch_dtype(cfg.dtype)
     # token decode path (VLM/audio frontends only matter at prefill)
-    x = params["embed"][tokens].to(dt)[:, None]            # (B, 1, D)
+    x = pin_batch(_embed(params, cfg, {"inputs": tokens[:, None]}))  # (B,1,D)
     for r in range(cfg.repeats):
         for slot in range(cfg.stage_period):
             name = f"slot{slot}"
@@ -315,6 +402,8 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
                                         views)
             for k, t in new.items():
                 if t is not views[k]:
+                    if type(t).__name__ == "DTensor":
+                        t = t.redistribute(t.device_mesh, views[k].placements)
                     views[k].copy_(t)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x[:, 0].to(torch.float32) @ _head(params, cfg).to(torch.float32)

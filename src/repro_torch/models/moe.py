@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import dense_init, swiglu
+from repro_torch.models.layers import dense_init, local_parts, placed, swiglu
 
 __all__ = ["init_moe", "moe_ffn"]
 
@@ -47,11 +47,79 @@ def _grouped(xs, w, sizes):
     return out
 
 
+def _onehot(idx, n: int, dtype):
+    """(..., n): 1 where the last dim's index is ``idx``, else 0."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _counts(idx, n: int, dtype):
     """Occurrences of each of 0..n-1 in ``idx``, by a scatter-add: no host
-    sync (a CUDA ``bincount`` reads its input's maximum on the host)."""
+    sync (a CUDA ``bincount`` reads its input's maximum on the host).  On
+    a DTensor, by a one-hot sum: DTensor has no rule for the in-place
+    scatter into a plain tensor."""
+    if type(idx).__name__ == "DTensor":
+        return _onehot(idx, n, dtype).sum(tuple(range(idx.dim())))
+    idx = idx.reshape(-1)
     out = torch.zeros((n,), dtype=dtype, device=idx.device)
     return out.index_add_(0, idx, torch.ones_like(idx, dtype=dtype))
+
+
+def _topk(probs, k: int):
+    """The router's top-k; on a DTensor, on each rank's tokens (DTensor's
+    rule for the top-k's backward can split the k picks over ranks)."""
+    if type(probs).__name__ != "DTensor":
+        return torch.topk(probs, k, dim=-1, sorted=True)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.layers import batch_placements
+    mesh = probs.device_mesh
+    pl = batch_placements(probs, mesh)
+    gate, idx = torch.topk(local_parts(mesh, [(probs, pl)])[0], k, dim=-1,
+                           sorted=True)
+    return (DTensor.from_local(gate, mesh, pl, run_check=False),
+            DTensor.from_local(idx, mesh, pl, run_check=False))
+
+
+def _dense_sharded(xf, comb, params, dt):
+    """The dense dispatch on DTensors, each rank on its shard: tokens
+    over the FSDP axes; over ``model`` the experts where the params
+    shard them (EP), else each expert's hidden features (TP).  Both
+    contract a dim split over ``model``: the output is a partial sum
+    there."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.distributed.sharding import fsdp_axes
+    mesh = xf.device_mesh
+    names = list(mesh.mesh_dim_names)
+    wg = params["wg"]
+    ep = any(isinstance(p, Shard) and p.dim == 0 for p in wg.placements)
+    T = xf.shape[0]
+    tok, w_in, w_out, cb, out = ([Replicate() for _ in names]
+                                 for _ in range(5))
+    n_dp = 1
+    for a in fsdp_axes(mesh):
+        n_dp *= dict(zip(names, mesh.shape)).get(a, 1)
+    for a in fsdp_axes(mesh):
+        if a in names and T % n_dp == 0:
+            i = names.index(a)
+            tok[i] = cb[i] = out[i] = Shard(0)
+    if "model" in names and mesh.shape[names.index("model")] > 1:
+        i = names.index("model")
+        w_in[i] = Shard(0) if ep else Shard(2)
+        w_out[i] = Shard(0) if ep else Shard(1)
+        if ep:
+            cb[i] = Shard(1)
+        out[i] = Partial()
+
+    tok, w_in, w_out, cb, out = (placed(pl, mesh)
+                                 for pl in (tok, w_in, w_out, cb, out))
+
+    x_l, g_l, i_l, o_l, c_l = local_parts(mesh, (
+        (xf, tok), (wg.to(dt), w_in), (params["wi"].to(dt), w_in),
+        (params["wo"].to(dt), w_out), (comb, cb)))
+    h = swiglu(torch.einsum("td,edf->tef", x_l, g_l),
+               torch.einsum("td,edf->tef", x_l, i_l))
+    hw = h * c_l[:, :, None].to(dt)
+    o = torch.einsum("tef,efd->td", hw, o_l)
+    return DTensor.from_local(o, mesh, out, run_check=False)
 
 
 def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
@@ -61,8 +129,10 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
       * ``ragged`` — sort-by-expert + one product per expert group (the
         runtime path: top-k FLOPs, one host read of the group sizes);
       * ``dense``  — mask-combined dense einsum over all experts, as the
-        reference lowers it for its dry run.  Both modes produce the same
-        outputs to float rounding.
+        reference lowers it for its dry run (on DTensors, each rank on
+        its shard of the tokens and of the experts or their hidden
+        features).  Both modes produce the same outputs to float
+        rounding.
     """
     B, S, D = x.shape
     E = params["router"].shape[-1]
@@ -72,12 +142,13 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
 
     logits = xf.to(torch.float32) @ params["router"]      # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate, eidx = torch.topk(probs, top_k, dim=-1, sorted=True)  # (T, k)
+    gate, eidx = _topk(probs, top_k)                       # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    flat_e = eidx.reshape(-1)                              # (T·k,)
-
-    if dispatch == "dense":
+    if dispatch == "dense" and type(eidx).__name__ == "DTensor":
+        comb = (_onehot(eidx, E, torch.float32) * gate[..., None]).sum(1)
+        out = _dense_sharded(xf, comb, params, dt)
+    elif dispatch == "dense":
         # (T, E) combine weights: gate at the top-k experts, 0 elsewhere
         comb = torch.zeros((T, E), dtype=torch.float32, device=x.device)
         comb.scatter_add_(1, eidx, gate)
@@ -89,6 +160,7 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
         out = torch.einsum("tef,efd->td", hw, params["wo"].to(dt))
     elif dispatch == "ragged":
         # ---- dispatch: sort the T·k routed copies by expert ----------------
+        flat_e = eidx.reshape(-1)                          # (T·k,)
         order = torch.argsort(flat_e, stable=True)
         tok_of = order // top_k                            # source token
         xs = xf[tok_of]                                    # (T·k, D)
@@ -106,6 +178,6 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
 
     # switch-style load-balancing aux loss
     me = probs.mean(0)                                     # (E,)
-    ce = _counts(flat_e, E, torch.float32) / (T * top_k)
+    ce = _counts(eidx, E, torch.float32) / (T * top_k)
     aux = E * torch.sum(me * ce)
     return out.reshape(B, S, D), aux

@@ -5,6 +5,9 @@ SSM along time one step at a time, in the reference's float order, in
 chunks of ``_CHUNK`` steps; with grad enabled each chunk runs under
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(chunk)``,
 so the backward pass saves one (B, Di, N) state a chunk, not a step.
+On DTensors the scan runs on each rank's shard of the batch and the
+channels (``steps.on_shards``), and a dry run costs it on a bounded
+number of chunks (``steps.loop``).
 Decode keeps O(1) state — a (d_conv-1, Di) conv ring + a (Di, N) SSM
 state.
 """
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.models import steps
 from repro_torch.models.layers import dense_init, silu
 
 __all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache"]
@@ -76,6 +80,9 @@ def _dt_bc(params, cfg, xc):
 
 
 _CHUNK = 64   # the reference's time-chunk length (S must divide by it)
+# delta, dx (B, S, Di); B, C (B, S, N); A (Di, N): batch and channels
+_SCAN_SPECS = (("B", None, "C"), ("B", None, "C"), ("B", None, None),
+               ("B", None, None), ("C", None))
 
 
 def mamba_train(params, cfg, x):
@@ -96,27 +103,40 @@ def mamba_train(params, cfg, x):
     A = -torch.exp(params["A_log"])                        # (Di, N)
     dx = delta * xc.to(torch.float32)                      # (B,S,Di)
 
-    L = min(_CHUNK, S)
+    L = steps.chunk_len(min(_CHUNK, S))
     if S % L:
         raise ValueError("sequence must divide the mamba chunk length")
 
-    def chunk(h, delta_c, dx_c, B_c, C_c):
+    def chunk(h, delta_c, dx_c, B_c, C_c, A):
+        # one view a step: the backward stacks the steps' gradients once
+        # (indexing [:, t] a step would zero-fill the chunk a step)
         ys = []
-        for t in range(delta_c.shape[1]):
-            dA_t = torch.exp(delta_c[:, t, :, None] * A)   # (B,Di,N)
-            h = dA_t * h + dx_c[:, t, :, None] * B_c[:, t, None, :]
-            ys.append(torch.einsum("bdn,bn->bd", h, C_c[:, t]))
+        for d_t, x_t, b_t, c_t in zip(delta_c.unbind(1), dx_c.unbind(1),
+                                      B_c.unbind(1), C_c.unbind(1)):
+            dA_t = torch.exp(d_t[:, :, None] * A)          # (B,Di,N)
+            h = dA_t * h + x_t[:, :, None] * b_t[:, None, :]
+            ys.append(torch.einsum("bdn,bn->bd", h, c_t))
         return h, torch.stack(ys, dim=1)
 
     if torch.is_grad_enabled():
         chunk = functools.partial(ckpt.checkpoint, chunk, use_reentrant=False)
-    h = torch.zeros((Bb, Di, N), dtype=torch.float32, device=x.device)
-    ys = []
-    for c in range(0, S, L):
-        h, y_c = chunk(h, delta[:, c:c + L], dx[:, c:c + L], Bs[:, c:c + L],
-                       Cs[:, c:c + L])
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1)                               # (B,S,Di)
+
+    def body(c, carry, xs):
+        delta, dx, Bs, Cs, A = xs
+        t = slice(c * L, (c + 1) * L)
+        h, y_c = chunk(carry[0], delta[:, t], dx[:, t], Bs[:, t], Cs[:, t], A)
+        return (h,), (y_c,)
+
+    def scan(delta, dx, Bs, Cs, A):
+        # on one rank's shard of the batch and channels (steps.on_shards)
+        h = torch.zeros(delta.shape[:1] + A.shape, dtype=torch.float32,
+                        device=delta.device)
+        _, ys = steps.loop(body, (h,), S // L, (delta, dx, Bs, Cs, A),
+                           width=L)
+        return torch.cat([y_c for (y_c,) in ys], dim=1)
+
+    y = steps.on_shards(scan, (delta, dx, Bs, Cs, A), _SCAN_SPECS,
+                        (("B", None, "C"),))                 # (B,S,Di)
     y = y + xc.to(torch.float32) * params["Dskip"]
     y = (y * silu(res.to(torch.float32))).to(dt)
     return y @ params["out_proj"].to(dt)

@@ -7,7 +7,9 @@ gates exponentiated after subtracting it), so the two forms agree.  sLSTM
 has no parallel form (its recurrence is nonlinear) and steps through time
 in both modes.  Block layout follows xLSTM §4: mLSTM uses a
 pre-up-projection (pf=2) gated residual block; sLSTM uses a post-up/down
-(pf=4/3) block.
+(pf=4/3) block.  On DTensors the sLSTM's time loop runs on each rank's
+shard of the batch, heads whole (``steps.on_shards``), and a dry run
+costs it on a bounded number of steps (``steps.loop``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rms_norm, silu
+from repro_torch.models import steps
+from repro_torch.models.layers import (dense_init, merge_last, pin_batch,
+                                       pointwise, rms_norm, silu, split_last)
 
 __all__ = ["init_mlstm", "mlstm_train", "mlstm_decode", "init_mlstm_cache",
            "init_slstm", "slstm_apply", "init_slstm_cache"]
@@ -67,7 +71,7 @@ def _mlstm_qkvif(params, x_in):
 
 def _heads(x, H):
     B, S, Di = x.shape
-    return x.reshape(B, S, H, Di // H).transpose(1, 2)    # (B,H,S,dh)
+    return split_last(x, H, Di // H).transpose(1, 2)      # (B,H,S,dh)
 
 
 def mlstm_train(params, cfg, x):
@@ -82,7 +86,7 @@ def mlstm_train(params, cfg, x):
     qh, kh, vh = _heads(q, H), _heads(k, H), _heads(v, H)  # (B,H,S,dh)
     dh = Di // H
     ig = gates[..., :H].transpose(1, 2)                    # (B,H,S) log-i
-    fg = F.logsigmoid(gates[..., H:]).transpose(1, 2)      # log-f
+    fg = pointwise(F.logsigmoid, gates[..., H:]).transpose(1, 2)  # log-f
 
     cum = torch.cumsum(fg, dim=-1)                         # (B,H,S)
     # log D[t,s] = cum[t] - cum[s] + i[s]  for s <= t
@@ -98,7 +102,7 @@ def mlstm_train(params, cfg, x):
     denom = torch.maximum(torch.abs(W.sum(-1)), torch.exp(-m))   # (B,H,S)
     h = torch.einsum("bhst,bhtd->bhsd", W, vh.to(torch.float32))
     h = h / denom[..., None]
-    h = h.transpose(1, 2).reshape(B, S, Di)
+    h = merge_last(h.transpose(1, 2))                      # (B,S,Di)
     h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)     # head group-norm
     out = h * silu(z.to(torch.float32)).to(dt)
     return out @ params["w_down"].to(dt)
@@ -127,11 +131,14 @@ def mlstm_decode(params, cfg, x, cache):
     up = x @ params["w_up"].to(dt)
     x_in, z = torch.chunk(up, 2, dim=-1)
     q, k, v, gates = _mlstm_qkvif(params, x_in)
-    qh = q[:, 0].reshape(B, H, dh).to(torch.float32)
-    kh = k[:, 0].reshape(B, H, dh).to(torch.float32) * dh ** -0.5
-    vh = v[:, 0].reshape(B, H, dh).to(torch.float32)
+    qh = split_last(q[:, 0], H, dh).to(torch.float32)
+    kh = split_last(k[:, 0], H, dh).to(torch.float32) * dh ** -0.5
+    vh = split_last(v[:, 0], H, dh).to(torch.float32)
     ig = gates[:, 0, :H]                                    # (B,H) log-i
-    fg = F.logsigmoid(gates[:, 0, H:])                      # (B,H) log-f
+    fg = pointwise(F.logsigmoid, gates[:, 0, H:])           # (B,H) log-f
+    # on DTensors, on the state's layout (batch-sharded): the (B, H, dh,
+    # dh) memory stays where it is, the small vectors come to it
+    qh, kh, vh, ig, fg = (pin_batch(t) for t in (qh, kh, vh, ig, fg))
 
     m_new = torch.maximum(fg + cache["m"], ig)
     fp = torch.exp(fg + cache["m"] - m_new)[..., None]
@@ -142,7 +149,7 @@ def mlstm_decode(params, cfg, x, cache):
     num = torch.einsum("bhde,bhd->bhe", C, qh)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qh)),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, 1, Di)
+    h = merge_last(num / den[..., None])[:, None]          # (B,1,Di)
     h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
     out = h * silu(z.to(torch.float32)).to(dt)
     return out @ params["w_down"].to(dt), {"C": C, "n": n, "m": m_new}
@@ -183,6 +190,11 @@ def init_slstm_cache(cfg, batch: int, device="cuda"):
     }
 
 
+_STATE = ("c", "n", "h", "m")
+_STATE_SPECS = {"c": ("B", None, None), "n": ("B", None, None),
+                "h": ("B", None, None), "m": ("B", None)}
+
+
 def _slstm_cell(params, cfg, xt, state):
     """One sLSTM step. xt: (B, 4D) preactivations from x."""
     B = xt.shape[0]
@@ -215,13 +227,30 @@ def slstm_apply(params, cfg, x, cache=None):
     """
     B, S, D = x.shape
     dt = x.dtype
-    state = init_slstm_cache(cfg, B, x.device) if cache is None else cache
     pre = x @ params["w_x"].to(dt)                         # (B,S,4D)
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(params, cfg, pre[:, t], state)
-        hs.append(state["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, D)   # (B,S,H,dh) -> (B,S,D)
+
+    def body(t, carry, xs):
+        pre, r_h, b = xs
+        state = _slstm_cell({"r_h": r_h, "b": b}, cfg, pre[:, t],
+                            dict(zip(_STATE, carry)))
+        return tuple(state[k] for k in _STATE), (state["h"],)
+
+    def run(pre, r_h, b, *state):
+        # on one rank's shard of the batch (steps.on_shards)
+        if not state:
+            st = init_slstm_cache(cfg, pre.shape[0], pre.device)
+            state = tuple(st[k] for k in _STATE)
+        state, hs = steps.loop(body, state, S, (pre, r_h, b))
+        return (torch.stack([h for (h,) in hs], dim=1),) + tuple(state)
+
+    given = () if cache is None else tuple(cache[k] for k in _STATE)
+    out = steps.on_shards(
+        run, (pre, params["r_h"], params["b"]) + given,
+        (("B", None, None), (None,) * 3, (None,))
+        + tuple(_STATE_SPECS[k] for k in _STATE[:len(given)]),
+        (("B", None, None, None),) + tuple(_STATE_SPECS[k] for k in _STATE))
+    state = dict(zip(_STATE, out[1:]))
+    h = merge_last(out[0])                        # (B,S,H,dh) -> (B,S,D)
     h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
     up = h @ params["w_up"].to(dt)
     g, u = torch.chunk(up, 2, dim=-1)

@@ -23,12 +23,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.compress import compress_grads
+from repro_torch.models import steps
+from repro_torch.models.layers import on_mesh
 from repro_torch.models.model import loss_fn
-from repro_torch.train.optim import OptConfig, adamw_update, tree_map
+from repro_torch.train.optim import (OptConfig, adamw_update, tree_leaves,
+                                     tree_map)
 
 __all__ = ["make_train_step", "value_and_grad"]
 
 
+@on_mesh
 def _loss_and_grad(params, cfg, batch, remat):
     leaves = []
 
@@ -44,9 +48,38 @@ def _loss_and_grad(params, cfg, batch, remat):
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                      materialize_grads=True))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-        tree_map(lambda _p: next(grads), params)
+        tree_map(lambda p: _placed_as(next(grads), p), params)
 
 
+def _placed_as(g, p):
+    """A DTensor gradient on its param's placements (the reference's
+    ``grad_spec``); a plain one as is."""
+    if type(g).__name__ == "DTensor" and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatches(x, n: int):
+    """``x`` cut into ``n`` along dim 0.  A DTensor is cut on each rank's
+    shard (microbatch i holds block i of every shard), so no rank needs
+    another's rows."""
+    if type(x).__name__ != "DTensor":
+        return torch.chunk(x, n)
+    from torch.distributed.tensor import DTensor
+    return [DTensor.from_local(c, x.device_mesh, x.placements,
+                               run_check=False)
+            for c in torch.chunk(x.to_local(), n)]
+
+
+def _unflatten(tree, leaves):
+    """``tree`` with its leaves, in ``tree_leaves``' order, from
+    ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    return next(leaves)
+
+
+@on_mesh
 def value_and_grad(params, cfg, batch, *, remat: str = "dots",
                    microbatches: int = 1):
     """``(loss, metrics, grads)`` of ``loss_fn`` at ``params`` on
@@ -56,17 +89,25 @@ def value_and_grad(params, cfg, batch, *, remat: str = "dots",
         return _loss_and_grad(params, cfg, batch, remat)
     if any(x.shape[0] % microbatches for x in batch.values()):
         raise ValueError("the batch must divide into the microbatches")
-    mbatch = {k: torch.chunk(x, microbatches) for k, x in batch.items()}
-    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
-    lsum = torch.zeros((), dtype=torch.float32,
-                       device=next(iter(batch.values())).device)
-    for i in range(microbatches):
+    mbatch = {k: _microbatches(x, microbatches) for k, x in batch.items()}
+    device = next(iter(batch.values())).device
+
+    def body(i, carry, _xs):
         loss, _, grads = _loss_and_grad(
             params, cfg, {k: v[i] for k, v in mbatch.items()}, remat)
-        gsum = tree_map(torch.add, gsum, grads)
-        lsum = lsum + loss
-    return lsum / microbatches, {}, \
+        return tuple(map(torch.add, carry[:-1], tree_leaves(grads))) + (
+            carry[-1] + loss,), ()
+
+    # the zero sums are held by the loop alone, so each microbatch's sums
+    # free the ones before them; a dry run costs one microbatch and
+    # counts it for all (steps.loop)
+    carry, _ = steps.loop(
+        body, tuple(torch.zeros_like(p, dtype=torch.float32)
+                    for p in tree_leaves(params))
+        + (torch.zeros((), dtype=torch.float32, device=device),),
+        microbatches, iters=1)
+    gsum = _unflatten(params, iter(carry[:-1]))
+    return carry[-1] / microbatches, {}, \
         tree_map(lambda g: g / microbatches, gsum)
 
 

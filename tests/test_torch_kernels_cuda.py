@@ -1191,8 +1191,22 @@ def test_rank_cells_hold_their_dry_run(nccl_group, tmp_path):
     dry run (a subprocess) and for real on the card."""
     from chip_smoke import dryrun_cli, rank_cell_checks
     from repro_torch.launch.walk_cell import one_rank_share
-    docs = dryrun_cli(tmp_path, "--mesh", "1x1", "--sizing", "rank")
+    docs = dryrun_cli(tmp_path, "--arch-filter", "bingo-walk", "--mesh",
+                      "1x1", "--sizing", "rank")
     out = {}
     launches = rank_cell_checks(out, docs, one_rank_share(), "card")
     assert all(launches.get(k, 0) > 0 for k in (
         "walk_fused", "walk_segment", "walk_sample", "update_fused"))
+
+
+def test_lm_rank_cells_hold_their_dry_run(nccl_group, tmp_path):
+    """Phase 3l's checks: qwen2-0.5b's three LM cells at one rank's share
+    through the dry run (a subprocess) and for real on the card, through
+    the same function as the smoke."""
+    from chip_smoke import LM_ARCH, dryrun_cli, lm_rank_cell_checks
+    docs = dryrun_cli(tmp_path, "--arch-filter", LM_ARCH, "--mesh", "1x1",
+                      "--sizing", "rank")
+    out = {}
+    lm_rank_cell_checks(out, docs, "card")
+    assert sorted(out["lm_cells"]) == ["decode_32k", "prefill_32k",
+                                       "train_4k"]

@@ -8,9 +8,10 @@ walker and lane arrays as the reference's cell shards them; the cells
 that write the state in place alias exactly its bytes.  At FULL on a
 fake world of 256 ranks ``walk_whole`` and ``update_walk`` (and its C' =
 2C tier) fit the H100's 80 GB with the layout's arithmetic.  The CLI
-writes its JSONs and the report reads them (a subprocess).  Kernel
-wrappers on fake tensors return their plain versions' shapes and launch
-nothing; an LM arch raises.
+writes its JSONs and the report reads them (a subprocess; ``--all
+--arch-filter bingo-walk``: the walk cells alone, the LM cells being
+``test_torch_launch_lm_cells.py``'s).  Kernel wrappers on fake tensors
+return their plain versions' shapes and launch nothing.
 """
 
 import dataclasses
@@ -154,16 +155,12 @@ def test_full_cells_fit_on_256_ranks(shape, ov):
     assert doc["bottleneck"] == "memory"
 
 
-def test_lm_arch_raises():
-    with pytest.raises(NotImplementedError, match="A.19"):
-        dryrun.run_cell("qwen2-0.5b", "train_4k", out_dir=None)
-
-
 def test_cli_writes_json_and_the_report_reads_it(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh",
-         "2x2", "--sizing", "smoke", "--out", str(tmp_path)],
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--arch-filter", "bingo-walk", "--mesh", "2x2", "--sizing", "smoke",
+         "--out", str(tmp_path)],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     assert "all requested cells ran OK" in run.stdout

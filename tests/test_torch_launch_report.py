@@ -13,6 +13,7 @@ import pytest
 
 from repro.launch import report as jrep
 
+from repro_torch.configs import CELLS
 from repro_torch.launch import report as rep
 
 
@@ -148,3 +149,23 @@ def test_main_prints_the_table(tmp_path, monkeypatch, capsys):
     assert rep.HEADER in out and rep.fmt_row(_cell()) in out
     assert "| walk_whole |" in out and "| update_walk[tier2x] |" in out
     assert "| pod16x16 | bingo-walk | walk_whole | new | 6.00 |" in out
+
+
+def test_main_prints_lm_rows_skips_and_filters(tmp_path, monkeypatch, capsys):
+    lm = dict(_cell(), arch="qwen2-0.5b", shape="train_4k")
+    _write(tmp_path, [_cell(), lm])
+    monkeypatch.setattr(rep, "_committed", lambda f: None)
+    rep.main(["--dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "| qwen2-0.5b | train_4k |" in out and "| walk_whole |" in out
+    assert "### Skipped cells" in out
+    skips = [(a, c["shape"].name) for a, cs in CELLS.items() for c in cs
+             if c["skip"]]
+    assert len(skips) == 7
+    for a, s in skips:
+        assert f"- {a} × {s}: " in out
+    rep.main(["--dir", str(tmp_path), "--arch-filter", "qwen2"])
+    out = capsys.readouterr().out
+    assert "| qwen2-0.5b | train_4k |" in out and "| walk_whole |" not in out
+    assert [ln for ln in out.splitlines() if ln.startswith("- ")] == [
+        f"- qwen2-0.5b × long_500k: {CELLS['qwen2-0.5b'][3]['reason']}"]

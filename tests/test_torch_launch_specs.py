@@ -5,7 +5,8 @@
 each of its shapes, on the 16 x 16 and 2 x 16 x 16 meshes (the
 reference's on ``jax.sharding.AbstractMesh``, the port's on the same
 mesh: it reads any mesh with ``axis_names`` and ``shape``).  The LM cells
-themselves are not built yet: ``build_cell`` raises.
+themselves are tested in ``test_torch_launch_lm_cells.py`` and
+``test_torch_launch_lm_numerics.py``.
 """
 
 import pytest
@@ -48,8 +49,3 @@ def test_plan_and_corrections_equal_the_reference(arch, mesh):
                 js.scan_flops_correction(jcfg, tokens, chips, train)
         assert ts.attn_flops_correction(cfg, shape, chips) == \
             js.attn_flops_correction(jcfg, jshape, chips)
-
-
-def test_lm_cells_wait():
-    with pytest.raises(NotImplementedError, match="A.19"):
-        ts.build_cell("qwen2-0.5b", "train_4k", MESHES["16x16"])
