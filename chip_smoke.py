@@ -116,7 +116,7 @@ Phases (any failure exits non-zero and prints no result line):
    unbounded queues, takes seeded open-loop bursts of 1-3 requests a tick:
    the main path's 10 mixed rounds, then four insert-only windows of
    100,000 edges that a capacity-256 build drops from rows of degree at
-   most 512 (``growth_edges``), and 18 walk requests of 1-65,536 starts.
+   most 512 (``growth_edges``), and 12 walk requests of 1-65,536 starts.
    ``ServingProbe`` times each window (host ingest; the classifier by CUDA
    events beside its bytes bound), each drain and the migration (beside
    old tables read once + new written once at 3.35 TB/s), and pins the
@@ -271,7 +271,7 @@ Phases (any failure exits non-zero and prints no result line):
    B3 + B2) must launch, and its outputs (paths, updated state, stats)
    must equal the same cell's built on ``plain_backend()`` (each
    kernel's plain version, the same draws) at C = 1024 and 2048; the
-   real ms (median of 5) beside the
+   real ms (median of 3) beside the
    predicted max(compute, memory) and the kernel byte model beside the
    walks' real needs are printed.  Last, one dependent row gather's
    latency (``dma_latency``: B1 with 2 walkers an SM, ms / L) beside
@@ -283,9 +283,17 @@ Phases (any failure exits non-zero and prints no result line):
    256 ranks (DTensor params, moments, batch and cache; fake tensors on
    ``cuda``; every cell must run), and beside it at one rank's share on
    a fake world of one (``--mesh 1x1 --sizing rank``: each shape's
-   global batch cut to 1); both start beside phase 3k's dry runs and
+   global batch cut to 1), and jamba-v0.1-52b's and xlstm-350m's cells
+   (all four shapes each) at SMOKE on a fake 2 x 2 world (``--mesh 2x2
+   --sizing smoke``); all start beside phase 3k's dry runs and
    are collected with them, before 3k's timed part
-   (``lm_dryrun_start``, ``lm_dryrun_collect``).  Then the counter
+   (``lm_dryrun_start``, ``lm_dryrun_collect``).  This torch's counts
+   must equal the committed records, written on the CPU's torch
+   (``lm_record_checks``, ``record_check``): qwen2-0.5b decode_32k's
+   FLOPs a rank on 256 ranks within 1e-6 (its other two cells printed
+   beside their records), and the recurrent archs' SMOKE cells' FLOPs,
+   bytes and collective bytes a rank within 1e-6 and peaks within 1 %
+   (``experiments/dryrun_torch/smoke2x2/``).  Then the counter
    on fake ``cuda`` DTensors of this torch (``counter_check``: an FSDP x
    TP matmul counts the rank's local work and the weight's all-gather,
    a second call and a second SMOKE decode cell count what the first
@@ -298,8 +306,35 @@ Phases (any failure exits non-zero and prints no result line):
    logits; decode's logits and cache) equal to the same function on
    plain tensors bit for bit (the k projection's bias, whose gradient
    is zero in exact arithmetic, within 1e-6: ``LM_NOISE_LEAVES``), no
-   kernel launched (the LM cells call none); real ms (median of 5)
+   kernel launched (the LM cells call none); real ms (median of 3)
    beside the predicted max(compute, memory) and their ratio, printed.
+3m. After phase 3l: the LM cells on a real 2 x 2 mesh (``lm_mesh_phase``).
+   Four ranks share the card (``spawn_ranks``, ``lm_mesh_rank``), each
+   building ``init_device_mesh("cuda", (2, 2), ("data", "model"))`` over
+   a world of ``HOST_STAGED`` groups (``register_host_staging``: gloo
+   with each collective's CUDA buffers staged through the host, since
+   gloo's own CUDA all-gather, reduce-scatter and all-to-all crash torch
+   2.11; the collectives and their bytes are the model's, tallied by
+   kind).  The cells are ``build_cell``'s train, prefill and decode on
+   DTensors placed by ``place``: qwen2-0.5b at FULL width (d_model 896,
+   14 heads, 2 KV heads, d_ff 4,864, vocab 151,936) cut to 2 layers, a
+   train batch of 4 x 128 in 2 microbatches whose rows are a deepwalk
+   round (B1, ``lm_mesh_walk_batch``, seeded alike on every rank and
+   checked against ``walk_fused_ref``), a prefill of 2 x 512 and a
+   decode at position 5 of a 512-slot cache; and mixtral-8x7b's,
+   jamba-v0.1-52b's and xlstm-350m's at SMOKE (train 2 x 16, one
+   microbatch; prefill and decode 4 x 16): the dense experts, mamba and
+   the mLSTM / sLSTM on shards.  Rank 0 holds each against the same
+   function on whole tensors on the card, float32, TF32 off, at
+   ``LM_MESH_TOL`` (the train step's loss and gradient norm rtol 1e-5,
+   params and moments rtol 1e-5 / atol 1e-6, second moments atol 1e-9;
+   logits atol 1e-5 of the largest; the cache one bf16 ulp; xlstm's, an
+   ill-conditioned stack, at twice the share of each limit that the same
+   plain run on the CPU uses where that is more, ``LM_MESH_FLOOR``);
+   each cell's wall time (its first call: DTensor's planning included),
+   each rank's collectives by kind and peak are printed beside the counter's
+   prediction for the same cell on a fake 2 x 2 world
+   (``lm_mesh_predictions``, run while the ranks start).
 3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
    D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
    4096 window and full causal, in f32 the window; and at hubert-xlarge's
@@ -351,6 +386,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 from functools import partial
 from pathlib import Path
 
@@ -2105,10 +2141,12 @@ def sharded_path(engine, cfg, starts, stream, report, mesh_h):
             "library_ms": None}
 
 
-def spawn_ranks(tmp, backend, n, target=None, timeout=SHARD_TIMEOUT_S):
+def spawn_ranks(tmp, backend, n, target=None, timeout=SHARD_TIMEOUT_S,
+                meanwhile=None):
     """Run ``target`` (default ``shard_rank``) on ``n`` ranks (``spawn``
-    start method), stop them all, fail unless every rank exited 0 with a
-    result; returns the results by rank."""
+    start method), ``meanwhile()`` here while they run, stop them all,
+    fail unless every rank exited 0 with a result; returns the results by
+    rank."""
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=target or shard_rank,
@@ -2117,6 +2155,8 @@ def spawn_ranks(tmp, backend, n, target=None, timeout=SHARD_TIMEOUT_S):
         p.start()
     end = time.monotonic() + timeout
     try:        # until all exit, one fails, or the time is up
+        if meanwhile is not None:
+            meanwhile()
         while (time.monotonic() < end and any(p.is_alive() for p in procs)
                and not any(p.exitcode for p in procs)):
             time.sleep(0.2)
@@ -2438,7 +2478,7 @@ SERVE_SEED = 20
 SERVE_LADDER = (256, 512)
 SERVE_WALK_BUCKETS = (16384, 65536, 262144)
 SERVE_RETRY_BATCH = 65536
-SERVE_WALKS, SERVE_MAX_REQ = 18, 65536
+SERVE_WALKS, SERVE_MAX_REQ = 12, 65536
 GROWTH_WINDOWS = 4
 NO_SYNC_WINDOW = 1                 # this window runs under sync debug "error"
 CHECK_VERTICES = 4096
@@ -4247,7 +4287,6 @@ def train_phase(report, card):
     """Phase 3j: training at qwen2-0.5b's full width on a live walk corpus
     (module docstring).  Returns the training loop's launches by kernel."""
     import torch
-    import warnings
     from repro_torch.configs import get_config
     from repro_torch.core.dyngraph import BingoConfig, from_edges
     from repro_torch.core.updates import batched_update, make_updater
@@ -4467,7 +4506,7 @@ RANK_KERNELS = {"walk_step": ("walk_sample",), "walk_whole": ("walk_fused",),
                 "update_walk": ("update_fused", "walk_fused"),
                 "walk_relay": ("walk_segment",),
                 "serve_round": ("walk_segment", "update_fused")}
-RANK_REPS = 5                      # timed runs a cell (median)
+RANK_REPS = 3                      # timed runs a cell (median)
 RANK_PEAK_UNDER = 0.10             # the fake peak may sit this far under
 DMA_WALKERS_PER_SM = 2
 DRYRUN_TIMEOUT_S = 300
@@ -4882,6 +4921,7 @@ def dryrun_phase(report, card, lm=None):
 # phase 3l: the dry run's LM cells, LM_ARCH's three
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 LM_SEED = 9
+LM_STEP = 10            # the optimizer's step count going in (lm_inputs)
 
 
 def local_tree(tree):
@@ -4902,29 +4942,39 @@ def clone_tree(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-def lm_inputs(name, shape, cfg, plan):
-    """The plain global inputs of qwen2-0.5b's cell ``name`` at ``shape``
-    on the card: params drawn from a seeded generator, zero moments of
-    the plan's type, uniform token ids, a zero cache written at position
-    ``seq_len // 2``."""
+def lm_inputs(name, shape, cfg, batch=None, device="cuda", pos=None):
+    """The plain global inputs of the LM cell ``name`` at ``shape``, the
+    same on every rank: params from a seeded generator, moments at step
+    LM_STEP drawn beside them (at step 0 AdamW moves each weight by about
+    lr·sign(g), so a gradient of rounding noise would move it either
+    way), token ids (``batch`` for a train cell if given), a zero cache
+    written at ``pos`` (default ``seq_len // 2``)."""
     import torch
+    from torch.utils._pytree import tree_map
     from repro_torch.models.model import init_decode_cache, init_model
-    from repro_torch.train.optim import OptConfig, adamw_init
-    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    from repro_torch.train.optim import OptState
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
     params = init_model(cfg, gen)
     B, S = shape.global_batch, shape.seq_len
 
     def ids(*dims):
         return torch.randint(0, cfg.vocab_size, dims, generator=gen,
-                             device="cuda", dtype=torch.int32)
+                             device=device, dtype=torch.int32)
     if name == "decode_32k":
-        return (params, ids(B), torch.full((B,), S // 2, dtype=torch.int32,
-                                           device="cuda"),
-                init_decode_cache(cfg, B, S, device="cuda"))
+        return (params, ids(B), torch.full((B,), S // 2 if pos is None
+                                           else pos, dtype=torch.int32,
+                                           device=device),
+                init_decode_cache(cfg, B, S, device=device))
     if name == "prefill_32k":
         return (params, {"inputs": ids(B, S)})
-    opt = adamw_init(params, OptConfig(moment_dtype=plan["moment_dtype"]))
-    return (params, opt, None, {"inputs": ids(B, S), "targets": ids(B, S)})
+    mu = tree_map(lambda p: 1e-3 * torch.randn(
+        p.shape, generator=gen, device=device), params)
+    nu = tree_map(lambda p: 1e-6 + 9e-6 * torch.rand(
+        p.shape, generator=gen, device=device), params)
+    opt = OptState(torch.tensor(LM_STEP, dtype=torch.int32, device=device),
+                   mu, nu)
+    return (params, opt, None,
+            batch or {"inputs": ids(B, S), "targets": ids(B, S)})
 
 
 # phase 3l: a leaf of the train step whose gradient is zero in exact
@@ -4992,7 +5042,7 @@ def lm_rank_cell_checks(out, docs, card):
         doc = docs[name]
         shape = rank_shape(SHAPES[name])
         cell = build_cell(LM_ARCH, name, mesh, shape=shape)
-        vals = lm_inputs(name, shape, cfg, cell.meta.get("plan"))
+        vals = lm_inputs(name, shape, cfg)
         plain = clone_tree(vals)
         args = place(vals, cell.specs, mesh)
         real_args = storage_bytes(local_tree(args))
@@ -5110,17 +5160,95 @@ def counter_check(card, device="cuda"):
     return {"matmul": got[0], "smoke_decode": docs[0][:2]}
 
 
+# phase 3l: the committed dry-run records this torch's counts must equal
+RECORDS = ROOT / "experiments" / "dryrun_torch"
+SMOKE2X2 = RECORDS / "smoke2x2"
+SMOKE2X2_ARCHS = ("jamba-v0.1-52b", "xlstm-350m")
+RECORD_RTOL = 1e-6          # FLOPs, bytes and collective bytes a rank
+RECORD_PEAK = 0.01          # the peak a rank
+
+
+def record_check(doc, path, what):
+    """Fails unless the dry-run ``doc`` counts what the committed record
+    at ``path`` does: FLOPs, bytes and collective bytes a rank within
+    RECORD_RTOL, the peak within RECORD_PEAK; returns the relative
+    differences."""
+    want = json.loads(Path(path).read_text())
+    out = {}
+    for k in ("flops_per_device", "bytes_per_device",
+              "coll_bytes_per_device"):
+        out[k] = (doc[k] - want[k]) / want[k] if want[k] else \
+            float(doc[k] != 0)
+        need(abs(out[k]) <= RECORD_RTOL, f"{what}: {k} {doc[k]!r} against "
+             f"the record's {want[k]!r}")
+    got, rec = (d["memory_analysis"]["total_nonalias_bytes"]
+                for d in (doc, want))
+    out["peak"] = got / rec - 1
+    need(abs(out["peak"]) <= RECORD_PEAK, f"{what}: peak {got} B against "
+         f"the record's {rec} B")
+    return out
+
+
+def lm_record_checks(pod, smoke, card):
+    """Phase 3l's dry runs on this torch against the committed records
+    (the CPU's, torch 2.13): qwen2-0.5b decode_32k's FLOPs on 256 fake
+    ranks (its layouts stated by the model, not DTensor's strategy), and
+    each cell of ``SMOKE2X2_ARCHS`` at SMOKE on a fake 2 x 2 world
+    (``record_check``); qwen2-0.5b's other two cells printed beside their
+    records."""
+    import torch
+    from repro_torch.configs import CELLS
+    out = {}
+    doc = pod["decode_32k"]
+    rec = json.loads((RECORDS / f"pod16x16__{LM_ARCH}__decode_32k.json")
+                     .read_text())
+    rel = doc["flops_per_device"] / rec["flops_per_device"] - 1
+    out["pod16x16 decode_32k flops"] = rel
+    need(abs(rel) <= RECORD_RTOL, f"phase 3l: {LM_ARCH} decode_32k counts "
+         f"{doc['flops_per_device']!r} FLOPs a rank, the record "
+         f"{rec['flops_per_device']!r}")
+    for name in ("train_4k", "prefill_32k"):
+        want = json.loads((RECORDS / f"pod16x16__{LM_ARCH}__{name}.json")
+                          .read_text())
+        out[f"pod16x16 {name}"] = {k: pod[name][k] / want[k] - 1 for k in (
+            "flops_per_device", "bytes_per_device", "coll_bytes_per_device")}
+    for arch, docs in zip(SMOKE2X2_ARCHS, smoke):
+        names = sorted(c["shape"].name for c in CELLS[arch]
+                       if not c["skip"])
+        need(sorted(docs) == names, f"phase 3l: the SMOKE 2 x 2 dry run of "
+             f"{arch} wrote {sorted(docs)}, want {names}")
+        for name in names:
+            out[f"{arch} {name}"] = record_check(
+                docs[name], SMOKE2X2 / f"mesh2x2__{arch}__{name}.json",
+                f"phase 3l: {arch} {name} at SMOKE on 2 x 2")
+    worst = max(abs(v) for k, r in out.items()
+                if k.startswith(SMOKE2X2_ARCHS) for v in r.values())
+    print(f"{card}: torch {torch.__version__}'s dry runs against the "
+          f"records: {LM_ARCH} decode_32k FLOPs on 256 ranks {rel:+.2e}; "
+          f"train_4k and prefill_32k "
+          + "; ".join(f"{k.split()[1]} " + ", ".join(
+              f"{x.split('_')[0]} {v:+.2e}" for x, v in out[k].items())
+              for k in ("pod16x16 train_4k", "pod16x16 prefill_32k"))
+          + f"; {', '.join(SMOKE2X2_ARCHS)} at SMOKE on 2 x 2, "
+          f"{sum(len(d) for d in smoke)} cells, largest difference "
+          f"{worst:.2e}", flush=True)
+    return out
+
+
 def lm_dryrun_start():
-    """Phase 3l's two dry runs of qwen2-0.5b's LM cells, started: on a
-    fake 256-rank world, and on a fake world of one at one rank's share
-    (the smoke starts them beside phase 3k's dry runs and collects them
-    with those, before 3k's timed part: ``lm_dryrun_collect``)."""
+    """Phase 3l's dry runs, started: qwen2-0.5b's LM cells on a fake
+    256-rank world and on a fake world of one at one rank's share, and
+    the recurrent archs' (``SMOKE2X2_ARCHS``) at SMOKE on a fake 2 x 2
+    world (the smoke starts them beside phase 3k's dry runs and collects
+    them with those, before 3k's timed part: ``lm_dryrun_collect``)."""
     tmp = Path(tempfile.mkdtemp(prefix="lm_dryrun_"))
     return {"tmp": tmp, "t0": time.perf_counter(), "docs": None,
             "runs": dryrun_start(
                 (tmp / "pod16x16", "--arch-filter", LM_ARCH),
                 (tmp / "rank", "--arch-filter", LM_ARCH, "--mesh", "1x1",
-                 "--sizing", "rank"))}
+                 "--sizing", "rank"),
+                *((tmp / f"smoke_{a}", "--arch-filter", a, "--mesh", "2x2",
+                   "--sizing", "smoke") for a in SMOKE2X2_ARCHS))}
 
 
 def lm_dryrun_collect(lm):
@@ -5144,7 +5272,7 @@ def lm_dryrun_phase(report, card, started=None):
     t_phase = time.perf_counter()
     lm = started or lm_dryrun_start()
     tmp = lm["tmp"]
-    docs, fake = lm_dryrun_collect(lm)
+    docs, fake, *smoke = lm_dryrun_collect(lm)
     need(sorted(docs) == sorted(LM_SHAPES), f"the LM dry run wrote "
          f"{sorted(docs)}, want {sorted(LM_SHAPES)}")
     out["pod16x16"] = {k: {"gib": d["memory_analysis"]["total_nonalias_bytes"]
@@ -5156,6 +5284,7 @@ def lm_dryrun_phase(report, card, started=None):
                        for k, d in docs.items()}
     out["dryruns_s"] = lm["dryruns_s"]
     out["dryruns_wait_s"] = lm["wait_s"]
+    out["records"] = lm_record_checks(docs, smoke, card)
     out["counter"] = counter_check(card)
     dist.init_process_group("nccl", store=dist.FileStore(
         str(tmp / "store"), 1), rank=0, world_size=1)
@@ -5164,10 +5293,490 @@ def lm_dryrun_phase(report, card, started=None):
     finally:
         dist.destroy_process_group()
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"{card}: phase 3l {out['phase_s']:.1f} s (the two dry runs "
+    print(f"{card}: phase 3l {out['phase_s']:.1f} s (its four dry runs "
           f"{out['dryruns_s']:.1f} s from their start, "
           f"{out['dryruns_wait_s']:.1f} s waited for, before 3k's "
           f"timing when 3k collected them)", flush=True)
+
+
+# phase 3m: the LM cells on a real 2 x 2 mesh of four ranks on the card
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_LAYERS = 2      # qwen2-0.5b's depth (FULL width), see lm_mesh_phase
+LM_MESH_ARCHS = (LM_ARCH, "mixtral-8x7b", "jamba-v0.1-52b", "xlstm-350m")
+# (seq_len, global batch) of each cell: qwen2-0.5b's, then the SMOKE archs'
+LM_MESH_SIZES = {LM_ARCH: {"train_4k": (128, 4), "prefill_32k": (512, 2),
+                           "decode_32k": (512, 2)},
+                 "smoke": {"train_4k": (16, 2), "prefill_32k": (16, 4),
+                           "decode_32k": (16, 4)}}
+# the SMOKE archs train on one microbatch (a row a data rank): a MoE's aux
+# loss is a statistic of each microbatch's routing, and the mesh's
+# microbatch i is block i of every rank's rows, not the plain step's
+# contiguous block i, so their microbatched steps differ by design
+LM_MESH_POS = 5         # the decode step's position in its cache
+LM_MESH_GRAPH = 12      # log2 vertices of the walk corpus's graph
+LM_MESH_WALKERS = 256
+LM_MESH_TIMEOUT_S = 420
+# the limits of tests/test_torch_launch_lm_numerics.py: the train step's
+# loss and gradient norm (rtol), params and first moments (rtol, atol),
+# second moments (rtol, atol); logits (rtol, atol of the largest); the
+# written cache (one bf16 ulp, atol)
+LM_MESH_TOL = {"metric": 1e-5, "param": (1e-5, 1e-6), "nu": (1e-5, 1e-9),
+               "logits": (1e-5, 1e-5), "cache": (2.0 ** -7, 1e-6)}
+# xlstm-350m's SMOKE stack is ill-conditioned at random init: summing in
+# another order moves its train step's second moments by up to 4.6e-4
+# relative on an H100 with torch 2.11.  Its cells are also run on
+# whole tensors on the CPU, and the mesh run may use LM_MESH_FLOOR_X times
+# the share of each limit that this CPU run uses, where that is more
+LM_MESH_FLOOR = ("xlstm-350m",)
+LM_MESH_FLOOR_X = 2.0
+HOST_STAGED = "gloo_host"
+STAGED_COUNTS: dict = {}    # kind -> [calls, bytes] (register_host_staging)
+
+
+def register_host_staging():
+    """Register ``HOST_STAGED``, a process group over gloo for ``cuda``
+    and ``cpu`` tensors that stages each collective's CUDA buffers through
+    the host: on the card's torch 2.11, gloo's own CUDA paths for the
+    functional all-gather, and for DTensor's all-gathers, reduce-scatters
+    and all-to-alls, kill the process (SIGSEGV in ``wait_tensor``).  The model
+    issues the same collectives with the same bytes; only their transport
+    changes.  Each call is tallied in ``STAGED_COUNTS`` by the counter's
+    kinds (``roofline.COLLECTIVES``) and its input's bytes, as
+    ``roofline.CostCounter`` counts them."""
+    import torch
+    import torch.distributed as dist
+    from torch.futures import Future
+    from torch.utils._python_dispatch import _disable_current_modes
+    if HOST_STAGED in dist.Backend.backend_list:
+        return
+
+    def done(result):
+        from torch._C._distributed_c10d import _create_work_from_future
+        fut = Future()
+        fut.set_result(result)
+        return _create_work_from_future(fut)
+
+    def tally(kind, tensors):
+        row = STAGED_COUNTS.setdefault(kind, [0, 0])
+        row[0] += 1
+        row[1] += sum(t.numel() * t.element_size() for t in tensors)
+
+    def host(ts):
+        return [t.detach().to("cpu", copy=True) for t in ts]
+
+    def reduce_options(opts):
+        o = dist.AllreduceOptions()
+        if opts is not None and hasattr(opts, "reduceOp"):
+            o.reduceOp = opts.reduceOp
+        return o
+
+    class HostStaged(dist.ProcessGroup):
+        def __init__(self, inner, rank, size, name):
+            super().__init__(rank, size)
+            self.inner, self._rank, self._size = inner, rank, size
+            self._name = name
+
+        @property
+        def group_name(self):
+            return self._name
+
+        def getBackendName(self):
+            return HOST_STAGED
+
+        def size(self):
+            return self._size
+
+        def rank(self):
+            return self._rank
+
+        def allreduce(self, tensors, opts=None):
+            with _disable_current_modes():
+                tally("all_reduce", tensors)
+                h = host(tensors)
+                self.inner.allreduce(h, reduce_options(opts)).wait()
+                for t, s in zip(tensors, h):
+                    t.copy_(s)
+            return done(tensors)
+
+        allreduce_coalesced = allreduce
+
+        def broadcast(self, tensors, opts=None):
+            with _disable_current_modes():
+                tally("broadcast", tensors)
+                o = dist.BroadcastOptions()
+                if opts is not None:
+                    o.rootRank, o.rootTensor = opts.rootRank, opts.rootTensor
+                h = host(tensors)
+                self.inner.broadcast(h, o).wait()
+                for t, s in zip(tensors, h):
+                    t.copy_(s)
+            return done(tensors)
+
+        def allgather(self, outputs, inputs, opts=None):
+            with _disable_current_modes():
+                tally("all_gather", inputs)
+                h = [host(ol) for ol in outputs]
+                self.inner.allgather(h, host(inputs)).wait()
+                for ol, hl in zip(outputs, h):
+                    for t, s in zip(ol, hl):
+                        t.copy_(s)
+            return done(outputs)
+
+        def _gather(self, outs, inps):
+            with _disable_current_modes():
+                tally("all_gather", inps)
+                for out, inp in zip(outs, inps):
+                    h = torch.empty(out.shape, dtype=out.dtype)
+                    self.inner.allgather([list(h.chunk(self._size))],
+                                         host([inp])).wait()
+                    out.copy_(h)
+            return done(outs)
+
+        def _allgather_base(self, out, inp, opts=None):
+            return self._gather([out], [inp])
+
+        all_gather_single = _allgather_base
+
+        def allgather_into_tensor_coalesced(self, outs, inps, opts=None):
+            return self._gather(outs, inps)
+
+        all_gather_single_coalesced = allgather_into_tensor_coalesced
+
+        def _scatter(self, outs, inps, opts):
+            # the reduction of the whole input, this rank's block kept
+            with _disable_current_modes():
+                tally("reduce_scatter", inps)
+                for out, inp in zip(outs, inps):
+                    h = host([inp.contiguous()])
+                    self.inner.allreduce(h, reduce_options(opts)).wait()
+                    out.copy_(h[0].chunk(self._size)[self._rank]
+                              .reshape(out.shape))
+            return done(outs)
+
+        def _reduce_scatter_base(self, out, inp, opts=None):
+            return self._scatter([out], [inp], opts)
+
+        reduce_scatter_single = _reduce_scatter_base
+
+        def reduce_scatter_tensor_coalesced(self, outs, inps, opts=None):
+            return self._scatter(outs, inps, opts)
+
+        reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+
+        def reduce_scatter(self, outputs, input_lists, opts=None):
+            return self._scatter(outputs, [torch.stack(list(il))
+                                           for il in input_lists], opts)
+
+        def alltoall_base(self, out, inp, out_splits, in_splits, opts=None):
+            with _disable_current_modes():
+                tally("all_to_all_single", [inp])
+                h = torch.empty(out.shape, dtype=out.dtype)
+                self.inner.alltoall_base(
+                    h, host([inp.contiguous()])[0], list(out_splits),
+                    list(in_splits), dist.AllToAllOptions()).wait()
+                out.copy_(h)
+            return done([out])
+
+        all_to_all_single = alltoall_base
+
+        def barrier(self, opts=None):
+            self.inner.barrier(dist.BarrierOptions()).wait()
+            return done([])
+
+    def create(opts, backend_options=None):
+        inner = dist.ProcessGroupGloo(opts.store, opts.group_rank,
+                                      opts.group_size, opts.timeout)
+        return HostStaged(inner, opts.group_rank, opts.group_size,
+                          opts.group_id)
+
+    dist.Backend.register_backend(HOST_STAGED, create, extended_api=True,
+                                  devices=["cpu", "cuda"])
+
+
+def lm_mesh_config(arch):
+    """Phase 3m's config of ``arch``: qwen2-0.5b at FULL width cut to
+    LM_MESH_LAYERS layers, the others at SMOKE; float32."""
+    from repro_torch.configs import get_config, smoke_config
+    if arch == LM_ARCH:
+        return dataclasses.replace(get_config(arch), num_layers=LM_MESH_LAYERS,
+                                   dtype="float32")
+    return smoke_config(arch)
+
+
+def lm_mesh_cells(archs=LM_MESH_ARCHS):
+    """Phase 3m's cells: (arch, shape name, config, resized shape)."""
+    from repro_torch.configs import SHAPES
+    out = []
+    for arch in archs:
+        sizes = LM_MESH_SIZES.get(arch, LM_MESH_SIZES["smoke"])
+        for name in LM_SHAPES:
+            S, B = sizes[name]
+            out.append((arch, name, lm_mesh_config(arch), dataclasses.replace(
+                SHAPES[name], seq_len=S, global_batch=B)))
+    return out
+
+
+def lm_mesh_walk_batch(shape, device="cuda"):
+    """qwen2-0.5b's train rows from the walk corpus: a deepwalk round (B1)
+    of ``WalkCorpusPipeline`` on an R-MAT graph of 2^LM_MESH_GRAPH
+    vertices (vertex ids are tokens of the vocabulary), seeded alike on
+    every rank, its paths and pairs checked (``checked_pipeline``)."""
+    from repro_torch.core.dyngraph import BingoConfig, from_edges
+    from repro_torch.graph.rmat import degree_bias, rmat_edges
+    V = 1 << LM_MESH_GRAPH
+    src, dst = rmat_edges(LM_MESH_GRAPH, 8, seed=0)
+    w = degree_bias(src, dst, V, bias_bits=TRAIN_BITS)
+    bcfg = BingoConfig(num_vertices=V, capacity=TRAIN_CAPACITY,
+                       bias_bits=TRAIN_BITS)
+    state = from_edges(bcfg, src, dst, w, device=device)
+    pipe = checked_pipeline(state, bcfg, walkers_per_round=LM_MESH_WALKERS,
+                            seq_len=shape.seq_len,
+                            batch_size=shape.global_batch)
+    batch = next(pipe)
+    need(pipe.rounds >= 1 and pipe.walk_err == 0.0, "phase 3m: no walk "
+         "round checked")
+    return batch
+
+
+def whole_tree(tree):
+    """``tree`` with each DTensor gathered whole (a collective)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.full_tensor() if type(t).__name__ ==
+                    "DTensor" else t, tree)
+
+
+def mesh_ratio(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|) over the leaves of
+    two trees (at most 1: within the limit)."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+    g, w = tree_flatten(got)[0], tree_flatten(want)[0]
+    need(len(g) == len(w), "phase 3m: the trees differ")
+    worst = 0.0
+    for a, b in zip(g, w):
+        if not isinstance(b, torch.Tensor) or not b.is_floating_point():
+            need(bool(torch.equal(a, b)) if isinstance(b, torch.Tensor)
+                 else a == b, "phase 3m: a leaf differs")
+            continue
+        a, b = a.double(), b.double()
+        worst = max(worst, float(((a - b).abs() / (atol + rtol * b.abs()))
+                                 .max()))
+    return worst
+
+
+def lm_mesh_excess(name, got, want):
+    """The cell's outputs against the plain run's, each group's largest
+    ratio to its limit in LM_MESH_TOL."""
+    t = LM_MESH_TOL
+    if name == "train_4k":
+        (p, o, _, m), (pw, ow, _, mw) = got, want
+        return {"loss": mesh_ratio(m["loss"], mw["loss"], t["metric"], 0.0),
+                "grad_norm": mesh_ratio(m["grad_norm"], mw["grad_norm"],
+                                        t["metric"], 0.0),
+                "params": mesh_ratio(p, pw, *t["param"]),
+                "mu": mesh_ratio(o.mu, ow.mu, *t["param"]),
+                "nu": mesh_ratio(o.nu, ow.nu, *t["nu"]),
+                "step": float(int(o.step) != int(ow.step))}
+    decode = name == "decode_32k"
+    logits, lw = (got[0], want[0]) if decode else (got, want)
+    rtol, atol = t["logits"]
+    out = {"logits": mesh_ratio(logits, lw, rtol,
+                                atol * float(lw.abs().max()))}
+    if decode:
+        out["cache"] = mesh_ratio(got[1], want[1], *t["cache"])
+    return out
+
+
+def on_device(tree, device):
+    """A copy of ``tree`` with its tensors on ``device``."""
+    import torch
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.to(device, copy=True)
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def lm_mesh_rank(rank, n, backend, tmp):
+    """One rank of phase 3m (runs in its own process): the cells of
+    ``lm_mesh_cells`` (``job.json``'s archs) on ``init_device_mesh(device,
+    LM_MESH_SHAPE)`` over a ``HOST_STAGED`` world; rank 0 holds each
+    against the plain run."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import build_cell, place
+    tmp = Path(tmp)
+    job = json.loads((tmp / "job.json").read_text())
+    device = job["device"]
+    card = device == "cuda"
+    if card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    register_host_staging()
+    dist.init_process_group(HOST_STAGED, store=dist.FileStore(
+        str(tmp / "store"), n), rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=LM_MESH_TIMEOUT_S))
+    res = {"cells": {}}
+    try:
+        mesh = init_device_mesh(device, LM_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        for arch, name, cfg, shape in lm_mesh_cells(job["archs"]):
+            key = f"{arch} {name}"
+            cell = build_cell(arch, name, mesh, cfg=cfg, shape=shape)
+            batch = None
+            if name == "train_4k" and arch == LM_ARCH:
+                batch = lm_mesh_walk_batch(shape, device)
+                res["walk_batch"] = digest(list(batch.values()))
+            vals = lm_inputs(name, shape, cfg, batch, device, LM_MESH_POS)
+            plain = clone_tree(vals) if rank == 0 else None
+            args = place(vals, cell.specs, mesh)
+            del vals
+            before = 0
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            STAGED_COUNTS.clear()
+            t0 = time.perf_counter()
+            got = cell.fn(*args)
+            if card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - before if card \
+                else None
+            row = {"wall_s": wall, "coll": dict(STAGED_COUNTS),
+                   "peak_bytes": peak if peak is None else
+                   peak + storage_bytes(local_tree(args)),
+                   "microbatches": cell.meta.get("plan", {}).get(
+                       "microbatches")}
+            got = whole_tree(got)
+            del args
+            if plain is not None:
+                floor = on_device(cell.fn(*on_device(plain, "cpu")), device) \
+                    if arch in LM_MESH_FLOOR else None
+                want = cell.fn(*plain)
+                row["excess"] = lm_mesh_excess(name, got, want)
+                if floor is not None:
+                    row["floor_excess"] = lm_mesh_excess(name, floor, want)
+                del want, plain, floor
+            res["cells"][key] = row
+            del got
+            if card:
+                torch.cuda.empty_cache()
+        res["launches"] = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    (tmp / f"result_{backend}_{rank}.json").write_text(json.dumps(res))
+
+
+def lm_mesh_predictions(device="cuda", archs=LM_MESH_ARCHS):
+    """Each phase-3m cell on a fake world of LM_MESH_SHAPE's size, fake
+    ``device`` tensors (the dry run's counter): its peak, FLOPs, bytes and
+    collective bytes by kind a rank.  No group may be alive in this
+    process."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch import dryrun
+    out = {}
+    with dryrun.fake_world(math.prod(LM_MESH_SHAPE)):
+        mesh = init_device_mesh(device, LM_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        for arch, name, cfg, shape in lm_mesh_cells(archs):
+            d = dryrun.run_cell(arch, name, mesh=mesh, cfg=cfg,
+                                lm_shape=shape, out_dir=None, verbose=False)
+            out[f"{arch} {name}"] = {
+                "peak_bytes": d["memory_analysis"]["total_nonalias_bytes"],
+                "flops": d["flops_per_device"],
+                "bytes": d["bytes_per_device"],
+                "coll": d["coll_breakdown"]}
+    return out
+
+
+def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
+    """Phase 3m: the LM cells (``lm_mesh_cells``) on a real 2 x 2 mesh of
+    four ranks sharing the card over a ``HOST_STAGED`` world (gloo through
+    the host), each held on rank 0 against the same function on plain
+    whole tensors on the card in float32 with TF32 off, at
+    LM_MESH_TOL's limits; each cell's wall time, collectives and peak a
+    rank printed beside the counter's prediction for the same cell on a
+    fake 2 x 2 world (``lm_mesh_predictions``, run here while the ranks
+    start).  qwen2-0.5b runs at FULL width cut to LM_MESH_LAYERS layers:
+    every collective crosses the host twice, and two layers hold every
+    layout of its stack (the stage is one slot repeated).  Returns the
+    ranks' launches by kernel (B1: the train rows' walk round).
+    ``device="cpu"`` and fewer ``archs`` make the CPU test's run (no
+    peaks there)."""
+    out = report["lm_mesh"] = {}
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="lm_mesh_"))
+    (tmp / "job.json").write_text(json.dumps({"device": device,
+                                              "archs": list(archs)}))
+    preds = {}
+    results = spawn_ranks(tmp, "gloo", math.prod(LM_MESH_SHAPE),
+                          target=lm_mesh_rank, timeout=LM_MESH_TIMEOUT_S,
+                          meanwhile=lambda: preds.update(
+                              lm_mesh_predictions(device, archs)))
+    digests = {r.get("walk_batch") for r in results}
+    need(len(digests) == 1, f"phase 3m: the ranks' walk rows differ "
+         f"({digests})")
+    cells = out["cells"] = {}
+    for key in results[0]["cells"]:
+        ranks = [r["cells"][key] for r in results]
+        ex = ranks[0]["excess"]
+        floor = ranks[0].get("floor_excess")
+        limit = {k: max(1.0, LM_MESH_FLOOR_X * floor[k]) if floor else 1.0
+                 for k in ex}
+        p = preds[key]
+        coll = [{k: v[1] for k, v in r["coll"].items()} for r in ranks]
+        row = cells[key] = {
+            "wall_s": max(r["wall_s"] for r in ranks), "excess": ex,
+            "floor_excess": floor, "limit": limit,
+            "coll_bytes": coll, "coll_calls": [
+                {k: v[0] for k, v in r["coll"].items()} for r in ranks],
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "pred": p, "microbatches": ranks[0]["microbatches"]}
+        real_c = [sum(c.values()) for c in coll]
+        pred_c = sum(p["coll"].values())
+        row["coll_real_over_pred"] = [c / pred_c if pred_c else None
+                                      for c in real_c]
+        peaks = [b for b in row["peak_bytes"] if b is not None]
+        row["peak_real_over_pred"] = [b / p["peak_bytes"] for b in peaks]
+        mb = row["microbatches"] or 1
+        calls = ", ".join(f"{k} {v[0]} calls {v[1] / 2**20:.3f} MiB "
+                          f"(predicted {p['coll'].get(k, 0) / 2**20:.3f})"
+                          for k, v in ranks[0]["coll"].items())
+        print(f"  {key} ({mb} microbatch{'es' if mb > 1 else ''}): wall "
+              f"{row['wall_s']:.2f} s (DTensor's planning included); "
+              f"share of each limit used "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ex.items())
+              + ("" if not floor else " (the plain run on the CPU: "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in floor.items())
+                 + f"; allowed {LM_MESH_FLOOR_X:g} times that)")
+              + f"; collectives a rank {min(real_c) / 2**20:.3f}-"
+              f"{max(real_c) / 2**20:.3f} MiB (rank 0: {calls}), "
+              f"predicted {pred_c / 2**20:.3f}; peak a rank "
+              + (f"{min(peaks) / 2**20:.1f}-{max(peaks) / 2**20:.1f} MiB"
+                 if peaks else "not measured")
+              + f", predicted {p['peak_bytes'] / 2**20:.1f}", flush=True)
+        need(all(v <= limit[k] for k, v in ex.items()), f"phase 3m {key}: "
+             f"the mesh run outside its limits against the plain run: {ex} "
+             f"(allowed {limit})")
+    launches = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    need(device != "cuda" or LM_ARCH not in archs or
+         launches.get("walk_fused", 0) >= len(results), f"phase 3m: the "
+         f"walk rounds launched {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"{card}: phase 3m {out['phase_s']:.1f} s ({len(cells)} cells on a "
+          f"{LM_MESH_SHAPE[0]} x {LM_MESH_SHAPE[1]} mesh of "
+          f"{len(results)} ranks, every one within its limits)", flush=True)
+    return launches
 
 
 def attention_pairs(S, T, causal, window):
@@ -5294,20 +5903,31 @@ def attention_phase(report):
             else "bytes"
         old_b_ms = None if is16 else max(
             flops / hw.OPS_PER_S, nbytes / hw.HBM_BW) * 1e3
-        try:        # the yardstick: a library fault does not fail the smoke
-            if w:
-                pos = torch.arange(S, device="cuda")
-                mask = ((pos[None, :] <= pos[:, None])
-                        & (pos[None, :] > pos[:, None] - w))
-                lib_ms, lib = sdpa_ms(q, k, v, attn_mask=mask)
-                del mask
-            else:
-                lib_ms, lib = sdpa_ms(q, k, v, is_causal=causal)
-            lib_err, how = float((lib.float() - o.float()).abs().max()), "ok"
-            del lib
-        except Exception as e:              # noqa: BLE001
-            traceback.print_exc()
-            lib_ms, lib_err, how = None, None, f"no time: {e!r}"[:300]
+        # the yardstick: a library fault does not fail the smoke; where
+        # SDPA has no fused kernel for these inputs (f32 with grouped KV
+        # heads) its error and each backend's reason, from its warnings,
+        # are recorded in "library", without a traceback
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                if w:
+                    pos = torch.arange(S, device="cuda")
+                    mask = ((pos[None, :] <= pos[:, None])
+                            & (pos[None, :] > pos[:, None] - w))
+                    lib_ms, lib = sdpa_ms(q, k, v, attn_mask=mask)
+                    del mask
+                else:
+                    lib_ms, lib = sdpa_ms(q, k, v, is_causal=causal)
+                lib_err = float((lib.float() - o.float()).abs().max())
+                how = "ok"
+                del lib
+            except Exception as e:              # noqa: BLE001
+                why = sorted({str(m.message).strip().splitlines()[0]
+                              for m in caught})
+                lib_ms, lib_err = None, None
+                how = (f"no time: {type(e).__name__}: "
+                       f"{str(e).strip().splitlines()[0]}"
+                       + (f" ({'; '.join(why)})" if why else ""))[:600]
         out[name] = {"window": w, "causal": causal, "heads": H,
                      "kv_heads": k.shape[1], "head_dim": D,
                      "dtype": str(q.dtype), "ms": ms,
@@ -5628,6 +6248,10 @@ def main():
         dryrun_stop(lm_runs["runs"]["procs"])
     peak = max(peak, torch.cuda.max_memory_allocated())
     torch.cuda.empty_cache()
+    # ---- phase 3m: the LM cells on a real 2 x 2 mesh of four ranks
+    more = timed("3m LM mesh", lm_mesh_phase, report, card)
+    for k in kernels:
+        k["launches"] += more.get(k["name"], 0)
     # ---- phase 3e: attention at full width
     torch.cuda.reset_peak_memory_stats()
     kernels += timed("3e attention", attention_phase, report)

@@ -98,6 +98,18 @@ _FUNCTIONAL = {"all_gather_into_tensor": "all_gather",
 _OLD_EXACT = 512
 _OLD_EVERY = 64
 
+# ops with a scratch tensor whose size is the device's choice (log-sigmoid's
+# buffer, empty on CUDA): (its index among the op's tensor outputs or
+# inputs, "out" or "in"); it is not counted, so a cell counts alike on
+# fake ``cpu`` and ``cuda`` tensors
+_SCRATCH = {"log_sigmoid_forward": (1, "out"),
+            "log_sigmoid_backward": (2, "in")}
+
+# factories that read only their input's dtype and device: their output
+# is counted, not that input (torch versions' autograd formulas pick
+# ``zeros`` or ``new_zeros`` alike)
+_NO_READ = ("new_zeros", "new_ones", "new_full")
+
 # ops that allocate without writing: no bytes, no operations
 _UNWRITTEN = ("empty", "empty_like", "empty_strided", "new_empty",
               "new_empty_strided")
@@ -557,8 +569,15 @@ class CostCounter(TorchDispatchMode):
             return out
         from torch.utils.flop_counter import flop_registry
         ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
+               if isinstance(t, torch.Tensor)] \
+            if func._opname not in _NO_READ else []
         outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        if func._opname in _SCRATCH:
+            i, where = _SCRATCH[func._opname]
+            if where == "out":
+                outs = outs[:i] + outs[i + 1:]
+            else:
+                ins = ins[:i] + ins[i + 1:]
         self.bytes += sum(_nbytes(t) for t in ins + outs) * self.scale
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:

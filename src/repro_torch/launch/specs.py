@@ -266,7 +266,7 @@ def _build_train(arch, cfg, shape, mesh, plan) -> CellSpec:
 
 
 def _build_prefill(arch, cfg, shape, mesh) -> CellSpec:
-    from repro_torch.models.layers import unshard
+    from repro_torch.models.layers import dot, unshard
     from repro_torch.models.model import forward_hidden
     params = _params_meta(cfg)
     batch = _batch_meta(cfg, shape.global_batch, shape.seq_len, train=False)
@@ -276,7 +276,7 @@ def _build_prefill(arch, cfg, shape, mesh) -> CellSpec:
     def prefill(params, batch):
         h, _ = forward_hidden(params, cfg, batch)               # (B, S, D)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
-        return h[:, -1].to(torch.float32) @ unshard(head).to(torch.float32)
+        return dot(h[:, -1].to(torch.float32), unshard(head).to(torch.float32))
 
     def args(device):
         return (_dtensors(params, pspecs, mesh, device),

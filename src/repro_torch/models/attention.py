@@ -21,8 +21,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  attention_ref_chunked)
-from repro_torch.models.layers import (dense_init, local_parts, merge_last,
-                                       placed, rope_partial, split_last)
+from repro_torch.models import steps
+from repro_torch.models.layers import (dense_init, dot, local_parts,
+                                       merge_last, placed, rope_partial,
+                                       split_last)
 
 _Q_CHUNK_THRESHOLD = 8192   # q-chunk long sequences (flash-like memory)
 
@@ -50,9 +52,9 @@ def _project_qkv(params, cfg, x, positions, *, use_rope: bool):
     B, S, D = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     dt = x.dtype
-    q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
+    q = dot(x, params["wq"].to(dt))
+    k = dot(x, params["wk"].to(dt))
+    v = dot(x, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -84,7 +86,7 @@ def attention_train(params, cfg, x, positions, slot: int = 0):
         out = _attend_sharded(q, k, v, cfg, window)
     else:
         out = _attend(q, k, v, cfg, window)
-    return merge_last(out) @ params["wo"].to(x.dtype)
+    return dot(merge_last(out), params["wo"].to(x.dtype))
 
 
 def _attend(q, k, v, cfg, window, q_offset=None):
@@ -285,13 +287,31 @@ def attention_decode(params, cfg, x, pos, cache, slot: int = 0):
 
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.dh
     rep = H // Hkv
-    # grouped-GQA einsum: never materializes rep-expanded KV
     qh = split_last((q[:, 0].to(torch.float32) * dh ** -0.5).reshape(
         B, H * dh), Hkv, rep, dh)
+    if type(ck).__name__ == "DTensor" and any(p.is_shard(1)
+                                             for p in ck.placements):
+        # KV heads split: each rank on its batch and heads of the cache
+        # (DTensor cannot flatten a batch and a split head dim into the
+        # products' rows)
+        out = steps.on_shards(_decode_attend, (qh, ck, cv, valid),
+                              _DECODE_SPECS, (_DECODE_SPECS[0],))
+    else:
+        out = _decode_attend(qh, ck, cv, valid)
+    out = dot(merge_last(out.to(x.dtype), 3)[:, None],
+              params["wo"].to(x.dtype))
+    return out, cache
+
+
+# queries (B, Hkv, rep, dh), cache (B, Hkv, T, dh) twice, valid (B, T)
+_DECODE_SPECS = (("B", "C", None, None),) * 3 + (("B", None),)
+
+
+def _decode_attend(qh, ck, cv, valid):
+    """Grouped-GQA decode attention (never materializes rep-expanded KV):
+    queries (B, Hkv, rep, dh) over a (B, Hkv, T, dh) ring cache, its
+    slots ``valid`` (B, T) -> (B, Hkv, rep, dh) float32."""
     logits = torch.einsum("bkrd,bktd->bkrt", qh, ck.to(torch.float32))
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkrt,bktd->bkrd", p, cv.to(torch.float32)
-                       ).to(x.dtype)
-    out = merge_last(out, 3)[:, None] @ params["wo"].to(x.dtype)
-    return out, cache
+    return torch.einsum("bkrt,bktd->bkrd", p, cv.to(torch.float32))

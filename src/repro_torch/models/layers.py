@@ -7,7 +7,7 @@ cast back, SiLU spelled as the reference's ``x * sigmoid(x)``.
 on the generator's device; a truncated normal in [-2, 2]
 standard deviations, as the reference's, but not its numbers (weights
 carried over from the reference go through ``model.params_from_jax``).
-The DTensor helpers (``on_mesh``, ``pin_batch``, ``unshard``,
+The DTensor helpers (``on_mesh``, ``pin_batch``, ``unshard``, ``dot``, ``whole``,
 ``split_last``, ``merge_last``, ``pointwise``, ``local_parts``,
 ``placed``, ``batch_placements``, ``shard_offset``) are what the model needs to run on a
 ``DeviceMesh``; each is the plain operation, or nothing, on a plain
@@ -24,7 +24,7 @@ import torch
 __all__ = ["rms_norm", "dense_init", "silu", "swiglu", "rope",
            "rope_partial", "init_mlp", "mlp", "on_mesh", "split_last",
            "merge_last", "pointwise", "pin_batch", "shard_offset",
-           "unshard", "placed", "local_parts", "batch_placements"]
+           "unshard", "dot", "whole", "placed", "local_parts", "batch_placements"]
 
 
 def on_mesh(fn):
@@ -107,8 +107,24 @@ def local_parts(mesh, items) -> list:
                 for p, cut in zip(pl, split)]
         if list(x.placements) != list(pl):
             x = x.redistribute(mesh, pl)
-        out.append(x.to_local(grad_placements=grad))
+        x = x.to_local(grad_placements=grad)
+        out.append(_ContiguousGrad.apply(x) if x.requires_grad else x)
     return out
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: ``to_local``'s backward
+    wraps the local gradient in the forward's DTensor layout, whose
+    strides some torch versions' view rules take as the local tensor's
+    (a gradient stacked along another dim fails their views)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def batch_placements(x, mesh):
@@ -145,6 +161,17 @@ def pin_batch(x):
     return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
 
 
+def whole(x):
+    """``x`` whole on every rank: a DTensor reduced or gathered to
+    replicated; a plain tensor as is."""
+    if type(x).__name__ != "DTensor":
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate()] * x.device_mesh.ndim
+    return x if list(x.placements) == pl else x.redistribute(x.device_mesh,
+                                                              pl)
+
+
 def unshard(w):
     """A weight at its use: a DTensor gathered over the FSDP axes (pod,
     data), its tensor-parallel split over ``model`` kept, as FSDP
@@ -157,6 +184,49 @@ def unshard(w):
     pl = [Replicate() if name in ("pod", "data") and not p.is_partial()
           else p for name, p in zip(mesh.mesh_dim_names, w.placements)]
     return w.redistribute(mesh, pl) if pl != list(w.placements) else w
+
+
+def dot(x, w):
+    """``x @ w``: an activation (..., K) by a weight (K, N).  On DTensors
+    the product runs where the weight lies, a layout the model states
+    rather than DTensor's strategy (which torch versions choose
+    differently): the activation moves to the weight (whole over every
+    mesh dim that splits the weight, its K split like the weight's, its
+    batch kept on the other dims), each rank multiplies its shards, and
+    the result, a partial sum over the mesh dims that split K, is reduced
+    onto the batch over the FSDP axes (``batch_placements``), its N left
+    split over ``model`` where the weight splits it there.  In training
+    and prefill ``unshard`` has gathered the weight over the FSDP axes
+    (a tensor-parallel column or row product); decode reads each weight
+    where it lies, FSDP's shard too.  On plain tensors ``x @ w``."""
+    if type(w).__name__ != "DTensor" or type(x).__name__ != "DTensor":
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    last = x.dim() - 1
+    xpl, opl = [], []
+    for p, q in zip(w.placements, x.placements):
+        if isinstance(p, Shard) and p.dim == 0:         # K split
+            xpl.append(Shard(last))
+            opl.append(Partial())
+        elif isinstance(p, Shard):                      # N split
+            xpl.append(Replicate())
+            opl.append(Shard(last))
+        else:                                           # the batch kept
+            q = q if isinstance(q, Shard) and q.dim != last else Replicate()
+            xpl.append(q)
+            opl.append(q)
+    x_l, w_l = local_parts(mesh, [(x, placed(xpl, mesh)),
+                                  (w, list(w.placements))])
+    out = DTensor.from_local(x_l @ w_l, mesh, placed(opl, mesh),
+                             run_check=False)
+    pl = batch_placements(out, mesh)
+    for i, (name, p) in enumerate(zip(names, w.placements)):
+        if name == "model" and isinstance(p, Shard) and p.dim == 1:
+            pl[i] = Shard(last)
+    pl = placed(pl, mesh)
+    return out if list(out.placements) == pl else out.redistribute(mesh, pl)
 
 
 def shard_offset(x, dim: int) -> int:
@@ -258,6 +328,6 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 def mlp(params, x):
     """SwiGLU MLP. x: (..., D)."""
     dt = x.dtype
-    gate = x @ params["wg"].to(dt)
-    up = x @ params["wi"].to(dt)
-    return swiglu(gate, up) @ params["wo"].to(dt)
+    gate = dot(x, params["wg"].to(dt))
+    up = dot(x, params["wi"].to(dt))
+    return dot(swiglu(gate, up), params["wo"].to(dt))

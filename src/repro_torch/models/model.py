@@ -31,9 +31,11 @@ run's LM cells, ``launch/specs.py``; values as on one device): plain
 tensors made on the way read as replicated (``layers.on_mesh``), the
 residual stream is pinned to batch over the FSDP axes, whole on the
 other axes (``layers.pin_batch``), each slot's weights are gathered over
-the FSDP axes at use in the forward pass (``layers.unshard``), and the
-token embedding and the cross-entropy are vocab-parallel
-(``_embed_sharded``, ``_nll``).  On plain tensors none of this runs.
+the FSDP axes at use in training and prefill (``layers.unshard``) and
+read where they lie in decode, each product on the weight's shards
+(``layers.dot``), and the token embedding and the cross-entropy are
+vocab-parallel (``_embed_sharded``, ``_nll``).  On plain tensors none of
+this runs.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.layers import (dense_init, init_mlp, mlp, on_mesh,
-                                       pin_batch, rms_norm, unshard)
+from repro_torch.models.layers import (dense_init, dot, init_mlp, mlp,
+                                       on_mesh, pin_batch, rms_norm, unshard)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
@@ -138,25 +140,27 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
     kind = cfg.block_pattern[slot]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, slot_params["norm1"], cfg.norm_eps)
+    # each block's output reduced onto the residual's layout before the
+    # add (``pin_batch``): DTensor would otherwise pick where a partial
+    # sum is reduced, and torch versions pick differently
     if kind == "attn":
-        x = x + attn.attention_train(slot_params["attn"], cfg, h, positions,
-                                     slot)
+        out = attn.attention_train(slot_params["attn"], cfg, h, positions,
+                                   slot)
     elif kind == "mamba":
-        x = x + ssm.mamba_train(slot_params["mamba"], cfg, h)
+        out = ssm.mamba_train(slot_params["mamba"], cfg, h)
     elif kind == "mlstm":
-        x = x + xlstm.mlstm_train(slot_params["mlstm"], cfg, h)
+        out = xlstm.mlstm_train(slot_params["mlstm"], cfg, h)
     elif kind == "slstm":
         out, _ = xlstm.slstm_apply(slot_params["slstm"], cfg, h)
-        x = x + out
-    x = pin_batch(x)
+    x = pin_batch(x + pin_batch(out))
     if kind in ("attn", "mamba") and cfg.d_ff:
         h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
         if cfg.is_moe_slot(slot):
             out, aux = moe_ffn(slot_params["moe"], h2, cfg.top_k,
                                dispatch=cfg.moe_dispatch)
-            x = x + out
         else:
-            x = x + mlp(slot_params["mlp"], h2)
+            out = mlp(slot_params["mlp"], h2)
+        x = x + pin_batch(out)
     return pin_batch(x), aux
 
 
@@ -168,28 +172,24 @@ def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
     if kind == "attn":
         out, new_cache = attn.attention_decode(slot_params["attn"], cfg, h,
                                                pos, cache_slot, slot)
-        x = x + out
     elif kind == "mamba":
         out, new_cache = ssm.mamba_decode(slot_params["mamba"], cfg, h,
                                           cache_slot)
-        x = x + out
     elif kind == "mlstm":
         out, new_cache = xlstm.mlstm_decode(slot_params["mlstm"], cfg, h,
                                             cache_slot)
-        x = x + out
     elif kind == "slstm":
         out, new_cache = xlstm.slstm_apply(slot_params["slstm"], cfg, h,
                                            cache_slot)
-        x = x + out
-    x = pin_batch(x)
+    x = pin_batch(x + pin_batch(out))
     if kind in ("attn", "mamba") and cfg.d_ff:
         h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
         if cfg.is_moe_slot(slot):
             out, _ = moe_ffn(slot_params["moe"], h2, cfg.top_k,
                              dispatch=cfg.moe_dispatch)
-            x = x + out
         else:
-            x = x + mlp(slot_params["mlp"], h2)
+            out = mlp(slot_params["mlp"], h2)
+        x = x + pin_batch(out)
     return pin_batch(x), new_cache
 
 
@@ -200,8 +200,8 @@ def _apply_slot_decode(slot_params, cfg: ModelConfig, slot: int, x, pos,
 def _embed(params, cfg: ModelConfig, batch):
     dt = torch_dtype(cfg.dtype)
     if cfg.frontend != "none" and "embeddings" in batch:
-        return batch["embeddings"].to(dt) @ unshard(
-            params["frontend_proj"]).to(dt)
+        return dot(batch["embeddings"].to(dt),
+                   unshard(params["frontend_proj"]).to(dt))
     if type(params["embed"]).__name__ == "DTensor":
         return _embed_sharded(params["embed"], batch["inputs"]).to(dt)
     # gather, then cast: the reference's cast-then-gather, value for value
@@ -339,8 +339,8 @@ def forward_hidden(params, cfg: ModelConfig, batch, *, remat: str = "none"):
 def forward(params, cfg: ModelConfig, batch, *, remat: str = "none"):
     """Full-sequence forward. Returns (logits (B, S, V), aux_loss)."""
     x, aux = forward_hidden(params, cfg, batch, remat=remat)
-    logits = x.to(torch.float32) @ unshard(_head(params, cfg)).to(
-        torch.float32)
+    logits = dot(x.to(torch.float32),
+                 unshard(_head(params, cfg)).to(torch.float32))
     return logits, aux
 
 
@@ -406,5 +406,6 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
                         t = t.redistribute(t.device_mesh, views[k].placements)
                     views[k].copy_(t)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x[:, 0].to(torch.float32) @ _head(params, cfg).to(torch.float32)
+    logits = dot(x[:, 0].to(torch.float32),
+                 _head(params, cfg).to(torch.float32))
     return logits, cache

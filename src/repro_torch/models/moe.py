@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import dense_init, local_parts, placed, swiglu
+from repro_torch.models.layers import (dense_init, dot, local_parts, placed,
+                                       swiglu, whole)
 
 __all__ = ["init_moe", "moe_ffn"]
 
@@ -140,7 +141,7 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
     xf = x.reshape(T, D)
     dt = x.dtype
 
-    logits = xf.to(torch.float32) @ params["router"]      # (T, E)
+    logits = dot(xf.to(torch.float32), params["router"])  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = _topk(probs, top_k)                       # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -177,7 +178,9 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
         raise ValueError(dispatch)
 
     # switch-style load-balancing aux loss
-    me = probs.mean(0)                                     # (E,)
-    ce = _counts(eidx, E, torch.float32) / (T * top_k)
+    # on DTensors the router's statistics are reduced whole before their
+    # product (DTensor would pick where, and torch versions pick apart)
+    me = whole(probs.mean(0))                              # (E,)
+    ce = whole(_counts(eidx, E, torch.float32)) / (T * top_k)
     aux = E * torch.sum(me * ce)
     return out.reshape(B, S, D), aux

@@ -5,9 +5,9 @@ SSM along time one step at a time, in the reference's float order, in
 chunks of ``_CHUNK`` steps; with grad enabled each chunk runs under
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint(chunk)``,
 so the backward pass saves one (B, Di, N) state a chunk, not a step.
-On DTensors the scan runs on each rank's shard of the batch and the
-channels (``steps.on_shards``), and a dry run costs it on a bounded
-number of chunks (``steps.loop``).
+On DTensors the causal conv, the scan and the decode step run on each
+rank's shard of the batch and the channels (``steps.on_shards``), and a
+dry run costs the scan on a bounded number of chunks (``steps.loop``).
 Decode keeps O(1) state — a (d_conv-1, Di) conv ring + a (Di, N) SSM
 state.
 """
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import steps
-from repro_torch.models.layers import dense_init, silu
+from repro_torch.models.layers import dense_init, dot, silu
 
 __all__ = ["init_mamba", "mamba_train", "mamba_decode", "init_mamba_cache"]
 
@@ -71,12 +71,24 @@ def _ssm_inputs(params, cfg, xz):
 def _dt_bc(params, cfg, xc):
     N, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
     dt = xc.dtype
-    proj = xc @ params["x_proj"].to(dt)
+    proj = dot(xc, params["x_proj"].to(dt))
     dt_r, B, C = torch.split(proj, [dtr, N, N], dim=-1)
     delta = _softplus(
-        (dt_r @ params["dt_proj"].to(dt)).to(torch.float32)
+        dot(dt_r, params["dt_proj"].to(dt)).to(torch.float32)
         + params["dt_bias"])
     return delta, B.to(torch.float32), C.to(torch.float32)
+
+
+# xc (B, S, Di), conv_w (dc, Di), conv_b (Di,): the batch and channels
+_CONV_SPECS = (("B", None, "C"), (None, "C"), ("C",))
+
+
+def _causal_conv(xc, w, b):
+    """The depthwise causal conv along S: (B, S, Di) by (dc, Di) taps,
+    zero history before the first step."""
+    S, dc, dt = xc.shape[1], w.shape[0], xc.dtype
+    pad = F.pad(xc, (0, 0, dc - 1, 0))
+    return sum(pad[:, i:i + S] * w[i].to(dt) for i in range(dc)) + b.to(dt)
 
 
 _CHUNK = 64   # the reference's time-chunk length (S must divide by it)
@@ -87,16 +99,16 @@ _SCAN_SPECS = (("B", None, "C"), ("B", None, "C"), ("B", None, None),
 
 def mamba_train(params, cfg, x):
     """x: (B, S, D) -> (B, S, D); the selective scan, step by step."""
-    Bb, S, D = x.shape
-    Di, N, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    S = x.shape[1]
     dt = x.dtype
-    xz = x @ params["in_proj"].to(dt)                      # (B, S, 2Di)
+    xz = dot(x, params["in_proj"].to(dt))                  # (B, S, 2Di)
     xc, res = _ssm_inputs(params, cfg, xz)
 
-    # depthwise causal conv along S
-    pad = F.pad(xc, (0, 0, dc - 1, 0))
-    conv = sum(pad[:, i:i + S] * params["conv_w"][i].to(dt)
-               for i in range(dc)) + params["conv_b"].to(dt)
+    # depthwise causal conv along S, whole on every rank: on DTensors, on
+    # each rank's shard of the batch and the channels (steps.on_shards)
+    conv = steps.on_shards(_causal_conv, (xc, params["conv_w"],
+                                          params["conv_b"]),
+                           _CONV_SPECS, (_CONV_SPECS[0],))
     xc = silu(conv.to(torch.float32)).to(dt)
 
     delta, Bs, Cs = _dt_bc(params, cfg, xc)                # (B,S,Di),(B,S,N)²
@@ -139,7 +151,7 @@ def mamba_train(params, cfg, x):
                         (("B", None, "C"),))                 # (B,S,Di)
     y = y + xc.to(torch.float32) * params["Dskip"]
     y = (y * silu(res.to(torch.float32))).to(dt)
-    return y @ params["out_proj"].to(dt)
+    return dot(y, params["out_proj"].to(dt))
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.float32, device="cuda"):
@@ -154,7 +166,7 @@ def init_mamba_cache(cfg, batch: int, dtype=torch.float32, device="cuda"):
 def mamba_decode(params, cfg, x, cache):
     """One-token step. x: (B, 1, D) -> ((B, 1, D), new cache)."""
     dt = x.dtype
-    xz = x[:, 0] @ params["in_proj"].to(dt)                # (B, 2Di)
+    xz = dot(x[:, 0], params["in_proj"].to(dt))            # (B, 2Di)
     xc, res = torch.chunk(xz, 2, dim=-1)
 
     hist = torch.cat([cache["conv"].to(dt), xc[:, None]], 1)
@@ -166,11 +178,24 @@ def mamba_decode(params, cfg, x, cache):
     delta, Bs, Cs = _dt_bc(params, cfg, xcs[:, None])
     delta, Bs, Cs = delta[:, 0], Bs[:, 0], Cs[:, 0]
     A = -torch.exp(params["A_log"])
-    dA = torch.exp(delta[..., None] * A)                   # (B,Di,N)
-    h = dA * cache["ssm"] + \
-        (delta * xcs.to(torch.float32))[..., None] * Bs[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, Cs)
-    y = y + xcs.to(torch.float32) * params["Dskip"]
+    # on DTensors, on each rank's shard of the state (batch and channels)
+    y, h = steps.on_shards(
+        _ssm_step, (cache["ssm"], delta, xcs, Bs, Cs, A, params["Dskip"]),
+        _STEP_SPECS, (("B", "C"), _STEP_SPECS[0]))
     y = (y * silu(res.to(torch.float32))).to(dt)
-    out = (y @ params["out_proj"].to(dt))[:, None]
+    out = dot(y, params["out_proj"].to(dt))[:, None]
     return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": h}
+
+
+# the state (B, Di, N); delta, xc (B, Di); B, C (B, N); A (Di, N); the
+# skip (Di,): the batch and the channels
+_STEP_SPECS = (("B", "C", None), ("B", "C"), ("B", "C"), ("B", None),
+               ("B", None), ("C", None), ("C",))
+
+
+def _ssm_step(h, delta, xc, Bs, Cs, A, Dskip):
+    """One step of the selective SSM's state -> (y (B, Di), h)."""
+    dA = torch.exp(delta[..., None] * A)                   # (B,Di,N)
+    h = dA * h + (delta * xc.to(torch.float32))[..., None] * Bs[:, None, :]
+    y = torch.einsum("bdn,bn->bd", h, Cs)
+    return y + xc.to(torch.float32) * Dskip, h

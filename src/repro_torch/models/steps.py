@@ -11,6 +11,12 @@ plain tensors outside it:
     over the FSDP axes, a channel dim over ``model``, the rest whole):
     the recurrence is independent across those dims, so no collective
     is lost, and each step is one local op, not a DTensor dispatch.
+    The models run their other per-(batch, channel or head) math this
+    way too (mamba's causal conv and decode step, the mLSTM's parallel
+    form and decode step, decode attention over KV heads split over
+    ``model``): the layout is the model's, and DTensor never flattens a
+    batch and a split head dim into a product's rows, which some torch
+    versions refuse.
   * ``loop(body, carry, n, xs)`` runs ``carry, out = body(i, carry,
     xs)`` for ``i < n``.  Under ``costed(k)`` (the dry run, with a
     ``roofline.CostCounter`` active) it runs only the iterations of the

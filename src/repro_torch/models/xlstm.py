@@ -7,9 +7,10 @@ gates exponentiated after subtracting it), so the two forms agree.  sLSTM
 has no parallel form (its recurrence is nonlinear) and steps through time
 in both modes.  Block layout follows xLSTM §4: mLSTM uses a
 pre-up-projection (pf=2) gated residual block; sLSTM uses a post-up/down
-(pf=4/3) block.  On DTensors the sLSTM's time loop runs on each rank's
-shard of the batch, heads whole (``steps.on_shards``), and a dry run
-costs it on a bounded number of steps (``steps.loop``).
+(pf=4/3) block.  On DTensors the mLSTM's parallel form and decode step
+run on each rank's shard of the batch and the heads, the sLSTM's time
+loop on its shard of the batch, heads whole (``steps.on_shards``), and a
+dry run costs that loop on a bounded number of steps (``steps.loop``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import steps
-from repro_torch.models.layers import (dense_init, merge_last, pin_batch,
-                                       pointwise, rms_norm, silu, split_last)
+from repro_torch.models.layers import (dense_init, dot, merge_last,
+                                       pin_batch, pointwise, rms_norm, silu,
+                                       split_last)
 
 __all__ = ["init_mlstm", "mlstm_train", "mlstm_decode", "init_mlstm_cache",
            "init_slstm", "slstm_apply", "init_slstm_cache"]
@@ -62,10 +64,10 @@ def init_mlstm(gen: torch.Generator, cfg, dtype=torch.float32):
 def _mlstm_qkvif(params, x_in):
     """Projections shared by both forms. x_in: (B, S, Di)."""
     dt = x_in.dtype
-    q = x_in @ params["wq"].to(dt)
-    k = x_in @ params["wk"].to(dt)
-    v = x_in @ params["wv"].to(dt)
-    gates = (x_in.to(torch.float32) @ params["w_if"]) + params["b_if"]
+    q = dot(x_in, params["wq"].to(dt))
+    k = dot(x_in, params["wk"].to(dt))
+    v = dot(x_in, params["wv"].to(dt))
+    gates = dot(x_in.to(torch.float32), params["w_if"]) + params["b_if"]
     return q, k, v, gates
 
 
@@ -76,22 +78,36 @@ def _heads(x, H):
 
 def mlstm_train(params, cfg, x):
     """Parallel (quadratic) stabilized mLSTM. x: (B, S, D) -> (B, S, D)."""
-    B, S, D = x.shape
     H = cfg.num_heads
-    Di = int(cfg.xlstm_pf * D)
     dt = x.dtype
-    up = x @ params["w_up"].to(dt)
+    up = dot(x, params["w_up"].to(dt))
     x_in, z = torch.chunk(up, 2, dim=-1)                   # (B,S,Di) each
     q, k, v, gates = _mlstm_qkvif(params, x_in)
     qh, kh, vh = _heads(q, H), _heads(k, H), _heads(v, H)  # (B,H,S,dh)
-    dh = Di // H
     ig = gates[..., :H].transpose(1, 2)                    # (B,H,S) log-i
     fg = pointwise(F.logsigmoid, gates[..., H:]).transpose(1, 2)  # log-f
+    # each (batch, head) alone: on DTensors, on each rank's shard of both
+    h = steps.on_shards(_mlstm_parallel, (qh, kh, vh, ig, fg),
+                        _PARALLEL_SPECS, (_PARALLEL_SPECS[0],))
+    # the group-norm over all Di: on DTensors, the heads gathered first
+    h = pin_batch(merge_last(h.transpose(1, 2)))           # (B,S,Di)
+    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)     # head group-norm
+    out = h * silu(z.to(torch.float32)).to(dt)
+    return dot(out, params["w_down"].to(dt))
 
+
+# qh, kh, vh (B, H, S, dh); ig, fg (B, H, S): the batch and the heads
+_PARALLEL_SPECS = (("B", "C", None, None),) * 3 + (("B", "C", None),) * 2
+
+
+def _mlstm_parallel(qh, kh, vh, ig, fg):
+    """The stabilized parallel form over (B, H, S, dh) heads and (B, H, S)
+    log input and forget gates -> (B, H, S, dh) float32."""
+    S, dh = qh.shape[2], qh.shape[3]
     cum = torch.cumsum(fg, dim=-1)                         # (B,H,S)
     # log D[t,s] = cum[t] - cum[s] + i[s]  for s <= t
     logD = cum[..., :, None] - cum[..., None, :] + ig[..., None, :]
-    tril = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
+    tril = torch.tril(torch.ones((S, S), dtype=torch.bool, device=qh.device))
     logD = logD.masked_fill(~tril, float("-inf"))
     m = torch.amax(logD, dim=-1)                           # (B,H,S) stabilizer
     Dmat = torch.exp(logD - m[..., None])
@@ -101,11 +117,7 @@ def mlstm_train(params, cfg, x):
     W = Smat * Dmat
     denom = torch.maximum(torch.abs(W.sum(-1)), torch.exp(-m))   # (B,H,S)
     h = torch.einsum("bhst,bhtd->bhsd", W, vh.to(torch.float32))
-    h = h / denom[..., None]
-    h = merge_last(h.transpose(1, 2))                      # (B,S,Di)
-    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)     # head group-norm
-    out = h * silu(z.to(torch.float32)).to(dt)
-    return out @ params["w_down"].to(dt)
+    return h / denom[..., None]
 
 
 def init_mlstm_cache(cfg, batch: int, device="cuda"):
@@ -128,7 +140,7 @@ def mlstm_decode(params, cfg, x, cache):
     Di = int(cfg.xlstm_pf * D)
     dh = Di // H
     dt = x.dtype
-    up = x @ params["w_up"].to(dt)
+    up = dot(x, params["w_up"].to(dt))
     x_in, z = torch.chunk(up, 2, dim=-1)
     q, k, v, gates = _mlstm_qkvif(params, x_in)
     qh = split_last(q[:, 0], H, dh).to(torch.float32)
@@ -136,23 +148,37 @@ def mlstm_decode(params, cfg, x, cache):
     vh = split_last(v[:, 0], H, dh).to(torch.float32)
     ig = gates[:, 0, :H]                                    # (B,H) log-i
     fg = pointwise(F.logsigmoid, gates[:, 0, H:])           # (B,H) log-f
-    # on DTensors, on the state's layout (batch-sharded): the (B, H, dh,
-    # dh) memory stays where it is, the small vectors come to it
-    qh, kh, vh, ig, fg = (pin_batch(t) for t in (qh, kh, vh, ig, fg))
+    # on DTensors, on each rank's shard of the state (batch and heads):
+    # the (B, H, dh, dh) memory stays where it is, the small vectors come
+    # to it
+    h, C, n, m_new = steps.on_shards(
+        _mlstm_step, (cache["C"], cache["n"], cache["m"], qh, kh, vh, ig, fg),
+        _STEP_SPECS, (_STEP_SPECS[1],) + _STEP_SPECS[:3])
+    h = pin_batch(merge_last(h)[:, None])                  # (B,1,Di)
+    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
+    out = h * silu(z.to(torch.float32)).to(dt)
+    return dot(out, params["w_down"].to(dt)), {"C": C, "n": n, "m": m_new}
 
-    m_new = torch.maximum(fg + cache["m"], ig)
-    fp = torch.exp(fg + cache["m"] - m_new)[..., None]
+
+# C (B, H, dh, dh), n (B, H, dh), m (B, H); qh, kh, vh (B, H, dh); ig, fg
+# (B, H): the batch and the heads
+_STEP_SPECS = (("B", "C", None, None), ("B", "C", None), ("B", "C")) \
+    + (("B", "C", None),) * 3 + (("B", "C"),) * 2
+
+
+def _mlstm_step(C, n, m, qh, kh, vh, ig, fg):
+    """One recurrent step of the state (C, n, m) -> (h (B, H, dh), C, n,
+    m)."""
+    m_new = torch.maximum(fg + m, ig)
+    fp = torch.exp(fg + m - m_new)[..., None]
     ip = torch.exp(ig - m_new)[..., None]
-    C = fp[..., None] * cache["C"] + \
+    C = fp[..., None] * C + \
         ip[..., None] * kh[..., :, None] * vh[..., None, :]
-    n = fp * cache["n"] + ip * kh
+    n = fp * n + ip * kh
     num = torch.einsum("bhde,bhd->bhe", C, qh)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qh)),
                         torch.exp(-m_new))
-    h = merge_last(num / den[..., None])[:, None]          # (B,1,Di)
-    h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
-    out = h * silu(z.to(torch.float32)).to(dt)
-    return out @ params["w_down"].to(dt), {"C": C, "n": n, "m": m_new}
+    return num / den[..., None], C, n, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +253,7 @@ def slstm_apply(params, cfg, x, cache=None):
     """
     B, S, D = x.shape
     dt = x.dtype
-    pre = x @ params["w_x"].to(dt)                         # (B,S,4D)
+    pre = dot(x, params["w_x"].to(dt))                     # (B,S,4D)
 
     def body(t, carry, xs):
         pre, r_h, b = xs
@@ -252,7 +278,7 @@ def slstm_apply(params, cfg, x, cache=None):
     state = dict(zip(_STATE, out[1:]))
     h = merge_last(out[0])                        # (B,S,H,dh) -> (B,S,D)
     h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)
-    up = h @ params["w_up"].to(dt)
+    up = dot(h, params["w_up"].to(dt))
     g, u = torch.chunk(up, 2, dim=-1)
-    out = (_gelu(g.to(torch.float32)).to(dt) * u) @ params["w_down"].to(dt)
+    out = dot(_gelu(g.to(torch.float32)).to(dt) * u, params["w_down"].to(dt))
     return out, state

@@ -231,3 +231,65 @@ def test_smoke_counter_check_on_cpu():
     local = F32 * (8 * 64 + 64 * 32 + 8 * 32)
     assert out["matmul"] == (2 * 8 * 64 * 32, local, F32 * 16 * 32,
                              F32 * 16 * 32)
+
+
+def test_decode_down_projection_stays_on_its_shards(monkeypatch):
+    """qwen2-0.5b SMOKE's decode_32k cell on a fake 4 x 4 world: the MLP's
+    down projection ``wo`` (d_ff over ``model``, D over ``data``) is
+    counted as the local (b, d_ff/model) @ (d_ff/model, D/data) product of
+    the whole batch b, once a layer (``layers.dot``'s stated layout, not
+    DTensor's choice), no collective moves a shard of that weight, and no
+    product reads it gathered over ``data``."""
+    from torch.utils._pytree import tree_flatten
+    seen = []
+
+    class Tally(tr.CostCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and not tr._PROPAGATING[0]:
+                seen.append((str(func), [tuple(t.shape) for t in
+                                         tree_flatten(args)[0]
+                                         if isinstance(t, torch.Tensor)]))
+            return out
+
+    monkeypatch.setattr(dryrun, "CostCounter", Tally)
+    cfg = smoke_config("qwen2-0.5b")
+    B = 16
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=16,
+                                global_batch=B)
+    with dryrun.fake_world(16):
+        mesh = init_device_mesh("cpu", (4, 4),
+                                mesh_dim_names=("data", "model"))
+        dryrun.run_cell("qwen2-0.5b", "decode_32k", mesh=mesh, cfg=cfg,
+                        lm_shape=shape, out_dir=None, verbose=False)
+    ff, d = cfg.d_ff // 4, cfg.d_model // 4
+    products = [s for f, s in seen if f.startswith("aten.mm")]
+    assert products.count([(B, ff), (ff, d)]) == cfg.num_layers
+    moved = {x for f, s in seen if f.startswith(("_c10d_functional",
+                                                  "_dtensor")) for x in s}
+    assert (ff, d) not in moved
+    assert not any(s[1] == (ff, cfg.d_model) for s in products)
+
+
+@pytest.mark.parametrize("arch, shape", [
+    ("qwen2-0.5b", "decode_32k"), ("mixtral-8x7b", "decode_32k"),
+    ("jamba-v0.1-52b", "long_500k"), ("xlstm-350m", "decode_32k")])
+def test_smoke2x2_records_hold(arch, shape):
+    """The committed SMOKE 2 x 2 records that the card's torch is held to
+    (``chip_smoke.record_check``, phase 3l and
+    ``test_torch_launch_cells_cuda.py``) are what this code counts here:
+    a decode cell of each kind of layer (attention with the KV heads
+    split, dense experts, mamba's and the xLSTM's states on local shards)
+    on a fake 2 x 2 world."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import SMOKE2X2, record_check
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        doc = dryrun.run_cell(arch, shape, mesh=mesh, cfg=smoke_config(arch),
+                              out_dir=None, verbose=False)
+    rel = record_check(doc, SMOKE2X2 / f"mesh2x2__{arch}__{shape}.json",
+                       f"{arch} {shape}")
+    assert max(abs(v) for v in rel.values()) <= 1e-6

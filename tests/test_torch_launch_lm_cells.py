@@ -153,6 +153,28 @@ def check_argument_bytes(doc, arch, name, small=SMALL):
     assert doc["mesh"] == "pod16x16" and doc["chips"] == 256
 
 
+def _grad_reduction(arch):
+    """(whether any of ``arch``'s SMOKE params is split over ``data`` on
+    the 16 x 16 mesh, the f32 bytes a rank holds of those whole over
+    ``data``)."""
+    from repro_torch.distributed.sharding import param_pspecs
+    from repro_torch.launch.specs import _params_meta
+    from repro_torch.tree import tree_leaves
+    cfg = smoke_config(arch)
+    params = _params_meta(cfg)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    specs = tree_leaves(param_pspecs(params, cfg, mesh))
+    fsdp, whole = False, 0
+    for t, spec in zip(tree_leaves(params), specs):
+        axes = [a for e in spec if e for a in ((e,) if isinstance(e, str)
+                                               else e)]
+        if "data" in axes:
+            fsdp = True
+        else:
+            whole += 4 * t.numel() // (16 if "model" in axes else 1)
+    return fsdp, whole
+
+
 def check_useful_ratio_and_flops_scale(docs, arch, name):
     doc = docs[0][arch, name]
     assert doc["meta"]["flops_scale"] == moe_flops_scale(smoke_config(arch))
@@ -168,7 +190,13 @@ def check_useful_ratio_and_flops_scale(docs, arch, name):
     assert doc["t_compute"] > 0 and doc["t_memory"] > 0
     assert doc["meta"]["sizing"] == smoke_config(arch).name
     if SHAPES[name].kind == "train":
-        assert doc["coll_breakdown"]["reduce_scatter"] > 0   # FSDP grads
+        # the gradients' reduction over the data ranks: the FSDP-sharded
+        # params' by reduce-scatters, every param whole over ``data``
+        # all-reduced (f32, its local bytes at least once)
+        fsdp, whole = _grad_reduction(arch)
+        if fsdp:
+            assert doc["coll_breakdown"]["reduce_scatter"] > 0
+        assert doc["coll_breakdown"]["all_reduce"] >= whole
     recurrent = set(smoke_config(arch).block_pattern) & {"mamba", "slstm"}
     if recurrent and SHAPES[name].kind != "decode":
         assert 0 < doc["meta"]["steps_costed"] < doc["meta"]["steps_total"]

@@ -25,6 +25,7 @@ mixtral's dense experts); the written cache (bfloat16: one unit in the
 last place, 2^-7 relative).
 """
 
+import copy
 import dataclasses
 import datetime
 import functools
@@ -39,13 +40,26 @@ import torch
 from repro_torch.configs import SHAPES, smoke_config
 
 ARCHS = ("qwen2-0.5b", "mixtral-8x7b")
+# the recurrences on local shards (``steps.on_shards``): mamba's scan and
+# conv, the mLSTM's parallel form and step, the sLSTM's loop
+RECURRENT = ("jamba-v0.1-52b", "xlstm-350m")
+# those whose step on whole tensors already meets the file's limits
+# against the reference, and so is held there directly too
+JAX_DIRECT = ("jamba-v0.1-52b",)
+# xlstm-350m's SMOKE stack at random init is ill-conditioned
+# (test_torch_models.STACK_ATOL): the mesh run and the same function on
+# whole tensors, summing in other orders, differ by up to 8.4e-5 relative
+# in a second moment and 1.3e-5 of the largest decode logit, so its
+# limits are the file's times this
+LIMIT_SCALE = {"xlstm-350m": 10.0}
 SMALL = {"train_4k": (8, 2), "prefill_32k": (8, 4), "decode_32k": (8, 4)}
 # the microbatched train step: a batch of 4, 2 rows a data rank
 MICRO = ("qwen2-0.5b", "train_4k", (8, 4))
 POS = 5
 STEP = 10       # the optimizer's step count going in
 SPAWN_TIMEOUT_S = 240
-CASES = [(a, n, SMALL[n]) for a in ARCHS for n in SMALL] + [MICRO]
+CASES = [(a, n, SMALL[n]) for a in ARCHS for n in SMALL] + [MICRO] + [
+    (a, n, SMALL[n]) for a in RECURRENT for n in ("train_4k", "decode_32k")]
 
 
 def _key(arch, name, size):
@@ -138,10 +152,14 @@ def _rank_job(rank, job):
             S, B = size
             vals.append(init_decode_cache(smoke_config(arch), B, S,
                                           device="cpu"))
+        plain = copy.deepcopy(vals) if arch in RECURRENT and rank == 0 \
+            else None
         args = place(tuple(vals), cell.specs, mesh)
         res = cell.fn(*args)
         out[_key(arch, name, size)] = {"res": _whole(res),
                                        "plan": cell.meta.get("plan")}
+        if plain is not None:       # the same function on whole tensors
+            out[_key(arch, name, size)]["plain"] = _whole(cell.fn(*plain))
     return out if rank == 0 else None
 
 
@@ -218,7 +236,7 @@ def both(tmp_path_factory):
     procs = _spawn(4, d)            # they start while the inputs are drawn
     jcfgs, params, cases = {}, {}, {}
     try:
-        for arch in ARCHS:
+        for arch in ARCHS + RECURRENT:
             jcfgs[arch] = dataclasses.replace(j_smoke(arch),
                                               moe_dispatch="dense")
             params[arch] = _np_tree(jax.jit(functools.partial(
@@ -323,3 +341,69 @@ def test_decode_logits_and_cache(both, arch):
     k = cache["slot0"]["k"]
     assert np.abs(k[:, :, :, POS]).sum() > 0
     assert np.abs(np.delete(k, POS, axis=3)).sum() == 0
+
+
+def _no_farther(got, plain, want, rtol, atol):
+    """Entry by entry, |got - want| <= |plain - want| + atol + rtol |want|:
+    the mesh run no farther from the reference than the same function on
+    whole tensors is, but for the file's limits."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _no_farther(got[k], plain[k], want[k], rtol, atol)
+        return
+    got, plain, want = (np.asarray(x, np.float64) for x in (got, plain, want))
+    excess = (np.abs(got - want) - np.abs(plain - want)
+              - (atol + rtol * np.abs(want)))
+    assert excess.max() <= 0, f"{excess.max():.3e} past the limit"
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_train_step(both, arch):
+    """jamba's mamba and MoE layers and xlstm's mLSTM and sLSTM blocks
+    trained on the 2 x 2 mesh (the recurrences on each rank's shard of
+    the batch, and of mamba's channels and the mLSTM's heads where
+    ``model`` divides them): against the same step on whole tensors at
+    the file's limits, and against the reference's step no farther than
+    that whole-tensor step is, but for the same limits; jamba's also
+    directly at them (``JAX_DIRECT``)."""
+    got, want = both
+    key = (arch, "train_4k")
+    f = LIMIT_SCALE.get(arch, 1.0)
+    assert got[key]["plan"]["microbatches"] == 1
+    params, opt, _, metrics = got[key]["res"]
+    p_pl, o_pl, _, m_pl = got[key]["plain"]
+    p_want, o_want, m_want = want[key]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(metrics[k], m_pl[k], rtol=1e-5 * f)
+        _no_farther(metrics[k], m_pl[k], m_want[k], 1e-5 * f, 0.0)
+    for a, pl, w, atol in ((params, p_pl, p_want, 1e-6),
+                           (opt["mu"], o_pl["mu"], o_want.mu, 1e-6),
+                           (opt["nu"], o_pl["nu"], o_want.nu, 1e-9)):
+        _close(a, pl, rtol=1e-5 * f, atol=atol * f)
+        _no_farther(a, pl, w, 1e-5 * f, atol * f)
+    if arch in JAX_DIRECT:
+        _check_train(got, want, key, 1)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_logits_and_state(both, arch):
+    """One decode step on the 2 x 2 mesh, the recurrent states updated on
+    their shards: the logits and every cache leaf (the states, jamba's
+    attention ring) against the same step on whole tensors and against
+    the reference's (as ``test_recurrent_train_step``), at the file's
+    limits."""
+    got, want = both
+    key = (arch, "decode_32k")
+    f = LIMIT_SCALE.get(arch, 1.0)
+    logits, cache = got[key]["res"]
+    l_pl, c_pl = got[key]["plain"]
+    l_want, c_want = want[key]
+    atol = 1e-5 * f * np.abs(l_want).max()
+    _close(logits, l_pl, rtol=1e-5 * f, atol=atol)
+    _no_farther(logits, l_pl, l_want, 1e-5 * f, atol)
+    _close(cache, c_pl, rtol=2.0 ** -7, atol=1e-6)
+    _no_farther(cache, c_pl, c_want, 2.0 ** -7, 1e-6)
+    if arch in JAX_DIRECT:
+        _close(logits, l_want, rtol=1e-5, atol=1e-5 * np.abs(l_want).max())
+        _close(cache, c_want, rtol=2.0 ** -7, atol=1e-6)

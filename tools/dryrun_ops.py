@@ -2,12 +2,13 @@
 """One dry-run cell's counted work, op by op.
 
     PYTHONPATH=src python3 tools/dryrun_ops.py --arch qwen2-0.5b \
-        --shape decode_32k [--mesh 16x16] [--top 25] [--device cpu]
-        [--shapes] [--out PATH]
+        --shape decode_32k [--mesh 16x16] [--smoke] [--top 25]
+        [--device cpu] [--shapes] [--out PATH]
 
 Runs the cell as ``repro_torch.launch.dryrun`` does (rank 0 of a fake
 world of the mesh's size, fake tensors on ``dryrun.fake_device()``
-unless ``--device`` names another, FULL sizes), under a
+unless ``--device`` names another, FULL sizes, or the arch's SMOKE
+config with ``--smoke``), under a
 ``roofline.CostCounter`` that also tallies each aten op's calls, FLOPs
 and bytes and each collective's bytes (by op, or with ``--shapes`` by
 op and its tensor arguments' shapes), and prints the ``--top`` ops by
@@ -25,6 +26,7 @@ import sys
 import torch
 from torch.utils._pytree import tree_flatten
 
+from repro_torch.configs import smoke_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import roofline
 from repro_torch.launch.mesh import mesh_axes
@@ -65,6 +67,8 @@ def main(argv=None):
     ap.add_argument("--device", default=dryrun.fake_device(),
                     help="the fake tensors' device (default: the dry "
                          "run's)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's SMOKE config (the shape's sizes)")
     ap.add_argument("--shapes", action="store_true",
                     help="tally each op by its tensor arguments' shapes too")
     ap.add_argument("--out", default=None)
@@ -84,7 +88,9 @@ def main(argv=None):
         from torch.distributed.device_mesh import init_device_mesh
         mesh = init_device_mesh(dryrun.fake_device(), shape,
                                 mesh_dim_names=mesh_axes(shape))
-        doc = dryrun.run_cell(args.arch, args.shape, mesh=mesh, out_dir=None)
+        doc = dryrun.run_cell(args.arch, args.shape, mesh=mesh, out_dir=None,
+                              cfg=smoke_config(args.arch) if args.smoke
+                              else None)
     ops = made[-1].by_op
     total = {"flops": sum(r[1] for r in ops.values()),
              "bytes": sum(r[2] for r in ops.values()),
