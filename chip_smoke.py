@@ -32,11 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
    (``hist_inputs``: degrees on both sides of its 32-slot short rows) and
    ``alias_build`` over ``ALIAS_KS`` (K 1 to 64; all-zero, single-entry, equal and near-1e-30 rows); ``flash_attention`` over ``FLASH_CASES``, each case
    through the kernel of its type (float32: ``flash_attention.cu``, 3xTF32
-   wgmma, bfloat16: ``flash_attention_sm90.cu``, the launch counters show
-   which),
+   wgmma, CUDA cores at D = 256; bfloat16 and float16:
+   ``flash_attention_sm90.cu``; the launch counters show which),
    at its limit (``flash_limit``: float32 entry by entry within 2e-5 of
-   the plain version; bfloat16 row by row against the all-f32
-   ``flash_attention_ref32``, at most twice the plain bf16 algorithm's
+   the plain version; 16-bit row by row against the all-f32
+   ``flash_attention_ref32``, at most twice the plain 16-bit algorithm's
    error plus 2^-7 of the row's largest value, ``FLASH_ROW``), and the
    kernel one tile off at the band's edge (``shifted_window``) against the
    same limit, which must reject it: GQA 4:1 at Mixtral 8x7B's widths with
@@ -46,7 +46,10 @@ Phases (any failure exits non-zero and prints no result line):
    D = 80, a ragged window at D = 128 and a ragged non-causal S < T at
    D = 64, and in both types hubert-xlarge's D = 80 (MHA, non-causal; its
    own width in f32, zero-padded to 128 in bf16) and the head dims run
-   zero-padded, 16 and 8 (the SMOKE configs'), the last with a window.
+   zero-padded, 16 and 8 (the SMOKE configs'), the last with a window;
+   float16 at D = 64, 128 (Mixtral's widths) and 256; D = 256 (Gemma 2's
+   16 over 8 heads) in every type, windowed, S < T and non-causal; and
+   D = 200 and 136, run zero-padded to 256.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -334,21 +337,28 @@ Phases (any failure exits non-zero and prints no result line):
    each cell's wall time (its first call: DTensor's planning included),
    each rank's collectives by kind and peak are printed beside the counter's
    prediction for the same cell on a fake 2 x 2 world
-   (``lm_mesh_predictions``, run while the ranks start).
-3e. Last, attention at Mixtral 8x7B's widths (32 query heads, 8 KV heads,
-   D = 128) over one 32,768-token sequence (``prefill_32k``): in bf16 the
-   4096 window and full causal, in f32 the window; and at hubert-xlarge's
-   (16 heads, MHA, D = 80, non-causal) in bf16 (zero-padded to 128 by the
-   wrapper) and f32 (the 80-wide instantiation); the counters zeroed just before and read just after;
+   (``lm_mesh_predictions``, run while the ranks start), and each kind's
+   bytes a rank must be within ``LM_MESH_COLL_RTOL`` (1 %) of it.
+3e. Last, attention over ``ATTN_CASES``, one launch each: at Mixtral
+   8x7B's widths (32 query heads, 8 KV heads, D = 128) over one
+   32,768-token sequence (``prefill_32k``): in bf16 the 4096 window and
+   full causal, in f32 the window; and at hubert-xlarge's (16 heads, MHA,
+   D = 80, non-causal) in bf16 (zero-padded to 128 by the wrapper) and
+   f32 (the 80-wide instantiation); over 8,192 tokens Gemma 2 9B's (16
+   over 8 heads, D = 256, window 4096) in bf16, f16 and f32, D = 200
+   (zero-padded to 256), Mixtral's widths in f16 (causal) and
+   qwen2-0.5b's (14 over 2 heads, D = 64) in all three types; the
+   counters zeroed just before and read just after each case;
    256 query rows of each output held
    against the dense ``attention_ref`` in f32 and the whole output
    against the plain version, at the limits of phase 2, which must reject
    the planted fault at this size; kernel times (median of 3), the FLOP
-   bound (bf16 at the dense tensor-core rate; f32 three TF32 products at
-   the dense TF32 rate, with the old bound at the float32 CUDA-core rate
-   printed for the record),
+   bound (16-bit at the dense tensor-core rate; f32 three TF32 products
+   at the dense TF32 rate, the f32 kernel at D = 256 too, with the old
+   bound at the float32 CUDA-core rate printed for the record),
    and ``scaled_dot_product_attention`` on the same tensors as the
-   library yardstick (a boolean mask for the window).
+   library yardstick (a boolean mask for the window; its math backend
+   where no fused one takes the input and the logits fit).
 4. Times on the card (CUDA events): each kernel at the main path's shapes
    and its plain version, whose outputs are held against the main path's
    whole batches (deepwalk, ppr and simple paths; the state after round
@@ -401,11 +411,11 @@ WALK_LEN, PPR_LEN, PPR_STOP = 80, 400, 1.0 / 80.0
 FRONTIER_STEP = 40                 # B4b timed on this column of simple paths
 N2V_P, N2V_Q = 0.5, 2.0
 CHECK_WALKERS = 4096
-STREAM_UPDATES = 500
+STREAM_UPDATES = 250
 SHARDS = 4                         # ranks of the sharded phase, on one card
 SHARD_TIMEOUT_S = 420              # the sharded phase's ranks, all together
 RELAY_SEEDS = {"deepwalk": 101, "ppr": 102, "simple": 103}
-PPR_RELAY_STRIDE = 8               # phase 3c's ppr relay: every 8th start
+PPR_RELAY_STRIDE = 16              # phase 3c's ppr relay: every 16th start
 # (B, H, Hkv, S, T, D, dtype, causal, window): flash_attention vs plain
 FLASH_CASES = [
     (1, 32, 8, 8192, 8192, 128, "bfloat16", True, 4096),    # Mixtral widths
@@ -428,6 +438,22 @@ FLASH_CASES = [
     (1, 8, 2, 1000, 3000, 80, "float32", True, 0),
     (1, 4, 2, 777, 777, 128, "float32", True, 300),
     (2, 4, 4, 333, 1000, 64, "float32", False, 0),
+    # float16 (the bf16 kernel's other instantiation), at each width
+    (1, 32, 8, 2048, 2048, 128, "float16", True, 0),        # Mixtral widths
+    (2, 4, 1, 1536, 1536, 64, "float16", False, 0),
+    (1, 4, 2, 1000, 1000, 256, "float16", True, 300),       # ragged window
+    # D = 256 (Gemma 2's heads: 16 over 8 KV heads) in every type, and
+    # widths between 128 and 256, run zero-padded to 256
+    (1, 16, 8, 1024, 1024, 256, "bfloat16", True, 512),
+    (1, 16, 8, 1024, 1024, 256, "float32", True, 512),
+    (1, 4, 2, 512, 1500, 256, "bfloat16", True, 0),         # S < T
+    (1, 4, 2, 512, 1500, 256, "float32", True, 0),
+    (2, 4, 4, 333, 700, 256, "bfloat16", False, 0),         # non-causal
+    (2, 4, 4, 333, 700, 256, "float32", False, 0),
+    (1, 4, 2, 777, 777, 200, "bfloat16", True, 0),
+    (1, 4, 2, 777, 777, 200, "float32", True, 300),
+    (1, 4, 2, 600, 600, 136, "float16", False, 0),
+    (1, 4, 2, 600, 600, 136, "float32", True, 0),
 ]
 # float32: |kernel - plain| <= atol + rtol * |plain|, entry by entry, to
 # the accumulation order.  The bfloat16 entry is the limit of the CUDA-core
@@ -447,6 +473,46 @@ ATTN_SEQ, ATTN_WINDOW = 32768, 4096
 # and hubert-xlarge's (configs/hubert_xlarge.py: 16 heads, MHA, d_model
 # 1280, non-causal), the same sequence
 HUBERT_HEADS, HUBERT_DIM = 16, 1280 // 16
+# Gemma 2 9B's attention (HF google/gemma-2-9b config: 16 query heads over
+# 8 KV heads, head_dim 256, sliding_window 4096) over one 8,192-token
+# sequence; qwen2-0.5b's (14 over 2, D = 64) over the same
+GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_DIM, GEMMA_WINDOW = 16, 8, 256, 4096
+QWEN_HEADS, QWEN_KV_HEADS, QWEN_DIM = 14, 2, 64
+WIDE_SEQ = 8192
+# SDPA's math backend is phase 3e's yardstick where no fused backend takes
+# the input, if its whole f32 logits are at most this many bytes (it holds
+# about three such copies: Gemma's 16 heads over 8,192 tokens 4.3 GB)
+SDPA_MATH_LOGITS = 16 << 30
+# phase 3e: (name, heads, KV heads, D, S = T, type, causal, window); every
+# kernel instantiation (16-bit at 64, 128, 256; float32 at 64, 80, 128,
+# 256) and a width padded to 256 (D = 200)
+ATTN_CASES = (
+    ("window", ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ, "bfloat16",
+     True, ATTN_WINDOW),
+    ("causal", ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ, "bfloat16",
+     True, 0),
+    ("window f32", ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ, "float32",
+     True, ATTN_WINDOW),
+    ("hubert", HUBERT_HEADS, HUBERT_HEADS, HUBERT_DIM, ATTN_SEQ, "bfloat16",
+     False, 0),
+    ("hubert f32", HUBERT_HEADS, HUBERT_HEADS, HUBERT_DIM, ATTN_SEQ,
+     "float32", False, 0),
+    ("gemma window", GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_DIM, WIDE_SEQ,
+     "bfloat16", True, GEMMA_WINDOW),
+    ("gemma window f16", GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_DIM, WIDE_SEQ,
+     "float16", True, GEMMA_WINDOW),
+    ("gemma window f32", GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_DIM, WIDE_SEQ,
+     "float32", True, GEMMA_WINDOW),
+    ("d200", GEMMA_HEADS, GEMMA_KV_HEADS, 200, WIDE_SEQ, "bfloat16", True, 0),
+    ("mixtral f16", ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, WIDE_SEQ, "float16",
+     True, 0),
+    ("qwen2", QWEN_HEADS, QWEN_KV_HEADS, QWEN_DIM, WIDE_SEQ, "bfloat16",
+     True, 0),
+    ("qwen2 f16", QWEN_HEADS, QWEN_KV_HEADS, QWEN_DIM, WIDE_SEQ, "float16",
+     True, 0),
+    ("qwen2 f32", QWEN_HEADS, QWEN_KV_HEADS, QWEN_DIM, WIDE_SEQ, "float32",
+     True, 0),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -959,20 +1025,21 @@ def flash_row_excess(got, plain, ref32):
 
 def flash_refs(q, k, v, causal, window):
     """``(plain, ref32)``: the plain version of the kernel of q's type and,
-    for bfloat16, the all-float32 algorithm (None for float32)."""
+    for bfloat16 and float16, the all-float32 algorithm (None for
+    float32)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_ref,
                                                      flash_attention_ref32)
     plain = flash_attention_ref(q, k, v, causal=causal, window=window)
     ref32 = flash_attention_ref32(q, k, v, causal=causal, window=window) \
-        if q.dtype == torch.bfloat16 else None
+        if q.dtype != torch.float32 else None
     return plain, ref32
 
 
 def flash_limit(got, plain, ref32):
     """Share of its limit that ``got`` reaches: entry by entry at
     ``FLASH_TOL`` against the plain version in float32 (``ref32`` None),
-    row by row at ``FLASH_ROW`` against ``ref32`` in bfloat16."""
+    row by row at ``FLASH_ROW`` against ``ref32`` in 16 bits."""
     if ref32 is None:
         return flash_excess(got, plain, "float32")
     return flash_row_excess(got, plain, ref32)
@@ -981,7 +1048,7 @@ def flash_limit(got, plain, ref32):
 def flash_route(dtype):
     """The launch counter of the kernel that takes ``dtype`` (a
     ``FLASH_CASES`` type name)."""
-    return "flash_attention_sm90" if dtype == "bfloat16" else "flash_attention"
+    return "flash_attention" if dtype == "float32" else "flash_attention_sm90"
 
 
 def shifted_window(T, window):
@@ -1036,8 +1103,8 @@ def check_flash_kernel(rng):
              f"{excess:.3f} of the limit")
         need(fault_excess > 1, f"flash_attention ({case}): the limit passes a "
              f"kernel one tile off ({fault_excess:.3f} of it)")
-        old = None if ref32 is None else (flash_excess(got, plain, dtype),
-                                          flash_excess(fault, plain, dtype))
+        old = None if dtype != "bfloat16" else (
+            flash_excess(got, plain, dtype), flash_excess(fault, plain, dtype))
         errs.append({"case": list(case), "max_abs_err": err, "excess": excess,
                      "fault_max_abs_err": fault_err,
                      "fault_excess": fault_excess, "old_tol_excess": old})
@@ -2492,7 +2559,7 @@ MESH_SHAPE, MESH_DIMS = (2, 2), ("data", "walker")
 WALKER_AXES = ("walker",)
 MESH_TIMEOUT_S = 360                # phase 3h's ranks, all together
 MESH_BATCHES = (("deepwalk", True), ("deepwalk", False), ("simple", False))
-BASELINE_UPDATES, BASELINE_SEED = 20, 30
+BASELINE_UPDATES, BASELINE_SEED = 10, 30
 
 
 def growth_edges(src, dst, w, V, C, n, rng):
@@ -5316,6 +5383,8 @@ LM_MESH_POS = 5         # the decode step's position in its cache
 LM_MESH_GRAPH = 12      # log2 vertices of the walk corpus's graph
 LM_MESH_WALKERS = 256
 LM_MESH_TIMEOUT_S = 420
+# each collective kind's bytes a rank, against the dry run's prediction
+LM_MESH_COLL_RTOL = 0.01
 # the limits of tests/test_torch_launch_lm_numerics.py: the train step's
 # loss and gradient norm (rtol), params and first moments (rtol, atol),
 # second moments (rtol, atol); logits (rtol, atol of the largest); the
@@ -5493,6 +5562,17 @@ def register_host_staging():
                                   devices=["cpu", "cuda"])
 
 
+def cpu_mesh_kinds(coll):
+    """A prediction's bytes by kind as a CPU mesh issues them: there
+    DTensor moves a shard to another dim by an all-gather of the same
+    input and a chunk (gloo has no all-to-all, it says), so the
+    all-to-all's bytes are the all-gather's."""
+    out = dict(coll)
+    out["all_gather"] = out.get("all_gather", 0) + out.pop(
+        "all_to_all_single", 0)
+    return out
+
+
 def lm_mesh_config(arch):
     """Phase 3m's config of ``arch``: qwen2-0.5b at FULL width cut to
     LM_MESH_LAYERS layers, the others at SMOKE; float32."""
@@ -5648,7 +5728,10 @@ def lm_mesh_rank(rank, n, backend, tmp):
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated() - before if card \
                 else None
-            row = {"wall_s": wall, "coll": dict(STAGED_COUNTS),
+            # a copy of each [calls, bytes]: the tally goes on counting
+            # (the outputs' full_tensor gathers below, the next cell)
+            row = {"wall_s": wall,
+                   "coll": {k: list(v) for k, v in STAGED_COUNTS.items()},
                    "peak_bytes": peak if peak is None else
                    peak + storage_bytes(local_tree(args)),
                    "microbatches": cell.meta.get("plan", {}).get(
@@ -5708,12 +5791,15 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
     layout of its stack (the stage is one slot repeated).  Returns the
     ranks' launches by kernel (B1: the train rows' walk round).
     ``device="cpu"`` and fewer ``archs`` make the CPU test's run (no
-    peaks there)."""
+    peaks there).  Each collective kind's bytes a rank must equal the
+    prediction within LM_MESH_COLL_RTOL in every cell (checked after all
+    cells are printed; on a CPU mesh with its all-to-alls counted as the
+    all-gathers DTensor issues there, ``cpu_mesh_kinds``)."""
     out = report["lm_mesh"] = {}
     t_phase = time.perf_counter()
     tmp = Path(tempfile.mkdtemp(prefix="lm_mesh_"))
-    (tmp / "job.json").write_text(json.dumps({"device": device,
-                                              "archs": list(archs)}))
+    (tmp / "job.json").write_text(json.dumps({
+        "device": device, "archs": list(archs)}))
     preds = {}
     results = spawn_ranks(tmp, "gloo", math.prod(LM_MESH_SHAPE),
                           target=lm_mesh_rank, timeout=LM_MESH_TIMEOUT_S,
@@ -5723,6 +5809,7 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
     need(len(digests) == 1, f"phase 3m: the ranks' walk rows differ "
          f"({digests})")
     cells = out["cells"] = {}
+    coll_off = []
     for key in results[0]["cells"]:
         ranks = [r["cells"][key] for r in results]
         ex = ranks[0]["excess"]
@@ -5730,6 +5817,8 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
         limit = {k: max(1.0, LM_MESH_FLOOR_X * floor[k]) if floor else 1.0
                  for k in ex}
         p = preds[key]
+        want_coll = p["coll"] if device == "cuda" else cpu_mesh_kinds(
+            p["coll"])
         coll = [{k: v[1] for k, v in r["coll"].items()} for r in ranks]
         row = cells[key] = {
             "wall_s": max(r["wall_s"] for r in ranks), "excess": ex,
@@ -5742,11 +5831,17 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
         pred_c = sum(p["coll"].values())
         row["coll_real_over_pred"] = [c / pred_c if pred_c else None
                                       for c in real_c]
+        for r, c in enumerate(coll):
+            for kind in set(c) | {k for k, v in want_coll.items() if v}:
+                got, want = c.get(kind, 0), want_coll.get(kind, 0)
+                if abs(got - want) > LM_MESH_COLL_RTOL * want:
+                    coll_off.append(f"{key} rank {r} {kind}: {got} bytes, "
+                                    f"predicted {want}")
         peaks = [b for b in row["peak_bytes"] if b is not None]
         row["peak_real_over_pred"] = [b / p["peak_bytes"] for b in peaks]
         mb = row["microbatches"] or 1
         calls = ", ".join(f"{k} {v[0]} calls {v[1] / 2**20:.3f} MiB "
-                          f"(predicted {p['coll'].get(k, 0) / 2**20:.3f})"
+                          f"(predicted {want_coll.get(k, 0) / 2**20:.3f})"
                           for k, v in ranks[0]["coll"].items())
         print(f"  {key} ({mb} microbatch{'es' if mb > 1 else ''}): wall "
               f"{row['wall_s']:.2f} s (DTensor's planning included); "
@@ -5764,6 +5859,9 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
         need(all(v <= limit[k] for k, v in ex.items()), f"phase 3m {key}: "
              f"the mesh run outside its limits against the plain run: {ex} "
              f"(allowed {limit})")
+    need(not coll_off, "phase 3m: collective bytes a rank off the "
+         f"prediction by more than {LM_MESH_COLL_RTOL:.0%}: "
+         + "; ".join(coll_off))
     launches = {}
     for r in results:
         for k, v in r["launches"].items():
@@ -5775,7 +5873,9 @@ def lm_mesh_phase(report, card, device="cuda", archs=LM_MESH_ARCHS):
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"{card}: phase 3m {out['phase_s']:.1f} s ({len(cells)} cells on a "
           f"{LM_MESH_SHAPE[0]} x {LM_MESH_SHAPE[1]} mesh of "
-          f"{len(results)} ranks, every one within its limits)", flush=True)
+          f"{len(results)} ranks, every one within its limits and its "
+          f"collectives within {LM_MESH_COLL_RTOL:.0%} of the prediction)",
+          flush=True)
     return launches
 
 
@@ -5788,70 +5888,98 @@ def attention_pairs(S, T, causal, window):
 
 
 def sdpa_ms(q, k, v, **kw):
-    """``(ms, output)`` of one ``scaled_dot_product_attention`` call on the
-    same tensors (``enable_gqa``: KV not repeated), restricted to its fused
-    backends (its math backend would hold the whole (H, S, T) logits)."""
+    """``(ms, output, backend)`` of one ``scaled_dot_product_attention``
+    call on the same tensors (``enable_gqa``: KV not repeated): on its
+    fused backends, or, where none takes the input (float32 with grouped
+    KV heads) and the whole (B, H, S, T) float32 logits are at most
+    SDPA_MATH_LOGITS bytes, on its math backend, which holds them."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
              SDPBackend.EFFICIENT_ATTENTION]
-    with sdpa_kernel(fused):
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True, **kw))
+    try:
+        with sdpa_kernel(fused):
+            return (*cuda_ms(call), "fused")
+    except RuntimeError as e:
+        logits = 4 * q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2]
+        if logits > SDPA_MATH_LOGITS:
+            raise RuntimeError(f"no fused backend, and the math backend's "
+                               f"{logits / 1e9:.1f} GB of logits are over "
+                               f"SDPA_MATH_LOGITS: {e}") from e
+    with sdpa_kernel([SDPBackend.MATH]):
+        return (*cuda_ms(call), "math")
 
 
 def attention_phase(report):
-    """Phase 3e: flash attention at full width over one 32,768-token
-    sequence: Mixtral 8x7B's widths in bf16 windowed and full causal (the
-    bf16 wgmma kernel), then f32 windowed (the 3xTF32 wgmma kernel); then
-    hubert-xlarge's (16 heads, MHA, D = 80, non-causal) in bf16
-    (zero-padded to D = 128) and f32 (80 wide).  Returns the two kernels'
-    lines (bf16: Mixtral's full-causal case beside SDPA's ``is_causal``;
-    f32: the window beside SDPA with a mask, which no fused backend
-    takes)."""
+    """Phase 3e: flash attention at full width over one sequence, every
+    case of ``ATTN_CASES``: Mixtral 8x7B's widths over 32,768 tokens in
+    bf16 windowed and full causal and f32 windowed, hubert-xlarge's (16
+    heads, MHA, D = 80, non-causal) in bf16 (zero-padded to D = 128) and
+    f32 (80 wide); over 8,192 tokens Gemma 2 9B's (D = 256, window 4096)
+    in bf16, f16 and f32, D = 200 (zero-padded to 256), Mixtral's widths
+    in f16 and qwen2-0.5b's (D = 64) in all three types.  Each case is
+    one launch of its instantiation (the route's counter), held against
+    its plain version at its limit and, on 256 sampled rows, against the
+    dense ``attention_ref`` in f32, with a planted fault that both must
+    reject; timed (CUDA events, median of 3) beside its bound, its plain
+    version and SDPA (``sdpa_ms``: its math backend where no fused one
+    takes the input; null where the math backend's logits would not fit
+    either).  Returns the kernels' lines: the two routes as before (bf16:
+    Mixtral's full-causal case beside SDPA's ``is_causal``; f32: the
+    window over 32,768 tokens beside SDPA with a mask, which no SDPA
+    backend takes), then each other instantiation from its first case."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_ref,
-                                                     flash_attention_ref32)
-    S = ATTN_SEQ
+                                                     flash_attention_ref32,
+                                                     kernel_head_dim)
     g = torch.Generator(device="cuda").manual_seed(11)
+    base = {}          # (H, Hkv, D, S) -> bf16 q, k, v; f32 and f16 widen
 
-    def inputs(H, Hkv, D):
-        return tuple(torch.randn(shape, generator=g, device="cuda").to(
-            torch.bfloat16) for shape in ((1, H, S, D), (1, Hkv, S, D),
-                                          (1, Hkv, S, D)))
-    mix = inputs(ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM)
-    hub = inputs(HUBERT_HEADS, HUBERT_HEADS, HUBERT_DIM)
-    wide = {id(mix): tuple(x.float() for x in mix),
-            id(hub): tuple(x.float() for x in hub)}
-    # (name, inputs, causal, window, float32)
-    cases = (("window", mix, True, ATTN_WINDOW, False),
-             ("causal", mix, True, 0, False),
-             ("window f32", mix, True, ATTN_WINDOW, True),
-             ("hubert", hub, False, 0, False),
-             ("hubert f32", hub, False, 0, True))
+    def qkv(H, Hkv, D, S, dtype):
+        key = (H, Hkv, D, S)
+        if key not in base:
+            base[key] = tuple(torch.randn(shape, generator=g,
+                                          device="cuda").to(torch.bfloat16)
+                              for shape in ((1, H, S, D), (1, Hkv, S, D),
+                                            (1, Hkv, S, D)))
+        return tuple(x.to(getattr(torch, dtype)) for x in base[key])
 
-    def qkv(x, f32):
-        return wide[id(x)] if f32 else x
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    outs = {name: ops.flash_attention(*qkv(x, f), causal=c, window=w)
-            for name, x, c, w, f in cases}
+    outs, launched = {}, {}
+    for name, H, Hkv, D, S, dt, c, w in ATTN_CASES:
+        before = ops.launch_counts()
+        outs[name] = ops.flash_attention(*qkv(H, Hkv, D, S, dt), causal=c,
+                                         window=w)
+        after = ops.launch_counts()
+        launched[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        need(launched[name] == {flash_route(dt): 1}, f"attention {name}: "
+             f"launches {launched[name]}")
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    print(f"attention S=T={S}, launches: {counts}", flush=True)
-    need(counts["flash_attention_sm90"] == 3 and counts["flash_attention"] == 2
-         and sum(counts.values()) == 5, f"phase 3e launches {counts}")
-    blocks = [min(a, S - 64) for a in           # 4 x 64 rows
-              (0, ATTN_WINDOW - 32, S // 2 + 320, S - 64)]
+    print(f"attention ({len(ATTN_CASES)} cases), launches: {counts}",
+          flush=True)
+    need(counts["flash_attention_sm90"] == sum(
+        dt != "float32" for *_, dt, _, _ in ATTN_CASES)
+        and counts["flash_attention"] == sum(
+            dt == "float32" for *_, dt, _, _ in ATTN_CASES)
+        and sum(counts.values()) == len(ATTN_CASES),
+        f"phase 3e launches {counts}")
 
-    def dense_excess(o, plain, x, causal, w):
+    def dense_excess(o, plain, x, causal, w, S):
         """``o``'s 256 sampled rows against the dense ``attention_ref`` in
-        f32: entry by entry in f32, row by row (with ``plain``) in bf16."""
-        qf, kf, vf = wide[id(x)]
+        f32: entry by entry in f32, row by row (with ``plain``) in 16
+        bits."""
+        qf, kf, vf = (t.float() for t in x)
         worst = 0.0
-        for a in blocks:
+        for a in (min(a, S - 64) for a in (0, ATTN_WINDOW - 32,
+                                           S // 2 + 320, S - 64)):
             rows = slice(a, a + 64)
             dense = attention_ref(qf[:, :, rows], kf, vf, causal=causal,
                                   window=w, q_offset=a)
@@ -5861,9 +5989,8 @@ def attention_phase(report):
         return worst
 
     out = {}
-    for name, x, causal, w, f32 in cases:
-        q, k, v = qkv(x, f32)
-        H, D = q.shape[1], q.shape[3]
+    for name, H, Hkv, D, S, dt, causal, w in ATTN_CASES:
+        q, k, v = x = qkv(H, Hkv, D, S, dt)
         o = outs.pop(name)
         need(o.shape == q.shape and o.dtype == q.dtype
              and bool(torch.isfinite(o).all()), f"attention {name}: output")
@@ -5874,9 +6001,9 @@ def attention_phase(report):
         plain_ms, plain = cuda_ms(lambda: flash_attention_ref(
             q, k, v, causal=causal, window=w), reps=1)
         ref32 = flash_attention_ref32(q, k, v, causal=causal, window=w) \
-            if q.dtype == torch.bfloat16 else None
-        dense, dense_fault = dense_excess(o, plain, x, causal, w), \
-            dense_excess(fault, plain, x, causal, w)
+            if q.dtype != torch.float32 else None
+        dense, dense_fault = dense_excess(o, plain, x, causal, w, S), \
+            dense_excess(fault, plain, x, causal, w, S)
         need(dense <= 1 < dense_fault, f"attention {name}: 256 rows vs "
              f"attention_ref at {dense:.3f} of the limit, the planted fault "
              f"at {dense_fault:.3f}")
@@ -5884,18 +6011,21 @@ def attention_phase(report):
         fault_err = float((fault.float() - plain.float()).abs().max())
         excess = flash_limit(o, plain, ref32)
         fault_excess = flash_limit(fault, plain, ref32)
-        old = None if ref32 is None else (
+        old = None if q.dtype != torch.bfloat16 else (
             flash_excess(o, plain, "bfloat16"),
             flash_excess(fault, plain, "bfloat16"))
         del plain, ref32, fault
         need(excess <= 1 < fault_excess, f"attention {name}: kernel at "
              f"{excess:.3f} of the limit (max abs vs plain {err}), the "
              f"planted fault at {fault_excess:.3f}")
-        is16 = q.dtype == torch.bfloat16
+        is16 = q.dtype != torch.float32
+        width = kernel_head_dim(D, q.dtype)
         pairs = H * attention_pairs(S, S, causal, w)
         flops = 4 * D * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        # f32 to f32 accuracy on the tensor cores is three TF32 products
+        # the card's peak for the type: 16-bit tensor cores; f32 to f32
+        # accuracy on the tensor cores is three TF32 products (the f32
+        # kernel at 256, which runs on the CUDA cores, too)
         work, rate = (flops, hw.PEAK_FLOPS_BF16) if is16 else \
             (3 * flops, hw.TC_TF32_FLOPS)
         b_ms = max(work / rate, nbytes / hw.HBM_BW) * 1e3
@@ -5903,10 +6033,11 @@ def attention_phase(report):
             else "bytes"
         old_b_ms = None if is16 else max(
             flops / hw.OPS_PER_S, nbytes / hw.HBM_BW) * 1e3
-        # the yardstick: a library fault does not fail the smoke; where
-        # SDPA has no fused kernel for these inputs (f32 with grouped KV
-        # heads) its error and each backend's reason, from its warnings,
-        # are recorded in "library", without a traceback
+        # the yardstick: a library fault does not fail the smoke; SDPA's
+        # backend is recorded in "library", and where it has none for
+        # these inputs (f32 with grouped KV heads and logits over
+        # SDPA_MATH_LOGITS) its error and each fused backend's reason,
+        # from its warnings, without a traceback
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             try:
@@ -5914,12 +6045,11 @@ def attention_phase(report):
                     pos = torch.arange(S, device="cuda")
                     mask = ((pos[None, :] <= pos[:, None])
                             & (pos[None, :] > pos[:, None] - w))
-                    lib_ms, lib = sdpa_ms(q, k, v, attn_mask=mask)
+                    lib_ms, lib, how = sdpa_ms(q, k, v, attn_mask=mask)
                     del mask
                 else:
-                    lib_ms, lib = sdpa_ms(q, k, v, is_causal=causal)
+                    lib_ms, lib, how = sdpa_ms(q, k, v, is_causal=causal)
                 lib_err = float((lib.float() - o.float()).abs().max())
-                how = "ok"
                 del lib
             except Exception as e:              # noqa: BLE001
                 why = sorted({str(m.message).strip().splitlines()[0]
@@ -5929,8 +6059,9 @@ def attention_phase(report):
                        f"{str(e).strip().splitlines()[0]}"
                        + (f" ({'; '.join(why)})" if why else ""))[:600]
         out[name] = {"window": w, "causal": causal, "heads": H,
-                     "kv_heads": k.shape[1], "head_dim": D,
-                     "dtype": str(q.dtype), "ms": ms,
+                     "kv_heads": Hkv, "head_dim": D, "width": width,
+                     "seq": S, "dtype": str(q.dtype),
+                     "launches": launched[name], "ms": ms,
                      "plain_ms": plain_ms, "max_abs_err": err,
                      "excess": excess, "fault_max_abs_err": fault_err,
                      "fault_excess": fault_excess, "old_tol_excess": old,
@@ -5942,9 +6073,9 @@ def attention_phase(report):
                      "share_of_bound": b_ms / ms, "library_ms": lib_ms,
                      "library": how, "library_vs_kernel_err": lib_err,
                      "tflops": flops / ms / 1e9}
-        print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={k.shape[1]}, "
-              f"D={D}, {'bf16' if is16 else 'f32'}, "
-              f"{'causal' if causal else 'non-causal'}, window {w}): "
+        print(f"flash_attention {name} (S=T={S}, H={H}, Hkv={Hkv}, D={D}"
+              f"{'' if width == D else f' run at {width}'}, "
+              f"{dt}, {'causal' if causal else 'non-causal'}, window {w}): "
               f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
               f"{100 * b_ms / ms:.1f} % of the bound), {pairs / 1e9:.3f} G "
               f"pairs -> bound {b_ms:.3f} ms ({b_by}, {work / 1e12:.3f} "
@@ -5963,23 +6094,62 @@ def attention_phase(report):
               f"({how}, vs kernel {lib_err})", flush=True)
         del o
     report["attention"] = out
+    return attention_lines(out, counts)
 
-    def line(name, source, pipe, case):
-        c = out[case]
-        names = [n for n, _, _, _, f in cases if f == (name == "flash_attention")]
+
+ATTN_SOURCES = {"flash_attention_sm90":
+                "src/repro_torch/csrc/flash_attention_sm90.cu",
+                "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+
+
+def attention_lines(out, counts):
+    """The kernels' lines of phase 3e's cases ``out``: the two routes
+    under their wrappers' names (every launch of the route; the bf16
+    full-causal and the f32 window case's numbers, as earlier runs
+    printed them), then each instantiation the two do not stand for, as
+    ``route[type, width]``, from its first case (its launches and the
+    largest error over its cases)."""
+    def line(name, route, pipe, cases, launches):
+        c = out[cases[0]]
         return {"name": name, "route": "cuda", "pipe": pipe,
-                "source": source,
+                "source": ATTN_SOURCES[route],
                 "replaces": "src/repro/kernels/flash_attention.py:102",
-                "launches": counts[name],
-                "max_abs_err": max(out[n]["max_abs_err"] for n in names),
+                "launches": launches,
+                "max_abs_err": max(out[n]["max_abs_err"] for n in cases),
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": c["library_ms"]}
-    return [line("flash_attention_sm90",
-                 "src/repro_torch/csrc/flash_attention_sm90.cu", "wgmma",
-                 "causal"),
-            line("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-                 "wgmma 3xtf32", "window f32")]
+                "library_ms": c["library_ms"],
+                "library_backend": c["library"] if c["library_ms"] is not None
+                else None}
+
+    def pipe(dtype, width):
+        return "wgmma" if dtype != "torch.float32" else \
+            "cuda cores" if width == 256 else "wgmma 3xtf32"
+    groups = {}
+    for name, r in out.items():
+        groups.setdefault((r["dtype"], r["width"]), []).append(name)
+    lines = [line("flash_attention_sm90", "flash_attention_sm90", "wgmma",
+                  ["causal"] + [n for n, r in out.items()
+                                if r["dtype"] != "torch.float32"
+                                and n != "causal"],
+                  counts["flash_attention_sm90"]),
+             line("flash_attention", "flash_attention", "wgmma 3xtf32",
+                  ["window f32"] + [n for n, r in out.items()
+                                    if r["dtype"] == "torch.float32"
+                                    and n != "window f32"],
+                  counts["flash_attention"])]
+    for (dtype, width), names in sorted(groups.items()):
+        short = dtype.replace("torch.", "").replace("bfloat16", "bf16") \
+            .replace("float16", "f16").replace("float32", "f32")
+        rt = "flash_attention" if dtype == "torch.float32" else \
+            "flash_attention_sm90"
+        if (rt, short, width) in (("flash_attention_sm90", "bf16", 128),
+                                  ("flash_attention", "f32", 128)):
+            continue
+        lines.append(line(f"{rt}[{short},{width}]", rt, pipe(dtype, width),
+                          names, sum(sum(out[n]["launches"].values())
+                                     for n in names)))
+    return lines
 
 
 def profiled(fn, trace, what, keep=True):
@@ -6159,13 +6329,20 @@ def main():
     # ---- phase 2: kernel == plain on the card
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    nw = check_walk_kernel(rng)
-    ng = check_segment_kernel(rng)
-    nu = check_update_kernel(rng)
-    ns = check_sample_kernels(rng)
+    checks = report["check_parts_s"] = {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        checks[name] = time.perf_counter() - t
+        return out
+    nw = part("walk_fused", check_walk_kernel, rng)
+    ng = part("walk_segment", check_segment_kernel, rng)
+    nu = part("update_fused", check_update_kernel, rng)
+    ns = part("walk_sample", check_sample_kernels, rng)
     rng_new = np.random.default_rng(1)       # rng's stream stays as it was
-    nt = check_table_kernels(rng_new)
-    fa_errs = check_flash_kernel(rng_new)
+    nt = part("tables", check_table_kernels, rng_new)
+    fa_errs = part("flash_attention", check_flash_kernel, rng_new)
     report["check_s"] = phase_s["2 kernel == plain"] = \
         time.perf_counter() - t0
     report["flash_check_errs"] = fa_errs
@@ -6173,7 +6350,9 @@ def main():
           f"{ng} cases, update_fused {nu} rounds, walk_sample and "
           f"walk_sample_uniform {ns} cases each, radix_hist and alias_build "
           f"{nt} cases; flash_attention {len(fa_errs)} cases within "
-          f"its limit ({report['check_s']:.1f} s)", flush=True)
+          f"its limit ({report['check_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in checks.items()) + ")",
+          flush=True)
     for e in fa_errs:
         old = e["old_tol_excess"]
         print(f"  flash_attention {e['case']}: max abs vs plain "

@@ -11,7 +11,8 @@
 // differ), not bit for bit, so this source is built without -fmad=false.
 //
 // q (B, H, S, D), k and v (B, Hkv, T, D), all float32; out (B, H, S, D)
-// float32; D in {64, 80, 128}; H a multiple of Hkv.  Query row i sits at
+// float32; D in {64, 80, 128} on the tensor cores, and D = 256 on the CUDA
+// cores (``flash_attention_wide_kernel``, below); H a multiple of Hkv.  Query row i sits at
 // position qpos = i + T - S; key kpos is seen when kpos < T, kpos <= qpos
 // (causal) and kpos > qpos - window (window > 0).
 //
@@ -562,6 +563,178 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// D = 256 on the CUDA cores.  The 3xTF32 layout above cannot hold so wide
+// a head: its Q hi and lo panels alone would take 128 KB, and one stage five
+// kBlockK x 256 x 4-byte tiles.  This kernel is the float32 route's first
+// at that width, right before fast: one block per (b * H + h, 32-row query
+// tile), heaviest first, 256 threads, 8 a query row.  It stages the query
+// tile (scaled by ``scale`` in float32, as the plain version scales q) and
+// each 32-key K and V tile in shared memory (rows padded to 260 floats, so
+// the eight threads of a row read eight keys' 16-byte words on distinct
+// banks), computes each thread's 4 scores of its row in float32 FMAs,
+// runs the online softmax in the natural exp with the row's max over its 8
+// threads (shuffles), writes P to shared memory and accumulates its 32 of
+// the row's 256 outputs over the tile's keys.  Masked scores are -1e30 and
+// tiles outside the band are skipped, as above.  Bound on this card:
+// operations, 4 D FLOPs per unmasked pair at the CUDA cores' float32 rate;
+// what it leaves: no tensor cores, no overlap of a tile's loads with the
+// previous tile's products (one buffer), and P through shared memory.
+constexpr int kWideD = 256;
+constexpr int kWideQ = 32;                   // query rows per block
+constexpr int kWideK = 32;                   // keys per tile
+constexpr int kWideThreads = 256;            // 8 a query row
+constexpr int kWideRow = kWideD + 4;         // a padded row, in floats
+constexpr int kWideP = kWideK + 1;           // a padded row of P
+constexpr int kWideBytes =
+    4 * (kWideQ * kWideRow + 2 * kWideK * kWideRow + kWideQ * kWideP);
+
+// rows [r0, r0 + n) of a (rows, 256) float32 matrix into shared memory
+// (padded rows), ``scale`` times; rows past ``rows`` are zeros
+__device__ __forceinline__ void wide_load(float* dst, const float* src, int r0,
+                                          int rows, int n, float scale) {
+  for (int i = threadIdx.x; i < n * (kWideD / 4); i += kWideThreads) {
+    const int r = i / (kWideD / 4), c = 4 * (i % (kWideD / 4));
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r0 + r < rows) {
+      x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * kWideD + c);
+      x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    }
+    *reinterpret_cast<float4*>(dst + r * kWideRow + c) = x;
+  }
+}
+
+__device__ __forceinline__ float group8_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 4));
+}
+
+__device__ __forceinline__ float group8_sum(float x) {
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 4);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out,
+                            int H, int Hkv, int S, int Tk, int causal, int window,
+                            float scale) {
+  extern __shared__ float4 wide_raw[];
+  float* sQ = reinterpret_cast<float*>(wide_raw);
+  float* sK = sQ + kWideQ * kWideRow;
+  float* sV = sK + kWideK * kWideRow;
+  float* sP = sV + kWideK * kWideRow;
+
+  const int bh = blockIdx.x;
+  const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kWideQ;
+  const int r = threadIdx.x / 8, g = threadIdx.x % 8;   // row, place in it
+  const int off = Tk - S;
+  const int qp = i0 + r + off;
+
+  const int last = min(i0 + kWideQ, S) - 1;
+  const int kend = causal ? min(Tk, last + off + 1) : Tk;
+  const int kbeg = window > 0 ? max(0, i0 + off - window + 1) : 0;
+  const int t_lo = kbeg / kWideK;
+  const int t_hi = kend > kbeg ? (kend + kWideK - 1) / kWideK : t_lo;
+
+  const float* kh = k + static_cast<size_t>(kvh) * Tk * kWideD;
+  const float* vh = v + static_cast<size_t>(kvh) * Tk * kWideD;
+  wide_load(sQ, q + static_cast<size_t>(bh) * S * kWideD, i0, S, kWideQ, scale);
+
+  float o[kWideD / 8];      // columns 4 g + 32 j + (0..3) of row r
+  float m = kNegInf, l = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kWideD / 8; ++i) o[i] = 0.0f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int j0 = t * kWideK;
+    __syncthreads();                       // the last tile's K, V and P read
+    wide_load(sK, kh, j0, Tk, kWideK, 1.0f);
+    wide_load(sV, vh, j0, Tk, kWideK, 1.0f);
+    __syncthreads();
+
+    // scores of keys j0 + g + 8 j, j < 4
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* qr = sQ + r * kWideRow;
+#pragma unroll 4
+    for (int d = 0; d < kWideD; d += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(qr + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(sK + (g + 8 * j) * kWideRow + d);
+        s[j] = fmaf(a.x, b.x, s[j]);
+        s[j] = fmaf(a.y, b.y, s[j]);
+        s[j] = fmaf(a.z, b.z, s[j]);
+        s[j] = fmaf(a.w, b.w, s[j]);
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kpos = j0 + g + 8 * j;
+      const bool ok = kpos < Tk && (!causal || kpos <= qp) &&
+                      (window <= 0 || kpos > qp - window);
+      if (!ok) s[j] = kNegInf;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float mn = fmaxf(m, group8_max(mx));
+    const float corr = expf(m - mn);
+    m = mn;
+    float psum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = expf(s[j] - mn);
+      psum += p;
+      sP[r * kWideP + g + 8 * j] = p;
+    }
+    l = l * corr + psum;
+#pragma unroll
+    for (int i = 0; i < kWideD / 8; ++i) o[i] *= corr;
+    __syncthreads();
+
+    const float* pr = sP + r * kWideP;
+    for (int c = 0; c < kWideK; ++c) {
+      const float p = pr[c];
+      const float* vr = sV + c * kWideRow + 4 * g;
+#pragma unroll
+      for (int j = 0; j < kWideD / 32; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(vr + 32 * j);
+        o[4 * j] = fmaf(p, b.x, o[4 * j]);
+        o[4 * j + 1] = fmaf(p, b.y, o[4 * j + 1]);
+        o[4 * j + 2] = fmaf(p, b.z, o[4 * j + 2]);
+        o[4 * j + 3] = fmaf(p, b.w, o[4 * j + 3]);
+      }
+    }
+  }
+
+  const float den = fmaxf(group8_sum(l), 1e-30f);
+  const int row = i0 + r;
+  if (row >= S) return;
+  float* dst = out + (static_cast<size_t>(bh) * S + row) * kWideD + 4 * g;
+#pragma unroll
+  for (int j = 0; j < kWideD / 32; ++j)
+    *reinterpret_cast<float4*>(dst + 32 * j) =
+        make_float4(o[4 * j] / den, o[4 * j + 1] / den, o[4 * j + 2] / den,
+                    o[4 * j + 3] / den);
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, int B,
+                int H, int Hkv, int S, int Tk, int causal, int window, float scale,
+                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kWideBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(B) * H, (S + kWideQ - 1) / kWideQ);
+  flash_attention_wide_kernel<<<grid, kWideThreads, kWideBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, S, Tk,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
@@ -636,7 +809,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* out, int B, int H, int Hkv, int S,
                                       int Tk, int D, int causal, int window,
                                       float scale, cudaStream_t stream) {
-  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 80 && D != 128))
+  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 80 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   if (Tk == 0)        // no key: every row is 0 / max(0, 1e-30)
@@ -647,6 +820,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch<64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
     case 80:
       return launch<80>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
+    case 256:
+      return launch_wide(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
     default:
       return launch<128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
   }

@@ -1,66 +1,84 @@
-// Flash-attention forward on Hopper's tensor cores (sm_90a), bfloat16.
+// Flash-attention forward on Hopper's tensor cores (sm_90a), bfloat16 and
+// float16.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (causal, sliding-window or non-causal GQA attention
-// with an online softmax) for bfloat16 inputs; float32 inputs go to the
-// 3xTF32 kernel of csrc/flash_attention.cu.  Plain version:
-// repro_torch/kernels/flash_attention.py:flash_attention_ref on bfloat16
-// tensors (``_plain16``), which rounds where this kernel rounds: the scores
-// are float32 sums of bfloat16 products, p = exp2(s * scale * log2(e) - m) in
-// float32, l sums the float32 p, P is rounded to bfloat16 before P V, and P V
-// accumulates in float32, over KV tiles of kBlockK keys.  The two differ in
-// the order of the float32 sums only.
+// with an online softmax) for 16-bit inputs; float32 inputs go to
+// csrc/flash_attention.cu.  Plain version:
+// repro_torch/kernels/flash_attention.py:flash_attention_ref on bfloat16 or
+// float16 tensors (``_plain16``), which rounds where this kernel rounds: the
+// scores are float32 sums of 16-bit products, p = exp2(s * scale * log2(e) -
+// m) in float32, l sums the float32 p, P is rounded to the input's type
+// before P V, and P V accumulates in float32, over KV tiles of kBlockK keys.
+// The two differ in the order of the float32 sums only.
 //
-// q (B, H, S, D), k and v (B, Hkv, T, D), bfloat16; out (B, H, S, D)
-// bfloat16; D in {64, 128}; H a multiple of Hkv.  Query row i sits at
-// position qpos = i + T - S; key kpos is seen when kpos < T, kpos <= qpos
-// (causal) and kpos > qpos - window (window > 0).
+// q (B, H, S, D), k and v (B, Hkv, T, D), all bfloat16 or all float16; out
+// (B, H, S, D) in their type; D in {64, 128, 256}; H a multiple of Hkv.
+// Query row i sits at position qpos = i + T - S; key kpos is seen when
+// kpos < T, kpos <= qpos (causal) and kpos > qpos - window (window > 0).
 //
 // Design.  One block per (b * H + h, 128-row query tile), heaviest tiles
 // first: two consumer warpgroups of 64 query rows each and one producer
-// warp.  The producer's first lane loads the query tile once and streams K
+// warpgroup, which hands its registers to the consumers (setmaxnreg: 40
+// a thread there, 232 in a consumer).  The producer's first thread loads
+// the query tile once and streams K
 // and V tiles of kBlockK x D through a ring of kStages stages with TMA
 // (cp.async.bulk.tensor, 3-D maps over (D, T, B * Hkv), so a ragged tail
 // reads zeros and never the next head), 128-byte swizzled in 64-column
 // panels; each stage has a K barrier, a V barrier and an "empty" barrier
 // that every consumer thread arrives on once it is done with the stage.
-// A consumer warpgroup computes S = Q K^T with wgmma m64n128k16 (Q and K
-// read from shared memory, K-major), keeps S in registers, applies the mask
-// only on tiles that cross the band's edge or T, runs the online softmax in
-// the exp2 domain with the scale folded into the exponent (q is never
-// rounded after scaling), rounds P to bfloat16 in registers (the
-// accumulator's fragment is the A operand's register fragment) and
-// accumulates O += P V with wgmma m64nDk16, V read from shared memory
-// MN-major through the transpose bit.  m and l stay in registers; l is the
-// sum of the float32 p.  The epilogue writes acc / max(l, 1e-30) for rows
-// < S.  KV tiles wholly outside the causal/window band are skipped, which
-// is exact (see csrc/flash_attention.cu).
+// A consumer warpgroup computes S = Q K^T with wgmma m64n{kBlockK}k16 (Q
+// and K read from shared memory, K-major), keeps S in registers, applies
+// the mask only on tiles that cross the band's edge or T, runs the online
+// softmax in the exp2 domain with the scale folded into the exponent (q is
+// never rounded after scaling), rounds P to the input's type in registers
+// (the accumulator's fragment is the A operand's register fragment) and
+// accumulates O += P V with wgmma m64nNk16 over 128-column (or 64-column)
+// chunks of D, V read from shared memory MN-major through the transpose
+// bit.  m and l stay in registers; l is the sum of the float32 p.  The
+// epilogue writes acc / max(l, 1e-30) for rows < S.  KV tiles wholly
+// outside the causal/window band are skipped, which is exact (see
+// csrc/flash_attention.cu).
+//
+// Shared memory (227 KB a block at most): Q 128 x D x 2 bytes; a stage
+// holds a K and a V tile of kBlockK x D x 2 bytes.  D <= 128: kBlockK 128,
+// 2 stages (D = 128: 32 + 2 x 64 = 160 KB).  D = 256: kBlockK 64, 2
+// stages: 64 + 2 x 64 = 192 KB (128 keys would need 64 + 2 x 128); S is
+// then m64n64k16 (32 registers a thread) beside the 64 x 256 float32 O
+// accumulator of each warpgroup (128 registers a thread).
 //
 // Bound on this card: operations, 4 D FLOPs per unmasked (query, key) pair
-// at the dense bf16 tensor-core rate.  What this first tensor-core version
-// leaves: each warpgroup waits for its own S product before the softmax and
-// for P V before the next tile (no ping-pong between the two warpgroups, no
-// overlap of softmax and wgmma inside one), the producer warp keeps its
-// full register allocation (no setmaxnreg), and blocks are not persistent.
+// at the dense 16-bit tensor-core rate.  What this first tensor-core
+// version leaves: each warpgroup waits for its own S product before the
+// softmax and for P V before the next tile (no ping-pong between the two
+// warpgroups, no overlap of softmax and wgmma inside one), and blocks are
+// not persistent.
 
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBlockQ = 128;              // query rows per block
-constexpr int kBlockK = 128;              // keys per K/V tile
 constexpr int kStages = 2;                // K/V ring depth
 constexpr int kConsumers = 256;           // two warpgroups
-constexpr int kThreads = kConsumers + 32; // and the producer warp
-constexpr int kPanel = 64;                // bf16 columns of a 128-byte panel
+constexpr int kThreads = kConsumers + 128; // and the producer warpgroup
+// Registers a thread after setmaxnreg: the producer warpgroup gives up
+// what the consumers take (2 x 128 x 232 + 128 x 40 = 64,512 of the SM's
+// 65,536); at launch every thread has 168 (65,536 / 384, rounded down to
+// 8), too few for D = 256's 128 O registers beside S and P
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kPanel = 64;                // 16-bit columns of a 128-byte panel
 constexpr float kNegInf = -1e30f;
 constexpr int kEncodeFailed = -1;         // returned when a tensor map fails
 
 template <int D>
 struct Smem {
+  static constexpr int kBlockK = D > 128 ? 64 : 128;  // keys per K/V tile
   static constexpr int kPanels = D / kPanel;
   static constexpr int kQPanel = kBlockQ * 128;       // bytes of a Q panel
   static constexpr int kKPanel = kBlockK * 128;       // bytes of a K or V panel
@@ -73,6 +91,7 @@ struct Smem {
   // barriers: Q, K full x kStages, V full x kStages, empty x kStages; and
   // room to round the dynamic base up to 1024 bytes (the swizzle's period)
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -163,39 +182,55 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
   "%61, %62, %63}"
 
-// S (64 x 128, f32) (+)= A (64 x 16) B (16 x 128): A and B from shared
-// memory, both K-major; the sum starts from zero unless ``accumulate``.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
-      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
-      : D64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// The wgmma instructions of one 16-bit input type (``TY``: "bf16.bf16" or
+// "f16.f16").
+#define FLASH_WGMMA(NAME, TY)                                                  \
+  struct NAME {                                                                \
+    /* S (64 x 128, f32) (+)= A (64 x 16) B (16 x 128): A and B from shared    \
+       memory, both K-major; the sum starts from zero unless accumulate */    \
+    static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,     \
+                                              uint64_t db, int accumulate) {   \
+      asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"         \
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY " " R64   \
+                   ", %64, %65, p, 1, 1, 0, 0;\n\t}"                            \
+                   : D64                                                       \
+                   : "l"(da), "l"(db), "r"(accumulate));                       \
+    }                                                                          \
+    /* S (64 x 64) (+)= A (64 x 16) B (16 x 64), as above */                   \
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,     \
+                                              uint64_t db, int accumulate) {   \
+      asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"         \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY " " R32    \
+                   ", %32, %33, p, 1, 1, 0, 0;\n\t}"                            \
+                   : D32                                                       \
+                   : "l"(da), "l"(db), "r"(accumulate));                       \
+    }                                                                          \
+    /* O (64 x 128, f32) += A (64 x 16, registers) B (16 x 128): B from        \
+       shared memory, MN-major (the transpose bit) */                          \
+    static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a, \
+                                              uint64_t db) {                   \
+      asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"         \
+                   "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY " " R64   \
+                   ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"              \
+                   : D64                                                       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                     "r"(1));                                                  \
+    }                                                                          \
+    /* O (64 x 64) += A (64 x 16) B (16 x 64), as above */                     \
+    static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t* a, \
+                                              uint64_t db) {                   \
+      asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"         \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY " " R32    \
+                   ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"              \
+                   : D32                                                       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                     "r"(1));                                                  \
+    }                                                                          \
+  };
 
-// O (64 x N, f32) += A (64 x 16, bf16 registers) B (16 x N): B from shared
-// memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
-      : D64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
-      : D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+FLASH_WGMMA(WgmmaBf16, "bf16.bf16")
+FLASH_WGMMA(WgmmaF16, "f16.f16")
+#undef FLASH_WGMMA
 
 #undef D8
 #undef D32
@@ -203,10 +238,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
 #undef R32
 #undef R64
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// What differs between the two 16-bit types: the wgmma type, the tensor
+// map's element type and the rounding of two floats into one 32-bit word.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Mma = WgmmaBf16;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  using Mma = WgmmaF16;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
@@ -218,15 +273,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ out, int H, int Hkv,
-                            int S, int Tk, int causal, int window,
-                            float scale_log2) {
+                            T* __restrict__ out, int H, int Hkv, int S, int Tk,
+                            int causal, int window, float scale_log2) {
   using L = Smem<D>;
+  using Mma = typename Elem<T>::Mma;
+  constexpr int kBlockK = L::kBlockK;
+  constexpr int kChunk = D < 128 ? D : 128;   // O columns of one P V wgmma
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -258,8 +315,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {          // the producer warp
-    if (threadIdx.x % 32 == 0) {
+  if (warp >= kConsumers / 32) {          // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers) {
       mbar_expect_tx(bar_q, L::kQBytes);
       for (int p = 0; p < L::kPanels; ++p)
         tma_load(sQ + p * L::kQPanel, &tm_q, bar_q, p * kPanel, i0, bh);
@@ -282,6 +340,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   // a consumer: warpgroup wg holds query rows 64 wg .. 64 wg + 63 of the tile;
   // this thread holds rows r and r + 8 and, of each 8-column block, columns
   // 2 (lane % 4) and the next
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   const int wg = warp / 4;
   const int lane = threadIdx.x % 32;
   const int row = i0 + wg * 64 + (warp % 4) * 16 + lane / 4;
@@ -289,10 +348,14 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int col = 2 * (lane % 4);
   const uint32_t q_rows = sQ + wg * 64 * 128;
 
-  float o[D / 2];
+  // O in chunks of kChunk columns: chunk c is the accumulator of the c-th
+  // P V wgmma, and its fragment order is that of one m64nDk16 accumulator
+  float o[D / kChunk][kChunk / 2];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  for (int c = 0; c < D / kChunk; ++c)
+#pragma unroll
+    for (int i = 0; i < kChunk / 2; ++i) o[c][i] = 0.0f;
 
   mbar_wait(bar_q, 0);
   for (int t = t_lo; t < t_hi; ++t) {
@@ -301,7 +364,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int j0 = t * kBlockK;
 
     // S = Q K^T over D / 16 steps of 16
-    float sc[64];
+    float sc[kBlockK / 2];
     mbar_wait(bar_k + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
@@ -310,7 +373,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t da = sw128_desc(q_rows + (kk / 4) * L::kQPanel + step, 16, 1024);
       const uint64_t db =
           sw128_desc(sK + s * L::kTile + (kk / 4) * L::kKPanel + step, 16, 1024);
-      wgmma_ss_n128(sc, da, db, kk > 0);
+      Mma::ss(sc, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -321,7 +384,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const bool edge = j0 + kBlockK > Tk || (causal && j0 + kBlockK - 1 > i0 + off) ||
                       (window > 0 && j0 <= last + off - window);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kBlockK / 2; ++i) {
       float x = sc[i] * scale_log2;
       if (edge) {
         const int kpos = j0 + 8 * (i / 4) + col + (i & 1);
@@ -336,7 +399,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // online softmax of rows r (h = 0) and r + 8 (h = 1)
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    for (int i = 0; i < kBlockK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     float corr[2], psum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -344,32 +408,41 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       corr[h] = exp2f(m[h] - mn);
       m[h] = mn;
     }
-    uint32_t pa[32];     // P in bf16: the A fragments of the 8 steps of P V
+    uint32_t pa[kBlockK / 4];   // P in T: the A fragments of the P V steps
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
+    for (int i = 0; i < kBlockK / 2; i += 2) {
       const int h = (i >> 1) & 1;
       const float p0 = exp2f(sc[i] - m[h]);
       const float p1 = exp2f(sc[i + 1] - m[h]);
       psum[h] += p0 + p1;
-      pa[i / 2] = pack_bf16(p0, p1);
+      pa[i / 2] = Elem<T>::pack(p0, p1);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int c = 0; c < D / kChunk; ++c)
+#pragma unroll
+      for (int i = 0; i < kChunk / 2; ++i) o[c][i] *= corr[(i >> 1) & 1];
 
-    // O += P V over kBlockK / 16 steps of 16 keys
+    // O += P V over kBlockK / 16 steps of 16 keys, a chunk of D at a time
     mbar_wait(bar_v + 8 * s, parity);
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < D / kChunk; ++c) fence_regs(o[c]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint64_t db = sw128_desc(sV + s * L::kTile + kk * 16 * 128, L::kKPanel, 1024);
-      wgmma_rs(o, pa + 4 * kk, db);
-    }
+    for (int c = 0; c < D / kChunk; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        const uint64_t db = sw128_desc(sV + s * L::kTile +
+                                           c * (kChunk / kPanel) * L::kKPanel +
+                                           kk * 16 * 128,
+                                       L::kKPanel, 1024);
+        Mma::rs(o[c], pa + 4 * kk, db);
+      }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < D / kChunk; ++c) fence_regs(o[c]);
     mbar_arrive(bar_e + 8 * s);
   }
 
@@ -380,11 +453,13 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= S) continue;
-    __nv_bfloat16* dst = out + (static_cast<size_t>(bh) * S + r) * D + col;
+    T* dst = out + (static_cast<size_t>(bh) * S + r) * D + col;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n / (kChunk / 8), j = 4 * (n % (kChunk / 8)) + 2 * h;
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(o[4 * n + 2 * h] / den[h], o[4 * n + 2 * h + 1] / den[h]);
+          Elem<T>::pack(o[c][j] / den[h], o[c][j + 1] / den[h]);
+    }
   }
 }
 
@@ -413,11 +488,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over (D, rows, heads) bf16, read in boxes of 64 columns x
-// ``box_rows`` rows of one head, 128-byte swizzled; reads past ``rows`` fill
-// zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
-              int box_rows) {
+// A 3-D map over (D, rows, heads) of 16-bit ``type``, read in boxes of 64
+// columns x ``box_rows`` rows of one head, 128-byte swizzled; reads past
+// ``rows`` fill zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int D,
+              int rows, int heads, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
@@ -427,50 +502,69 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(kPanel),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
            int Hkv, int S, int Tk, int causal, int window, float scale_log2,
            cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = Elem<T>::kMap;
+  constexpr int kBlockK = Smem<D>::kBlockK;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, S, B * H, kBlockQ) ||
-      !make_map(&tk, k, D, Tk, B * Hkv, kBlockK) ||
-      !make_map(&tv, v, D, Tk, B * Hkv, kBlockK))
+  if (!make_map(&tq, type, q, D, S, B * H, kBlockQ) ||
+      !make_map(&tk, type, k, D, Tk, B * Hkv, kBlockK) ||
+      !make_map(&tv, type, v, D, Tk, B * Hkv, kBlockK))
     return kEncodeFailed;
   const size_t shmem = Smem<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_sm90_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_sm90_kernel<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(shmem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(B) * H, (S + kBlockQ - 1) / kBlockQ);
-  flash_attention_sm90_kernel<D><<<grid, kThreads, shmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, Hkv, S, Tk, causal, window,
-      scale_log2);
+  flash_attention_sm90_kernel<T, D><<<grid, kThreads, shmem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), H, Hkv, S, Tk, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_width(const void* q, const void* k, const void* v, void* out, int B,
+                 int H, int Hkv, int S, int Tk, int D, int causal, int window,
+                 float scale_log2, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch<T, 64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                           scale_log2, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                            scale_log2, stream);
+    default:
+      return launch<T, 256>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                            scale_log2, stream);
+  }
 }
 
 }  // namespace
 
+// ``f16``: the tensors are float16 (else bfloat16).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* out, int B, int H,
-                                           int Hkv, int S, int Tk, int D,
+                                           int Hkv, int S, int Tk, int D, int f16,
                                            int causal, int window,
                                            float scale_log2, cudaStream_t stream) {
-  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128))
+  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128 && D != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   if (Tk == 0)        // no key: every row is 0 / max(0, 1e-30)
-    return static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(B) * H * S * D * sizeof(__nv_bfloat16), stream));
-  return D == 64 ? launch<64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
-                              scale_log2, stream)
-                 : launch<128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
-                               scale_log2, stream);
+    return static_cast<int>(
+        cudaMemsetAsync(out, 0, static_cast<size_t>(B) * H * S * D * 2, stream));
+  return f16 ? launch_width<__half>(q, k, v, out, B, H, Hkv, S, Tk, D, causal,
+                                    window, scale_log2, stream)
+             : launch_width<__nv_bfloat16>(q, k, v, out, B, H, Hkv, S, Tk, D,
+                                           causal, window, scale_log2, stream);
 }
 
 extern "C" const char* kernels_error_string(int code) {

@@ -63,7 +63,7 @@ _SIGNATURES = {
         "flash_attention_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
     },
     "flash_attention_sm90": {
-        "flash_attention_sm90_launch": ([_P] * 4 + [_I] * 8 + [_F, _P], _I),
+        "flash_attention_sm90_launch": ([_P] * 4 + [_I] * 9 + [_F, _P], _I),
     },
 }
 

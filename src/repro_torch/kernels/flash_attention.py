@@ -18,22 +18,24 @@ and, with ``window > 0``, fewer than ``window`` positions before it.
   against.
 - ``flash_attention_ref``: the plain version of the kernel of the input's
   type: ``flash_attention_ref32`` in q's type for float32, and for
-  bfloat16 the tensor-core kernel's roundings (``_plain16``): KV tiles of
-  128, scores as float32 sums of the bfloat16 products, the scale folded
-  into an exp2, l summed from the float32 p, P rounded to bfloat16 before
-  P V, which sums in float32.
+  bfloat16 and float16 the tensor-core kernel's roundings (``_plain16``):
+  KV tiles of 128 keys up to D = 128 and of 64 above (the kernel's
+  ``kBlockK`` at the width D runs at), scores as float32 sums of the
+  16-bit products, the scale folded into an exp2, l summed from the
+  float32 p, P rounded to the input's type before P V, which sums in
+  float32.
 - ``flash_attention``: the wrapper.  CPU tensors run
   ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
-  (float32, three TF32 products on the tensor cores, counted in
-  ``flash_attention.launches``) or ``csrc/flash_attention_sm90.cu``
-  (bfloat16, wgmma, counted in ``flash_attention_sm90.launches``).  The
-  float32 kernel is built for head dims 64, 80 and 128, the bfloat16 one
-  for 64 and 128; any D ≤ 128 runs zero-padded to the next width of its
-  route (``kernel_head_dim``, ``pad_head_dim``), and the card declines
-  D > 128 and other types (``check_kernel_inputs``).  The float32 kernel
-  agrees with its plain version entry by entry within 2e-5; a bfloat16
-  output is held row by row against ``flash_attention_ref32`` (the limit
-  is ``chip_smoke.py``'s ``flash_row_excess``).
+  (float32: three TF32 products on the tensor cores at D = 64, 80 and
+  128, the CUDA cores at 256; counted in ``flash_attention.launches``) or
+  ``csrc/flash_attention_sm90.cu`` (bfloat16 and float16, wgmma, D = 64,
+  128 and 256; counted in ``flash_attention_sm90.launches``).  Any
+  D ≤ 256 runs zero-padded to the next width of its route
+  (``kernel_head_dim``, ``pad_head_dim``), and the card declines D > 256
+  and other types (``check_kernel_inputs``).  The float32 kernel agrees
+  with its plain version entry by entry within 2e-5; a 16-bit output is
+  held row by row against ``flash_attention_ref32`` (the limit is
+  ``chip_smoke.py``'s ``flash_row_excess``).
 """
 
 from __future__ import annotations
@@ -50,11 +52,26 @@ __all__ = ["attention_ref", "attention_ref_chunked", "flash_attention_ref32",
            "pad_head_dim", "flash_attention"]
 
 _BLOCK_K = 64                # KV tile of ref32
-_BLOCK_K16 = 128             # KV tile of the bfloat16 kernel and of _plain16
-_BLOCK_Q = {torch.float32: 64, torch.bfloat16: 128}   # query rows a block
 _NEG_INF = -1e30
 _MAX_Q_TILES = 65535         # the kernels' grid height, in query tiles
-_WIDTHS = {torch.float32: (64, 80, 128), torch.bfloat16: (64, 128)}
+_16BIT = (torch.bfloat16, torch.float16)
+_WIDTHS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256),
+           torch.float16: (64, 128, 256)}
+
+
+def _block_k16(D: int) -> int:
+    """The 16-bit kernel's KV tile at the width a head dim D runs at: 128
+    keys up to 128, 64 above (csrc/flash_attention_sm90.cu's kBlockK)."""
+    return 64 if D > 128 else 128
+
+
+def _block_q(dtype, width: int) -> int:
+    """Query rows of one block of the kernel that runs ``dtype`` at
+    ``width``: 128 in 16 bits, 64 in float32 (32 at 256, its CUDA-core
+    kernel)."""
+    if dtype in _16BIT:
+        return 128
+    return 32 if width == 256 else 64
 
 
 def _mask(S: int, T: int, q_offset: int, causal: bool, window: int,
@@ -150,9 +167,11 @@ def flash_attention_ref32(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def _plain16(q, k, v, causal, window, scale):
-    """The bfloat16 kernel's algorithm (see the module docstring); returns
-    (B, H, S, D) bfloat16."""
+    """The 16-bit kernel's algorithm (see the module docstring); returns
+    (B, H, S, D) in q's type."""
     B, H, S, D = q.shape
+    dt = q.dtype
+    bk = _block_k16(D)
     Hkv, T = k.shape[1], k.shape[2]
     rep = H // Hkv
     dev = q.device
@@ -165,8 +184,8 @@ def _plain16(q, k, v, causal, window, scale):
     l = torch.zeros_like(m)
     acc = torch.zeros((B, Hkv, rep, S, D), dtype=torch.float32, device=dev)
     neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=dev)
-    for j0 in range(0, T, _BLOCK_K16):
-        kt, vt = kf[:, :, j0:j0 + _BLOCK_K16], vf[:, :, j0:j0 + _BLOCK_K16]
+    for j0 in range(0, T, bk):
+        kt, vt = kf[:, :, j0:j0 + bk], vf[:, :, j0:j0 + bk]
         s = torch.einsum("bkrsd,bktd->bkrst", qf, kt) * c
         mask = _mask(S, T, T - S, causal, window,
                      torch.arange(j0, j0 + kt.shape[2], device=dev), dev)
@@ -176,17 +195,17 @@ def _plain16(q, k, v, causal, window, scale):
         p = torch.exp2(s - m_new)
         corr = torch.exp2(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        p16 = p.to(torch.bfloat16).to(torch.float32)
+        p16 = p.to(dt).to(torch.float32)
         acc = acc * corr + torch.einsum("bkrst,bktd->bkrsd", p16, vt)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(B, H, S, D).to(torch.bfloat16)
+    return out.reshape(B, H, S, D).to(dt)
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     """The plain version of the kernel of q's type (see the module
     docstring).  Returns (B, H, S, D) in q's type."""
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _16BIT:
         D = q.shape[-1]
         scale = float(D ** -0.5) if scale is None else float(scale)
         return _plain16(q, k, v, causal, window, scale)
@@ -196,13 +215,14 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 
 def kernel_head_dim(D: int, dtype=torch.bfloat16) -> int:
     """The width the card's kernel for ``dtype`` runs a head dim ``D`` at:
-    the least width it is built for that holds D, 64 or 128 in bfloat16,
-    64, 80 or 128 in float32 (hubert-xlarge's D = 80 runs unpadded there).
-    Raises ``ValueError`` above 128: no kernel is built that wide (the
-    bf16 kernel's 128-wide Q, K and V panels and its P·V accumulator, and
-    the f32 kernel's hi and lo tiles, would all double)."""
-    if not 1 <= D <= 128:
-        raise ValueError(f"flash_attention: head dim {D} is outside 1..128, "
+    the least width it is built for that holds D, 64, 128 or 256 in 16
+    bits, 64, 80, 128 or 256 in float32 (hubert-xlarge's D = 80 runs
+    unpadded there).  Raises ``ValueError`` above 256: no kernel is built
+    that wide (the 16-bit kernel's 64 x 256 float32 O accumulator takes
+    128 registers a thread already; a wider head needs D split over
+    blocks)."""
+    if not 1 <= D <= 256:
+        raise ValueError(f"flash_attention: head dim {D} is outside 1..256, "
                          "the widths the card's kernels take")
     return next(w for w in _WIDTHS.get(dtype, _WIDTHS[torch.bfloat16])
                 if D <= w)
@@ -210,16 +230,16 @@ def kernel_head_dim(D: int, dtype=torch.bfloat16) -> int:
 
 def check_kernel_inputs(q, k, v) -> None:
     """Raise ``ValueError`` unless the card's kernels take q (B, H, S, D),
-    k and v (B, Hkv, T, D): one type, float32 or bfloat16; D ≤ 128; H a
-    multiple of Hkv; S within the grid."""
+    k and v (B, Hkv, T, D): one type, float32, bfloat16 or float16;
+    D ≤ 256; H a multiple of Hkv; S within the grid."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    if q.dtype not in _BLOCK_Q:
+    if q.dtype not in _WIDTHS:
         raise ValueError(f"flash_attention: no kernel for {q.dtype}")
-    kernel_head_dim(D)
+    width = kernel_head_dim(D, q.dtype)
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
-    if -(-S // _BLOCK_Q[q.dtype]) > _MAX_Q_TILES:
+    if -(-S // _block_q(q.dtype, width)) > _MAX_Q_TILES:
         raise ValueError(f"flash_attention: {S} query rows exceed the grid")
     _build.check("k", k, q.dtype, (B, Hkv, T, D))
     _build.check("v", v, q.dtype, (B, Hkv, T, D))
@@ -247,10 +267,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
     """Attention forward, dispatched by the device and type of ``q``.
 
-    q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32
-    or bfloat16 on the card), D ≤ 128 on the card (run zero-padded to the
-    route's next width, ``pad_head_dim``).  Returns (B, H, S, D) in q's
-    type.
+    q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32,
+    bfloat16 or float16 on the card), D ≤ 256 on the card (run zero-padded
+    to the route's next width, ``pad_head_dim``).  Returns (B, H, S, D) in
+    q's type.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -259,7 +279,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     check_kernel_inputs(q, k, v)
     _build.check("q", q, q.dtype, q.shape)      # on the card, contiguous
-    route = flash_attention_sm90 if q.dtype == torch.bfloat16 else \
+    route = flash_attention_sm90 if q.dtype in _16BIT else \
         flash_attention_f32
     return pad_head_dim(route, q, k, v, causal=causal, window=window,
                         scale=scale)
@@ -273,7 +293,7 @@ def _aligned(q, k, v) -> None:
 
 def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
     """Launch ``csrc/flash_attention.cu`` on float32 CUDA tensors of width
-    64, 80 or 128 that ``flash_attention`` has checked; counted in
+    64, 80, 128 or 256 that ``flash_attention`` has checked; counted in
     ``flash_attention.launches``."""
     _aligned(q, k, v)
     B, H, S, D = q.shape
@@ -292,9 +312,9 @@ def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
 
 
 def flash_attention_sm90(q, k, v, *, causal: bool, window: int, scale: float):
-    """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 CUDA tensors of
-    width 64 or 128 that ``flash_attention`` has checked; the bfloat16
-    route's launch count."""
+    """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 or float16 CUDA
+    tensors of width 64, 128 or 256 that ``flash_attention`` has checked;
+    the 16-bit route's launch count."""
     _aligned(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -302,7 +322,8 @@ def flash_attention_sm90(q, k, v, *, causal: bool, window: int, scale: float):
     lib = _build.library("flash_attention_sm90")
     err = lib.flash_attention_sm90_launch(
         *[_build.ptr(x) for x in (q, k, v, out)], B, H, Hkv, S, T, D,
-        int(causal), int(window), scale * math.log2(math.e),
+        int(q.dtype == torch.float16), int(causal), int(window),
+        scale * math.log2(math.e),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err != 0:
         raise RuntimeError("flash_attention (sm90) launch failed: "

@@ -7,7 +7,8 @@ cast back, SiLU spelled as the reference's ``x * sigmoid(x)``.
 on the generator's device; a truncated normal in [-2, 2]
 standard deviations, as the reference's, but not its numbers (weights
 carried over from the reference go through ``model.params_from_jax``).
-The DTensor helpers (``on_mesh``, ``pin_batch``, ``unshard``, ``dot``, ``whole``,
+The DTensor helpers (``on_mesh``, ``pin_batch``, ``unshard``, ``dot``,
+``grad_layout``, ``whole``,
 ``split_last``, ``merge_last``, ``pointwise``, ``local_parts``,
 ``placed``, ``batch_placements``, ``shard_offset``) are what the model needs to run on a
 ``DeviceMesh``; each is the plain operation, or nothing, on a plain
@@ -24,7 +25,8 @@ import torch
 __all__ = ["rms_norm", "dense_init", "silu", "swiglu", "rope",
            "rope_partial", "init_mlp", "mlp", "on_mesh", "split_last",
            "merge_last", "pointwise", "pin_batch", "shard_offset",
-           "unshard", "dot", "whole", "placed", "local_parts", "batch_placements"]
+           "unshard", "dot", "grad_layout", "whole", "placed",
+           "local_parts", "batch_placements"]
 
 
 def on_mesh(fn):
@@ -227,6 +229,52 @@ def dot(x, w):
             pl[i] = Shard(last)
     pl = placed(pl, mesh)
     return out if list(out.placements) == pl else out.redistribute(mesh, pl)
+
+
+def grad_layout(x, how: str):
+    """``x`` itself, its gradient laid out as stated: on a DTensor,
+    ``how="reduced"`` reduces a gradient that arrives as a partial sum
+    over mesh dims where ``x`` is whole by one all-reduce on each, and
+    ``how="partial"`` takes a gradient that arrives whole over the mesh
+    dims where ``x`` is whole as a partial sum there (each rank's share
+    the whole over the dim's size).  Where a gradient that is whole
+    meets one that is a partial sum, DTensor picks the layout, and torch
+    versions pick apart (2.11 reduces the partial one, 2.13 splits the
+    whole one), so the model states it.  On a plain tensor, ``x``."""
+    if type(x).__name__ != "DTensor" or not x.requires_grad:
+        return x
+    return _GradLayout.apply(x, how)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity; the backward of ``grad_layout``."""
+
+    @staticmethod
+    def forward(ctx, x, how):
+        ctx.how, ctx.mesh, ctx.pl = how, x.device_mesh, list(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as funcol
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh, pl = ctx.mesh, list(g.placements)
+        local = g.to_local()
+        for i, (want, got) in enumerate(zip(ctx.pl, g.placements)):
+            if not isinstance(want, Replicate) or mesh.shape[i] == 1:
+                continue
+            if ctx.how == "reduced" and isinstance(got, Partial):
+                local = funcol.all_reduce(local, "sum", (mesh, i))
+                if isinstance(local, funcol.AsyncCollectiveTensor):
+                    local = local.wait()
+                pl[i] = Replicate()
+            elif ctx.how == "partial" and isinstance(got, Replicate):
+                local = local / mesh.shape[i]
+                pl[i] = Partial()
+        if pl == list(g.placements):
+            return g, None
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=g.shape, stride=g.stride()), None
 
 
 def shard_offset(x, dim: int) -> int:

@@ -50,8 +50,9 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm, xlstm
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.layers import (dense_init, dot, init_mlp, mlp,
-                                       on_mesh, pin_batch, rms_norm, unshard)
+from repro_torch.models.layers import (dense_init, dot, grad_layout,
+                                       init_mlp, mlp, on_mesh, pin_batch,
+                                       rms_norm, unshard)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
@@ -142,7 +143,12 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
     h = rms_norm(x, slot_params["norm1"], cfg.norm_eps)
     # each block's output reduced onto the residual's layout before the
     # add (``pin_batch``): DTensor would otherwise pick where a partial
-    # sum is reduced, and torch versions pick differently
+    # sum is reduced, and torch versions pick differently.  In the
+    # backward pass the residual's gradient is a partial sum over
+    # ``model`` (the blocks' tensor-parallel products make it one) but
+    # where a head that splits K hands it back whole: it is taken as a
+    # partial sum at each add (``grad_layout``), so that it meets the
+    # block's gradient in one layout
     if kind == "attn":
         out = attn.attention_train(slot_params["attn"], cfg, h, positions,
                                    slot)
@@ -152,7 +158,7 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
         out = xlstm.mlstm_train(slot_params["mlstm"], cfg, h)
     elif kind == "slstm":
         out, _ = xlstm.slstm_apply(slot_params["slstm"], cfg, h)
-    x = pin_batch(x + pin_batch(out))
+    x = pin_batch(grad_layout(x, "partial") + pin_batch(out))
     if kind in ("attn", "mamba") and cfg.d_ff:
         h2 = rms_norm(x, slot_params["norm2"], cfg.norm_eps)
         if cfg.is_moe_slot(slot):
@@ -160,7 +166,7 @@ def _apply_slot_train(slot_params, cfg: ModelConfig, slot: int, x, positions):
                                dispatch=cfg.moe_dispatch)
         else:
             out = mlp(slot_params["mlp"], h2)
-        x = x + pin_batch(out)
+        x = grad_layout(x, "partial") + pin_batch(out)
     return pin_batch(x), aux
 
 

@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import (dense_init, dot, local_parts, placed,
-                                       swiglu, whole)
+from repro_torch.models.layers import (dense_init, dot, grad_layout,
+                                       local_parts, placed, swiglu, whole)
 
 __all__ = ["init_moe", "moe_ffn"]
 
@@ -141,10 +141,16 @@ def moe_ffn(params, x, top_k: int, dispatch: str = "ragged"):
     xf = x.reshape(T, D)
     dt = x.dtype
 
-    logits = dot(xf.to(torch.float32), params["router"])  # (T, E)
+    # the router's gradient into x, whole over ``model`` where the router
+    # is, taken as a partial sum there, as the experts' is (``grad_layout``)
+    logits = dot(grad_layout(xf, "partial").to(torch.float32),
+                 params["router"])                         # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = _topk(probs, top_k)                       # (T, k)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    # on DTensors the gates' gradient, a partial sum over the dims that
+    # split the experts' products, is reduced here once (``grad_layout``)
+    gate = grad_layout(gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9), "reduced")
 
     if dispatch == "dense" and type(eidx).__name__ == "DTensor":
         comb = (_onehot(eidx, E, torch.float32) * gate[..., None]).sum(1)

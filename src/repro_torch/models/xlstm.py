@@ -21,9 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import steps
-from repro_torch.models.layers import (dense_init, dot, merge_last,
-                                       pin_batch, pointwise, rms_norm, silu,
-                                       split_last)
+from repro_torch.models.layers import (dense_init, dot, grad_layout,
+                                       merge_last, pin_batch, pointwise,
+                                       rms_norm, silu, split_last)
 
 __all__ = ["init_mlstm", "mlstm_train", "mlstm_decode", "init_mlstm_cache",
            "init_slstm", "slstm_apply", "init_slstm_cache"]
@@ -62,12 +62,17 @@ def init_mlstm(gen: torch.Generator, cfg, dtype=torch.float32):
 
 
 def _mlstm_qkvif(params, x_in):
-    """Projections shared by both forms. x_in: (B, S, Di)."""
+    """Projections shared by both forms. x_in: (B, S, Di).  On DTensors
+    q, k and v hand x_in partial sums over ``model`` as gradients and
+    the gates' product (its weight whole there) a whole one, taken as a
+    partial sum too (``grad_layout``), so that the four are summed
+    before the one reduction."""
     dt = x_in.dtype
     q = dot(x_in, params["wq"].to(dt))
     k = dot(x_in, params["wk"].to(dt))
     v = dot(x_in, params["wv"].to(dt))
-    gates = dot(x_in.to(torch.float32), params["w_if"]) + params["b_if"]
+    gates = dot(grad_layout(x_in, "partial").to(torch.float32),
+                params["w_if"]) + params["b_if"]
     return q, k, v, gates
 
 
@@ -92,7 +97,9 @@ def mlstm_train(params, cfg, x):
     # the group-norm over all Di: on DTensors, the heads gathered first
     h = pin_batch(merge_last(h.transpose(1, 2)))           # (B,S,Di)
     h = rms_norm(h.to(dt), params["gn"], cfg.norm_eps)     # head group-norm
-    out = h * silu(z.to(torch.float32)).to(dt)
+    # z's gradient, whole over ``model``, taken as a partial sum as x_in's
+    # is: the two are one gradient, the up projection's (``grad_layout``)
+    out = h * silu(grad_layout(z, "partial").to(torch.float32)).to(dt)
     return dot(out, params["w_down"].to(dt))
 
 

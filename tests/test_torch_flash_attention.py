@@ -1,18 +1,25 @@
 """Attention (``kernels/flash_attention.py``) against JAX's reference.
 
-The same q, k and v, built once in numpy (bfloat16 inputs rounded once by
+The same q, k and v, built once in numpy (16-bit inputs rounded once by
 JAX and handed to torch bit for bit), go through JAX's
 ``ref.attention_ref`` and through the port's ``ops.flash_attention`` on
 CPU tensors (its plain version, ``flash_attention_ref``) and the port's
-``attention_ref``, at ``atol`` 2e-5 in float32 and 2e-2 in bfloat16.  JAX's
+``attention_ref``, at ``atol`` 2e-5 in float32, 2e-2 in bfloat16 and 1e-2
+in float16 (an output of size about 1 is rounded to 2^-11 there, the P
+the plain version rounds to float16 to 2^-12 of its row's largest p; the
+largest difference over this file's float16 cases is 2^-10, one float16
+step at 1).  JAX's
 ``flash_attention_pallas`` cannot run with the installed JAX (it calls
 ``pltpu.TPUCompilerParams``, which JAX 0.9 does not have), so JAX's dense
 reference is the oracle, as it is for the JAX package's own kernel test.
 The cases are that test's (MHA, GQA 4:1, S < T, D = 128, windows 32 and
-128, non-causal) plus a ragged S = T = 200, and the head dims the card
-runs zero-padded (``pad_head_dim``): hubert-xlarge's D = 80 and the
-SMOKE configs' D = 16 and 8.  In bfloat16 the plain
-version is the tensor-core kernel's algorithm (``_plain16``); the
+128, non-causal) plus a ragged S = T = 200, the wide heads the card
+takes up to 256 (D = 160, run zero-padded to 256, and 256 itself, as
+Gemma 2's 256-wide heads; causal, windowed and non-causal, in all three
+types), and the head dims the card runs zero-padded (``pad_head_dim``):
+hubert-xlarge's D = 80, D = 200 and the SMOKE configs' D = 16 and 8.  In
+bfloat16 and float16 the plain version is the tensor-core kernel's
+algorithm (``_plain16``, its KV tile 64 keys above D = 128); the
 all-float32 ``flash_attention_ref32`` is held at 2e-5 in float32, and
 ``chip_smoke.py``'s row-wise bfloat16 limit must pass the plain bfloat16
 algorithm and reject it one KV tile off at the band's edge.  The float32
@@ -47,7 +54,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import flash_row_excess, shifted_window  # noqa: E402
 
-ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 1e-2}
+DTYPES = ["float32", "bfloat16", "float16"]
+WIDE = (160, 256)          # head dims above 128 (160 runs padded to 256)
 
 
 def _inputs(shape_q, shape_kv, dtype, seed):
@@ -60,7 +69,7 @@ def _inputs(shape_q, shape_kv, dtype, seed):
         tx = [torch.from_numpy(a) for a in arrs]
     else:
         tx = [torch.from_numpy(np.asarray(j).view(np.int16).copy())
-              .view(torch.bfloat16) for j in jx]
+              .view(getattr(torch, dtype)) for j in jx]
     return jx, tx
 
 
@@ -82,7 +91,7 @@ def _check(jx, tx, dtype, **kw):
     np.testing.assert_allclose(_f32(dense), _f32(want), atol=ATOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(
     "B,H,Hkv,S,T,D",
     [
@@ -91,21 +100,35 @@ def _check(jx, tx, dtype, **kw):
         (1, 4, 4, 64, 256, 64),      # S < T: q_offset = T - S
         (1, 2, 1, 256, 256, 128),    # D = 128
         (1, 4, 2, 200, 200, 64),     # ragged: a partial KV tile
+        (1, 4, 2, 200, 200, 160),    # wide, padded to 256 on the card
+        (1, 4, 2, 96, 200, 256),     # 256 wide, S < T, GQA
     ])
 def test_flash_attention_matches_jax(B, H, Hkv, S, T, D, dtype):
     jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + H)
     _check(jx, tx, dtype, causal=True)
 
 
-@pytest.mark.parametrize("window", [32, 128])
-def test_flash_attention_sliding_window_matches_jax(window):
-    jx, tx = _inputs((1, 2, 256, 64), (1, 2, 256, 64), "float32", window)
-    _check(jx, tx, "float32", causal=True, window=window)
+@pytest.mark.parametrize("window,D,dtype", [
+    pytest.param(32, 64, "float32", id="32"),
+    pytest.param(128, 64, "float32", id="128")] + [
+    pytest.param(w, D, dt, id=f"{w}-{D}-{dt}")
+    for w in (32, 128) for D in WIDE for dt in DTYPES])
+def test_flash_attention_sliding_window_matches_jax(window, D, dtype):
+    jx, tx = _inputs((1, 2, 256, D), (1, 2, 256, D), dtype, window + D)
+    _check(jx, tx, dtype, causal=True, window=window)
 
 
 def test_flash_attention_noncausal_matches_jax():
     jx, tx = _inputs((1, 2, 128, 64), (1, 2, 128, 64), "float32", 1)
     _check(jx, tx, "float32", causal=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", WIDE)
+def test_flash_attention_noncausal_wide_matches_jax(D, dtype):
+    """Non-causal at the wide head dims, GQA 2:1, S < T."""
+    jx, tx = _inputs((1, 4, 96, D), (1, 2, 160, D), dtype, D)
+    _check(jx, tx, dtype, causal=False)
 
 
 def test_flash_attention_window_with_offset_matches_jax():
@@ -134,19 +157,22 @@ PLAIN_CASES = [   # (B, H, Hkv, S, T, D, causal, window): the file's cases
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", PLAIN_CASES, ids=lambda c: "-".join(
-    str(x) for x in c))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", PLAIN_CASES + [
+    (1, 4, 2, 200, 200, 256, True, 0),       # 256 wide: KV tiles of 64
+    (1, 2, 2, 256, 256, 256, True, 96),
+    (1, 2, 2, 128, 128, 256, False, 0)], ids=lambda c: "-".join(
+        str(x) for x in c))
 def test_plain_versions_match_jax(case, dtype):
-    """Against JAX's dense reference at the file's atol: in bf16 the
-    tensor-core kernel's plain version (P rounded to bf16 before P V, the
-    scale folded into exp2, KV tiles of 128); in f32 the all-f32
-    ``flash_attention_ref32``, the reference a bf16 output is held
-    against."""
+    """Against JAX's dense reference at the file's atol: in bf16 and f16
+    the tensor-core kernel's plain version (P rounded to the input's type
+    before P V, the scale folded into exp2, KV tiles of 128, or 64 above
+    D = 128); in f32 the all-f32 ``flash_attention_ref32``, the reference
+    a 16-bit output is held against."""
     B, H, Hkv, S, T, D, causal, window = case
     jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + H)
     want = ref.attention_ref(*jx, causal=causal, window=window)
-    plain = flash_attention_ref if dtype == "bfloat16" else \
+    plain = flash_attention_ref if dtype != "float32" else \
         flash_attention_ref32
     got = plain(*tx, causal=causal, window=window)
     assert got.dtype == tx[0].dtype and got.shape == tx[0].shape
@@ -160,8 +186,20 @@ def test_bf16_limit_rejects_a_tile_shift(causal, window):
     passes it against the f32 reference, and the same algorithm run with
     its window one tile off at the band's edge (``shifted_window``)
     fails it."""
-    B, H, Hkv, S, T, D = 1, 4, 2, 256, 256, 64
-    _, (q, k, v) = _inputs((B, H, S, D), (B, Hkv, T, D), "bfloat16", 7)
+    _limit_rejects_a_tile_shift(causal, window, 64, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 0)])
+def test_16bit_limit_rejects_a_tile_shift_at_256(causal, window, dtype):
+    """The same limit at D = 256 (KV tiles of 64) in both 16-bit types."""
+    _limit_rejects_a_tile_shift(causal, window, 256, dtype)
+
+
+def _limit_rejects_a_tile_shift(causal, window, D, dtype):
+    B, H, Hkv, S, T = 1, 4 if D <= 128 else 2, 2 if D <= 128 else 1, 256, 256
+    _, (q, k, v) = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, 7)
     plain = flash_attention_ref(q, k, v, causal=causal, window=window)
     ref32 = flash_attention_ref32(q, k, v, causal=causal, window=window)
     fault = flash_attention_ref(q, k, v, causal=causal,
@@ -174,10 +212,12 @@ PAD_CASES = [   # (B, H, Hkv, S, T, D, causal, window): widths run padded
     (1, 16, 16, 128, 128, 80, False, 0),     # hubert-xlarge: MHA, 1280/16
     (1, 4, 2, 200, 200, 16, True, 0),        # xlstm SMOKE: 64/4, ragged
     (2, 8, 8, 128, 128, 8, True, 32),        # the SMOKE configs: 64/8
+    (1, 4, 2, 200, 200, 200, True, 64),      # 200: padded to 256
+    (1, 2, 1, 128, 160, 136, False, 0),      # 136: padded to 256
 ]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", PAD_CASES, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_padded_head_dims_match_jax(case, dtype):
@@ -196,16 +236,19 @@ def test_padded_head_dims_match_jax(case, dtype):
 
 
 def test_kernel_head_dims_and_declined_inputs():
-    """The card's domain: every D ≤ 128 in float32 and bfloat16, run at
-    64 or 128 in bfloat16 and at 64, 80 or 128 in float32; D > 128 and
-    float16 raise ``ValueError``."""
-    dims = (1, 8, 16, 63, 64, 65, 80, 81, 128)
-    assert [kernel_head_dim(D) for D in dims] == [64] * 5 + [128] * 4
-    assert [kernel_head_dim(D, torch.bfloat16) for D in dims] \
-        == [64] * 5 + [128] * 4
+    """The card's domain: every D ≤ 256 in float32, bfloat16 and float16,
+    run at 64, 128 or 256 in 16 bits and at 64, 80, 128 or 256 in
+    float32; D outside 1..256 and other types (float64) raise
+    ``ValueError``; float16 and D = 256 are taken."""
+    dims = (1, 8, 16, 63, 64, 65, 80, 81, 128, 129, 160, 200, 256)
+    wide = [256] * 4
+    assert [kernel_head_dim(D) for D in dims] == [64] * 5 + [128] * 4 + wide
+    for dt in (torch.bfloat16, torch.float16):
+        assert [kernel_head_dim(D, dt) for D in dims] \
+            == [64] * 5 + [128] * 4 + wide
     assert [kernel_head_dim(D, torch.float32) for D in dims] \
-        == [64] * 5 + [80] * 2 + [128] * 2
-    for D in (0, 129, 256):
+        == [64] * 5 + [80] * 2 + [128] * 2 + wide
+    for D in (0, 257, 512):
         with pytest.raises(ValueError, match="head dim"):
             kernel_head_dim(D)
 
@@ -213,12 +256,19 @@ def test_kernel_head_dims_and_declined_inputs():
         return (torch.zeros((1, 2, 8, D), dtype=dtype),
                 torch.zeros((1, 1, 8, D), dtype=dtype),
                 torch.zeros((1, 1, 8, D), dtype=dtype))
+    for D in (0, 257, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            check_kernel_inputs(*qkv(D, torch.float32))
+    with pytest.raises(ValueError, match="float64"):
+        check_kernel_inputs(*qkv(64, torch.float64))
     with pytest.raises(ValueError, match="head dim"):
-        check_kernel_inputs(*qkv(256, torch.float32))
-    with pytest.raises(ValueError, match="float16"):
-        check_kernel_inputs(*qkv(64, torch.float16))
-    with pytest.raises(ValueError, match="head dim"):
-        pad_head_dim(flash_attention_ref, *qkv(256, torch.float32))
+        pad_head_dim(flash_attention_ref, *qkv(257, torch.float32))
+    # taken: float16, and D = 256 in every type (the shape and type
+    # checks that need a CUDA tensor are the card's)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for D in (64, 200, 256):
+            with pytest.raises(ValueError, match="CUDA"):
+                check_kernel_inputs(*qkv(D, dt))
 
 
 def _tf32(x):
