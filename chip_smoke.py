@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
    source, in parallel) and print the build time, ptxas's register and
    spill lines and the card's name and power limit; census of the two
    attention libraries (``sm90_census``): no spill stores, and tensor-core
-   (HGMMA or HMMA) and TMA (UTMALDG) instructions in their SASS; census of
+   (HGMMA) and TMA (UTMALDG) instructions in the SASS of every kernel
+   function, each instantiation counted apart; census of
    the walk kernels' six instantiations (``walk_census``): registers, no
    spill stores, and the resident blocks per SM (what the persistent grids
    are sized by); census of ``update_fused.cu``, ``alias_build.cu`` and
@@ -32,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
    (``hist_inputs``: degrees on both sides of its 32-slot short rows) and
    ``alias_build`` over ``ALIAS_KS`` (K 1 to 64; all-zero, single-entry, equal and near-1e-30 rows); ``flash_attention`` over ``FLASH_CASES``, each case
    through the kernel of its type (float32: ``flash_attention.cu``, 3xTF32
-   wgmma, CUDA cores at D = 256; bfloat16 and float16:
+   wgmma, the output columns split over blocks past D = 256; bfloat16 and
+   float16:
    ``flash_attention_sm90.cu``; the launch counters show which),
    at its limit (``flash_limit``: float32 entry by entry within 2e-5 of
    the plain version; 16-bit row by row against the all-f32
@@ -48,8 +50,11 @@ Phases (any failure exits non-zero and prints no result line):
    own width in f32, zero-padded to 128 in bf16) and the head dims run
    zero-padded, 16 and 8 (the SMOKE configs'), the last with a window;
    float16 at D = 64, 128 (Mixtral's widths) and 256; D = 256 (Gemma 2's
-   16 over 8 heads) in every type, windowed, S < T and non-causal; and
-   D = 200 and 136, run zero-padded to 256.
+   16 over 8 heads) in every type, windowed, S < T and non-causal;
+   D = 200 and 136, run zero-padded to 256; and past 256, where the
+   output columns are split over blocks, D = 320 (run zero-padded to
+   384), 384 and 512 in every type: ragged, S < T, windowed and
+   non-causal.
 3. The main path at full size, through ``DynamicWalkEngine.run_stream``:
    an R-MAT graph of 2^20 vertices (edge factor 8) with degree biases,
    ``BingoConfig(2**20, capacity=256, bias_bits=16)``, 10 mixed rounds of
@@ -346,16 +351,17 @@ Phases (any failure exits non-zero and prints no result line):
    D = 80, non-causal) in bf16 (zero-padded to 128 by the wrapper) and
    f32 (the 80-wide instantiation); over 8,192 tokens Gemma 2 9B's (16
    over 8 heads, D = 256, window 4096) in bf16, f16 and f32, D = 200
-   (zero-padded to 256), Mixtral's widths in f16 (causal) and
-   qwen2-0.5b's (14 over 2 heads, D = 64) in all three types; the
+   (zero-padded to 256), Mixtral's widths in f16 (causal),
+   qwen2-0.5b's (14 over 2 heads, D = 64) in all three types, and
+   Gemma's heads and window at D = 512 and 384 in all three types; the
    counters zeroed just before and read just after each case;
    256 query rows of each output held
    against the dense ``attention_ref`` in f32 and the whole output
    against the plain version, at the limits of phase 2, which must reject
    the planted fault at this size; kernel times (median of 3), the FLOP
    bound (16-bit at the dense tensor-core rate; f32 three TF32 products
-   at the dense TF32 rate, the f32 kernel at D = 256 too, with the old
-   bound at the float32 CUDA-core rate printed for the record),
+   at the dense TF32 rate, with the bound at the float32 CUDA-core rate
+   printed for the record),
    and ``scaled_dot_product_attention`` on the same tensors as the
    library yardstick (a boolean mask for the window; its math backend
    where no fused one takes the input and the logits fit).
@@ -454,6 +460,25 @@ FLASH_CASES = [
     (1, 4, 2, 777, 777, 200, "float32", True, 300),
     (1, 4, 2, 600, 600, 136, "float16", False, 0),
     (1, 4, 2, 600, 600, 136, "float32", True, 0),
+    # past 256, the output columns split over blocks: 320 (run zero-padded
+    # to 384), 384 and 512 in every type; ragged, S < T, windowed and
+    # non-causal
+    (1, 4, 2, 777, 777, 320, "bfloat16", True, 300),        # ragged window
+    (1, 4, 2, 777, 777, 320, "float32", True, 300),
+    (1, 4, 2, 512, 1500, 320, "float16", True, 0),          # S < T
+    (1, 4, 2, 512, 1500, 320, "float32", True, 0),
+    (2, 4, 4, 333, 700, 320, "bfloat16", False, 0),         # non-causal
+    (2, 4, 4, 333, 700, 320, "float16", False, 0),
+    (1, 4, 2, 600, 600, 384, "bfloat16", True, 0),
+    (1, 4, 2, 600, 600, 384, "float32", False, 0),
+    (1, 16, 8, 1024, 1024, 512, "bfloat16", True, 512),     # Gemma's heads
+    (1, 16, 8, 1024, 1024, 512, "float16", True, 512),
+    (1, 16, 8, 1024, 1024, 512, "float32", True, 512),
+    (1, 4, 2, 512, 1500, 512, "bfloat16", True, 0),         # S < T
+    (1, 4, 2, 512, 1500, 512, "float32", True, 0),
+    (2, 4, 4, 333, 700, 512, "float16", False, 0),          # non-causal
+    (2, 4, 4, 333, 700, 512, "float32", False, 0),
+    (1, 4, 2, 1000, 1000, 512, "bfloat16", True, 300),      # ragged window
 ]
 # float32: |kernel - plain| <= atol + rtol * |plain|, entry by entry, to
 # the accumulation order.  The bfloat16 entry is the limit of the CUDA-core
@@ -484,8 +509,8 @@ WIDE_SEQ = 8192
 # about three such copies: Gemma's 16 heads over 8,192 tokens 4.3 GB)
 SDPA_MATH_LOGITS = 16 << 30
 # phase 3e: (name, heads, KV heads, D, S = T, type, causal, window); every
-# kernel instantiation (16-bit at 64, 128, 256; float32 at 64, 80, 128,
-# 256) and a width padded to 256 (D = 200)
+# kernel instantiation (16-bit at 64, 128, 256, 384, 512; float32 at 64,
+# 80, 128, 256, 384, 512) and a width padded to 256 (D = 200)
 ATTN_CASES = (
     ("window", ATTN_HEADS, ATTN_KV_HEADS, ATTN_DIM, ATTN_SEQ, "bfloat16",
      True, ATTN_WINDOW),
@@ -512,6 +537,20 @@ ATTN_CASES = (
      True, 0),
     ("qwen2 f32", QWEN_HEADS, QWEN_KV_HEADS, QWEN_DIM, WIDE_SEQ, "float32",
      True, 0),
+    # past 256: Gemma's heads and window at D = 512 and 384, the output
+    # columns split over two blocks (16 bits) or D / 128 (f32)
+    ("gemma d512", GEMMA_HEADS, GEMMA_KV_HEADS, 512, WIDE_SEQ, "bfloat16",
+     True, GEMMA_WINDOW),
+    ("gemma d512 f16", GEMMA_HEADS, GEMMA_KV_HEADS, 512, WIDE_SEQ,
+     "float16", True, GEMMA_WINDOW),
+    ("gemma d512 f32", GEMMA_HEADS, GEMMA_KV_HEADS, 512, WIDE_SEQ,
+     "float32", True, GEMMA_WINDOW),
+    ("gemma d384", GEMMA_HEADS, GEMMA_KV_HEADS, 384, WIDE_SEQ, "bfloat16",
+     True, GEMMA_WINDOW),
+    ("gemma d384 f16", GEMMA_HEADS, GEMMA_KV_HEADS, 384, WIDE_SEQ,
+     "float16", True, GEMMA_WINDOW),
+    ("gemma d384 f32", GEMMA_HEADS, GEMMA_KV_HEADS, 384, WIDE_SEQ,
+     "float32", True, GEMMA_WINDOW),
 )
 
 
@@ -1167,13 +1206,28 @@ def table_census():
     return out
 
 
+def attention_instance(function):
+    """A short name of an attention kernel's mangled name: the kernel and
+    its template arguments (``flash_attention_slice_kernel<256>``,
+    ``flash_attention_sm90_kernel<bf16,512,256>``)."""
+    import re
+    m = re.search(r"(flash_attention\w*_kernel)I(.*?)EEv", function)
+    if m is None:
+        return function
+    args = (["bf16"] if "bfloat16" in m.group(2) else
+            ["f16"] if "half" in m.group(2) else []) + \
+        re.findall(r"Li(\d+)E", m.group(2) + "E")
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
 def sm90_census():
-    """What nvcc made of the two attention libraries (bf16
+    """What nvcc made of the two attention libraries (bf16 and f16
     ``flash_attention_sm90``, f32 ``flash_attention``): per instantiation,
     registers and spill stores (``kernel_resources``), all spills 0; and
-    in ``cuobjdump -sass`` of each library the count of HGMMA (wgmma),
-    HMMA (mma.sync) and UTMALDG (TMA load) instructions: tensor-core
-    instructions (HGMMA, or HMMA) and TMA loads present."""
+    in ``cuobjdump -sass`` of each kernel function the count of HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions: every instantiation on
+    the tensor cores with TMA loads."""
+    import re
     from repro_torch.kernels import _build
     out = {}
     for name in ("flash_attention_sm90", "flash_attention"):
@@ -1182,16 +1236,25 @@ def sm90_census():
             [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
              str(_build._lib_path(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
-        census = {"registers": [x.get("registers") for x in res],
-                  "spill_stores": [x.get("spill_stores") for x in res],
+        parts = re.split(r"\n\s*Function : (\S+)", sass)
+        functions = {attention_instance(f): {"HGMMA": body.count("HGMMA"),
+                                             "UTMALDG": body.count("UTMALDG")}
+                     for f, body in zip(parts[1::2], parts[2::2])}
+        for x in res:
+            functions.setdefault(attention_instance(x["function"]), {}).update(
+                registers=x.get("registers"),
+                spill_stores=x.get("spill_stores"))
+        census = {"functions": functions,
                   "HGMMA": sass.count("HGMMA"), "HMMA": sass.count("HMMA"),
                   "UTMALDG": sass.count("UTMALDG")}
-        print(f"{name} census: {census}", flush=True)
+        for f, c in functions.items():
+            print(f"{name} census: {f}: {c}", flush=True)
         need(res and all(x.get("spill_stores") == 0 for x in res),
              f"{name}: spill stores {census}")
-        need(census["HGMMA"] + census["HMMA"] > 0 and census["UTMALDG"] > 0,
-             f"{name}: no tensor-core instruction or no TMA load in the "
-             f"SASS {census}")
+        need(functions and all(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0
+                               for c in functions.values()),
+             f"{name}: a kernel without a tensor-core instruction or a TMA "
+             f"load in its SASS {census}")
         out[name] = census
     return out
 
@@ -5920,7 +5983,8 @@ def attention_phase(report):
     heads, MHA, D = 80, non-causal) in bf16 (zero-padded to D = 128) and
     f32 (80 wide); over 8,192 tokens Gemma 2 9B's (D = 256, window 4096)
     in bf16, f16 and f32, D = 200 (zero-padded to 256), Mixtral's widths
-    in f16 and qwen2-0.5b's (D = 64) in all three types.  Each case is
+    in f16, qwen2-0.5b's (D = 64) in all three types and Gemma's heads
+    and window at D = 512 and 384 in all three types.  Each case is
     one launch of its instantiation (the route's counter), held against
     its plain version at its limit and, on 256 sampled rows, against the
     dense ``attention_ref`` in f32, with a planted fault that both must
@@ -6024,8 +6088,7 @@ def attention_phase(report):
         flops = 4 * D * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         # the card's peak for the type: 16-bit tensor cores; f32 to f32
-        # accuracy on the tensor cores is three TF32 products (the f32
-        # kernel at 256, which runs on the CUDA cores, too)
+        # accuracy on the tensor cores is three TF32 products
         work, rate = (flops, hw.PEAK_FLOPS_BF16) if is16 else \
             (3 * flops, hw.TC_TF32_FLOPS)
         b_ms = max(work / rate, nbytes / hw.HBM_BW) * 1e3
@@ -6123,8 +6186,8 @@ def attention_lines(out, counts):
                 else None}
 
     def pipe(dtype, width):
-        return "wgmma" if dtype != "torch.float32" else \
-            "cuda cores" if width == 256 else "wgmma 3xtf32"
+        return ("wgmma" if dtype != "torch.float32" else "wgmma 3xtf32") + (
+            ", columns split over blocks" if width > 256 else "")
     groups = {}
     for name, r in out.items():
         groups.setdefault((r["dtype"], r["width"]), []).append(name)

@@ -11,10 +11,11 @@
 // differ), not bit for bit, so this source is built without -fmad=false.
 //
 // q (B, H, S, D), k and v (B, Hkv, T, D), all float32; out (B, H, S, D)
-// float32; D in {64, 80, 128} on the tensor cores, and D = 256 on the CUDA
-// cores (``flash_attention_wide_kernel``, below); H a multiple of Hkv.  Query row i sits at
-// position qpos = i + T - S; key kpos is seen when kpos < T, kpos <= qpos
-// (causal) and kpos > qpos - window (window > 0).
+// float32; D in {64, 80, 128} (``flash_attention_kernel``) and D in {256,
+// 384, 512} (``flash_attention_slice_kernel``, below: Q split in registers,
+// and past 256 the output columns split over blocks); H a multiple of Hkv.  Query row
+// i sits at position qpos = i + T - S; key kpos is seen when kpos < T, kpos
+// <= qpos (causal) and kpos > qpos - window (window > 0).
 //
 // 3xTF32.  A tensor core reads a TF32 operand (10 mantissa bits), so each
 // float32 operand x is split once into hi = rna(x) (cvt.rna.tf32.f32) and
@@ -209,6 +210,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define D32 D16, D8(16), D8(24)
 #define D40 D32, D8(32)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                   \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
@@ -248,7 +250,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 }
 
 // O (64 x N, f32) += A (64 x 8, tf32 in registers) B (8 x N), B from shared
-// memory, K-major.
+// memory, K-major (also S (64 x 16) += Q (64 x 8) K^T (8 x 16), Q from
+// registers, in the slice kernel).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %13, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 " R8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n\t}"
+      : D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db) {
   asm volatile(
@@ -284,6 +297,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 #undef D32
 #undef D40
 #undef D64
+#undef R8
 #undef R16
 #undef R32
 #undef R40
@@ -326,35 +340,38 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
 }
 
-// The splitters' work on a landed stage: K's hi in place and its lo beside
-// it (elementwise, so the swizzle needs no address arithmetic); V (row-major
-// kBlockK x D) into V^T hi and lo, K-major in 64-byte swizzled panels of 16
-// key positions, key 8j + 2e + h at position 8j + 4h + e.  An item is four
-// keys of one parity of an 8-key step by four columns: four 16-byte reads,
-// eight 16-byte writes.
-template <int D>
-__device__ __forceinline__ void split_stage(uint8_t* stage, int tid) {
-  using L = Smem<D>;
-  constexpr int kBlockK = L::kBlockK;
-  float4* k = reinterpret_cast<float4*>(stage + L::kK);
-  float4* klo = reinterpret_cast<float4*>(stage + L::kKlo);
-  for (int i = tid; i < L::kTile / 16; i += kSplitters) split4(k + i, klo + i);
-  const float* v = reinterpret_cast<const float*>(stage + L::kV);
-  constexpr int kQuads = D / 4;
+// Split a landed tile of ``bytes`` in place (hi) and into lo at ``lo``
+// (elementwise, so the swizzle needs no address arithmetic).
+__device__ __forceinline__ void split_tile(uint8_t* x, uint8_t* lo, int bytes,
+                                           int tid) {
+  float4* hi = reinterpret_cast<float4*>(x);
+  float4* lo4 = reinterpret_cast<float4*>(lo);
+  for (int i = tid; i < bytes / 16; i += kSplitters) split4(hi + i, lo4 + i);
+}
+
+// V (row-major kBlockK x DV, as landed) into V^T hi and lo, K-major in
+// 64-byte swizzled panels of 16 key positions (DV x 64 bytes each), key
+// 8j + 2e + h at position 8j + 4h + e.  An item is four keys of one parity
+// of an 8-key step by four columns: four 16-byte reads, eight 16-byte
+// writes.
+template <int DV, int kBlockK>
+__device__ __forceinline__ void split_v(const float* v, uint8_t* vhi, uint8_t* vlo,
+                                        int tid) {
+  constexpr int kQuads = DV / 4, kVPanel = DV * 64;
   for (int i = tid; i < kQuads * (kBlockK / 4); i += kSplitters) {
     const int q = i % kQuads, g = i / kQuads;        // columns 4q.., group g
     const int j = g / 2, h = g % 2;                  // 8-key step j, parity h
     float x[4][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float4 r = *reinterpret_cast<const float4*>(v + (8 * j + 2 * e + h) * D + 4 * q);
+      const float4 r = *reinterpret_cast<const float4*>(v + (8 * j + 2 * e + h) * DV + 4 * q);
       x[e][0] = r.x;
       x[e][1] = r.y;
       x[e][2] = r.z;
       x[e][3] = r.w;
     }
     const int pos = 8 * j + 4 * h;                   // 4 positions, one chunk
-    const int panel = (pos / kPanel) * L::kVPanel, chunk = (pos % kPanel) / 4;
+    const int panel = (pos / kPanel) * kVPanel, chunk = (pos % kPanel) / 4;
 #pragma unroll
     for (int dd = 0; dd < 4; ++dd) {
       const int n = 4 * q + dd;                      // the row of V^T
@@ -362,10 +379,62 @@ __device__ __forceinline__ void split_stage(uint8_t* stage, int tid) {
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) split(x[e][dd], hi[e], lo[e]);
-      *reinterpret_cast<uint4*>(stage + L::kVhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(stage + L::kVlo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(vhi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(vlo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   }
+}
+
+// One KV tile's scores into P.  ``sc`` is S's accumulator fragment: this
+// thread's rows qpos[0] and qpos[1] (r and r + 8), keys j0 + 8 (i / 4) + col
+// + (i & 1).  Scaled into the exp2 domain, masked only where the tile
+// crosses the band's edge or the end of the keys (``edge``); the online
+// softmax's m and l updated, ``corr`` the factor on O; P split into the A
+// fragments of the kBlockK / 8 steps of P V: step j takes (row r, key 2c),
+// (r + 8, 2c), (r, 2c + 1), (r + 8, 2c + 1).
+template <int kBlockK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBlockK / 2], bool edge,
+                                             int j0, const int (&qpos)[2], int col,
+                                             int Tk, int causal, int window,
+                                             float scale_log2, float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             uint32_t (&phi)[kBlockK / 8][4],
+                                             uint32_t (&plo)[kBlockK / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i) {
+    float x = sc[i] * scale_log2;
+    if (edge) {
+      const int kpos = j0 + 8 * (i / 4) + col + (i & 1);
+      const int qp = qpos[(i >> 1) & 1];
+      const bool ok = kpos < Tk && (!causal || kpos <= qp) &&
+                      (window <= 0 || kpos > qp - window);
+      if (!ok) x = kNegInf;
+    }
+    sc[i] = x;
+  }
+  // online softmax of rows r (h = 0) and r + 8 (h = 1)
+  float mx[2] = {kNegInf, kNegInf}, psum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], quad_max(mx[h]));
+    corr[h] = exp2f(m[h] - mn);
+    m[h] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = 4 * j + (a == 1 ? 2 : a == 2 ? 1 : a);
+      const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
+      psum[(i >> 1) & 1] += p;
+      split(p, phi[j][a], plo[j][a]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
 }
 
 template <int D>
@@ -433,7 +502,10 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int t = t_lo; t < t_hi; ++t) {
       const int it = t - t_lo, s = it % kStages;
       mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
-      split_stage<D>(base_ptr + L::kStage0 + s * L::kStage, tid);
+      uint8_t* st = base_ptr + L::kStage0 + s * L::kStage;
+      split_tile(st + L::kK, st + L::kKlo, L::kTile, tid);
+      split_v<D, kBlockK>(reinterpret_cast<const float*>(st + L::kV), st + L::kVhi,
+                          st + L::kVlo, tid);
       fence_async_smem();
       mbar_arrive(bar_ready + 8 * s);
     }
@@ -484,50 +556,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     fence_regs(sc);
 
-    // scale into the exp2 domain; mask only a tile that crosses the band's
-    // edge or the end of the keys
+    // mask only a tile that crosses the band's edge or the end of the keys
     const bool edge = j0 + kBlockK > Tk || (causal && j0 + kBlockK - 1 > i0 + off) ||
                       (window > 0 && j0 <= last + off - window);
-#pragma unroll
-    for (int i = 0; i < kBlockK / 2; ++i) {
-      float x = sc[i] * scale_log2;
-      if (edge) {
-        const int kpos = j0 + 8 * (i / 4) + col + (i & 1);
-        const int qp = qpos[(i >> 1) & 1];
-        const bool ok = kpos < Tk && (!causal || kpos <= qp) &&
-                        (window <= 0 || kpos > qp - window);
-        if (!ok) x = kNegInf;
-      }
-      sc[i] = x;
-    }
-
-    // online softmax of rows r (h = 0) and r + 8 (h = 1)
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int i = 0; i < kBlockK / 2; ++i)
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    float corr[2], psum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], quad_max(mx[h]));
-      corr[h] = exp2f(m[h] - mn);
-      m[h] = mn;
-    }
-    // P split into the A fragments of the kBlockK / 8 steps of P V: step j
-    // takes (row r, key 2c), (r + 8, 2c), (r, 2c + 1), (r + 8, 2c + 1)
+    float corr[2];
     uint32_t phi[kBlockK / 8][4], plo[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = 4 * j + (a == 1 ? 2 : a == 2 ? 1 : a);
-        const float p = exp2f(sc[i] - m[(i >> 1) & 1]);
-        psum[(i >> 1) & 1] += p;
-        split(p, phi[j][a], plo[j][a]);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
+    softmax_tile<kBlockK>(sc, edge, j0, qpos, col, Tk, causal, window, scale_log2,
+                          m, l, corr, phi, plo);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
@@ -563,176 +598,284 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// D = 256 on the CUDA cores.  The 3xTF32 layout above cannot hold so wide
-// a head: its Q hi and lo panels alone would take 128 KB, and one stage five
-// kBlockK x 256 x 4-byte tiles.  This kernel is the float32 route's first
-// at that width, right before fast: one block per (b * H + h, 32-row query
-// tile), heaviest first, 256 threads, 8 a query row.  It stages the query
-// tile (scaled by ``scale`` in float32, as the plain version scales q) and
-// each 32-key K and V tile in shared memory (rows padded to 260 floats, so
-// the eight threads of a row read eight keys' 16-byte words on distinct
-// banks), computes each thread's 4 scores of its row in float32 FMAs,
-// runs the online softmax in the natural exp with the row's max over its 8
-// threads (shuffles), writes P to shared memory and accumulates its 32 of
-// the row's 256 outputs over the tile's keys.  Masked scores are -1e30 and
-// tiles outside the band are skipped, as above.  Bound on this card:
-// operations, 4 D FLOPs per unmasked pair at the CUDA cores' float32 rate;
-// what it leaves: no tensor cores, no overlap of a tile's loads with the
-// previous tile's products (one buffer), and P through shared memory.
-constexpr int kWideD = 256;
-constexpr int kWideQ = 32;                   // query rows per block
-constexpr int kWideK = 32;                   // keys per tile
-constexpr int kWideThreads = 256;            // 8 a query row
-constexpr int kWideRow = kWideD + 4;         // a padded row, in floats
-constexpr int kWideP = kWideK + 1;           // a padded row of P
-constexpr int kWideBytes =
-    4 * (kWideQ * kWideRow + 2 * kWideK * kWideRow + kWideQ * kWideP);
+// D = 256, 384 and 512 (``flash_attention_slice_kernel``).  The layout
+// above cannot hold so wide a head: at 256 its Q hi and lo panels alone
+// would take 128 KB, a stage five 32 x 256 x 4-byte tiles.  Here Q stays as
+// it landed (float32, 64-byte swizzled panels of 16 columns, 64 x D x 4
+// bytes, half of a hi and lo copy): each consumer thread reads its A
+// fragment of an 8-column step from it, splits it into hi and lo in
+// registers and runs S = Qlo Khi + Qhi Klo + Qhi Khi as wgmma m64n16k8 with
+// Q from registers.  A wgmma reads its A registers until it is waited for,
+// so S goes in groups of kGroup = 8 steps (64 columns), each waited for
+// before the next group's Q is split: without the wait, ptxas gave a
+// group's registers to the next group's Q while its products were still
+// in flight (wrong sums at a 128-column slice, right ones at 256, on an
+// H100; PERF.md).  S sums into four accumulators (the small terms
+// and the large, even steps and odd apart), each taking at most D / 8
+// rounded wgmma sums, and adds them at the end.  K streams whole (kBlockK
+// x D, split by the splitters in place and into lo), V as a kBlockK x DV
+// slice of columns (V^T hi and lo, as above).  K and V have barriers of
+// their own (full, ready, empty), so with one stage the next tile's K lands
+// and is split while the consumers run P V, and its V while they run S.
+//
+// A block owns DV output columns of a (head, 64-row query tile), computes S
+// over the whole of D and accumulates P V over its columns only, in
+// 128-column m64n128k8 chunks: DV = 256 at D = 256 (one block a tile, S
+// once; 250 registers a thread, no spills), DV = 128 at 384 and 512 (the
+// shared memory below has no room for 256 columns of V there), so S is
+// computed D / 128 times: 3 x (2 D (D / 128) + 2 x 128) FLOPs a (query,
+// key) pair at 512, against the 3 x 4 D of the bound.
+//
+// Shared memory (232,448 bytes a block at most): Q 64 x D x 4; a stage K
+// and K lo 2 x 16 x D x 4, V, V^T hi and lo 3 x 16 x DV x 4.  D = 256:
+// 64 + 2 x (32 + 48) = 224 KB (230,504 bytes with the barriers and the
+// 1,024-byte alignment), 2 stages.  D = 384: 96 + 72 = 168 KB, 1 stage (2
+// would need 240).  D = 512: 128 + 88 = 216 KB, 1 stage.  32 keys a tile
+// would not fit at 256 with DV = 256, nor at 512.  Bound as above; what this
+// first version leaves: S m64n16k8 is the smallest wgmma worth issuing, Q
+// is split again for every KV tile (4 shared loads and 6 conversions a
+// thread an 8-column step), each group of S waits for its products, and at
+// 384 and 512 S is computed D / 128 times.
+template <int D, int DV>
+struct Slice {
+  static constexpr int kBlockK = 16;                   // keys a tile
+  static constexpr int kSlices = D / DV;
+  static constexpr int kQ = kBlockQ * D * 4;           // Q as landed
+  static constexpr int kKTile = kBlockK * D * 4;
+  static constexpr int kVTile = kBlockK * DV * 4;
+  static constexpr int kQPanel = kBlockQ * 64;         // bytes of a Q panel
+  static constexpr int kKPanel = kBlockK * 64;         // bytes of a K panel
+  static constexpr int kVPanel = DV * 64;              // of a V^T panel (16 keys)
+  // a stage: K (hi in place), K lo, V as landed, V^T hi, V^T lo
+  static constexpr int kK = 0, kKlo = kKTile, kV = 2 * kKTile, kVhi = kV + kVTile,
+                       kVlo = kVhi + kVTile, kStage = kVlo + kVTile;
+  static constexpr int kStage0 = kQ;
+  // barriers: Q; per stage K full, ready, empty and V full, ready, empty;
+  // and room to round the dynamic base up to 1024 bytes
+  static constexpr int kStages =
+      kStage0 + 2 * kStage + 8 * (1 + 6 * 2) + 1024 <= 232448 ? 2 : 1;
+  static constexpr int kBar = kStage0 + kStages * kStage;
+  static constexpr int kBytes = kBar + 8 * (1 + 6 * kStages) + 1024;
+  static_assert(D % DV == 0 && DV % 128 == 0 && kBlockK == 16,
+                "128-column chunks of O, one V^T panel a tile");
+  static_assert(kBytes <= 232448, "a block's shared memory");
+  static_assert(kQPanel % 512 == 0 && kKTile % 512 == 0 && kKPanel % 512 == 0 &&
+                    kVTile % 512 == 0,
+                "every panel starts on the 512-byte period of the swizzle");
+};
 
-// rows [r0, r0 + n) of a (rows, 256) float32 matrix into shared memory
-// (padded rows), ``scale`` times; rows past ``rows`` are zeros
-__device__ __forceinline__ void wide_load(float* dst, const float* src, int r0,
-                                          int rows, int n, float scale) {
-  for (int i = threadIdx.x; i < n * (kWideD / 4); i += kWideThreads) {
-    const int r = i / (kWideD / 4), c = 4 * (i % (kWideD / 4));
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < rows) {
-      x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * kWideD + c);
-      x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
-    }
-    *reinterpret_cast<float4*>(dst + r * kWideRow + c) = x;
-  }
-}
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_slice_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             float* __restrict__ out, int H, int Hkv, int S,
+                             int Tk, int causal, int window, float scale_log2) {
+  using L = Slice<D, DV>;
+  constexpr int kBlockK = L::kBlockK, kStages = L::kStages;
+  constexpr int kGroup = 8;                 // 8-column steps of S a wait
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base_ptr = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_addr(base_ptr);
+  const uint32_t sQ = base, sStage = base + L::kStage0;
+  const uint32_t bar_q = base + L::kBar;
+  // K full, ready, empty; V full, ready, empty; each + 8 * stage
+  const uint32_t bar_kf = bar_q + 8, bar_kr = bar_kf + 8 * kStages,
+                 bar_ke = bar_kr + 8 * kStages, bar_vf = bar_ke + 8 * kStages,
+                 bar_vr = bar_vf + 8 * kStages, bar_ve = bar_vr + 8 * kStages;
 
-__device__ __forceinline__ float group8_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 4));
-}
-
-__device__ __forceinline__ float group8_sum(float x) {
-  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
-  x += __shfl_xor_sync(0xFFFFFFFFu, x, 2);
-  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 4);
-}
-
-__global__ void __launch_bounds__(kWideThreads)
-flash_attention_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ out,
-                            int H, int Hkv, int S, int Tk, int causal, int window,
-                            float scale) {
-  extern __shared__ float4 wide_raw[];
-  float* sQ = reinterpret_cast<float*>(wide_raw);
-  float* sK = sQ + kWideQ * kWideRow;
-  float* sV = sK + kWideK * kWideRow;
-  float* sP = sV + kWideK * kWideRow;
-
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / L::kSlices;
+  const int c0 = (blockIdx.x % L::kSlices) * DV;   // the block's first column
   const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int i0 = (gridDim.y - 1 - blockIdx.y) * kWideQ;
-  const int r = threadIdx.x / 8, g = threadIdx.x % 8;   // row, place in it
-  const int off = Tk - S;
-  const int qp = i0 + r + off;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int warp = threadIdx.x / 32;
 
-  const int last = min(i0 + kWideQ, S) - 1;
+  // the KV tiles that meet the band of this query tile
+  const int off = Tk - S;
+  const int last = min(i0 + kBlockQ, S) - 1;
   const int kend = causal ? min(Tk, last + off + 1) : Tk;
   const int kbeg = window > 0 ? max(0, i0 + off - window + 1) : 0;
-  const int t_lo = kbeg / kWideK;
-  const int t_hi = kend > kbeg ? (kend + kWideK - 1) / kWideK : t_lo;
+  const int t_lo = kbeg / kBlockK;
+  const int t_hi = kend > kbeg ? (kend + kBlockK - 1) / kBlockK : t_lo;
 
-  const float* kh = k + static_cast<size_t>(kvh) * Tk * kWideD;
-  const float* vh = v + static_cast<size_t>(kvh) * Tk * kWideD;
-  wide_load(sQ, q + static_cast<size_t>(bh) * S * kWideD, i0, S, kWideQ, scale);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_kf + 8 * s, 1);
+      mbar_init(bar_kr + 8 * s, kSplitters);
+      mbar_init(bar_ke + 8 * s, kConsumers);
+      mbar_init(bar_vf + 8 * s, 1);
+      mbar_init(bar_vr + 8 * s, kSplitters);
+      mbar_init(bar_ve + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  float o[kWideD / 8];      // columns 4 g + 32 j + (0..3) of row r
-  float m = kNegInf, l = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kWideD / 8; ++i) o[i] = 0.0f;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int j0 = t * kWideK;
-    __syncthreads();                       // the last tile's K, V and P read
-    wide_load(sK, kh, j0, Tk, kWideK, 1.0f);
-    wide_load(sV, vh, j0, Tk, kWideK, 1.0f);
-    __syncthreads();
-
-    // scores of keys j0 + g + 8 j, j < 4
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const float* qr = sQ + r * kWideRow;
-#pragma unroll 4
-    for (int d = 0; d < kWideD; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qr + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(sK + (g + 8 * j) * kWideRow + d);
-        s[j] = fmaf(a.x, b.x, s[j]);
-        s[j] = fmaf(a.y, b.y, s[j]);
-        s[j] = fmaf(a.z, b.z, s[j]);
-        s[j] = fmaf(a.w, b.w, s[j]);
+  if (warp == 4) {                        // TMA, from one lane
+    if (threadIdx.x % 32 == 0) {
+      mbar_expect_tx(bar_q, L::kQ);
+      for (int p = 0; p < D / kPanel; ++p)
+        tma_load(sQ + p * L::kQPanel, &tm_q, bar_q, p * kPanel, i0, bh);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int it = t - t_lo, s = it % kStages;
+        const uint32_t st = sStage + s * L::kStage, reuse = (it / kStages - 1) & 1;
+        if (it >= kStages) mbar_wait(bar_ke + 8 * s, reuse);
+        mbar_expect_tx(bar_kf + 8 * s, L::kKTile);
+        for (int p = 0; p < D / kPanel; ++p)
+          tma_load(st + L::kK + p * L::kKPanel, &tm_k, bar_kf + 8 * s, p * kPanel,
+                   t * kBlockK, kvh);
+        if (it >= kStages) mbar_wait(bar_ve + 8 * s, reuse);
+        mbar_expect_tx(bar_vf + 8 * s, L::kVTile);
+        tma_load(st + L::kV, &tm_v, bar_vf + 8 * s, c0, t * kBlockK, kvh);
       }
     }
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kpos = j0 + g + 8 * j;
-      const bool ok = kpos < Tk && (!causal || kpos <= qp) &&
-                      (window <= 0 || kpos > qp - window);
-      if (!ok) s[j] = kNegInf;
-      mx = fmaxf(mx, s[j]);
+    return;
+  }
+  if (warp > 4) {                         // the splitters
+    const int tid = threadIdx.x - 5 * 32;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int it = t - t_lo, s = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      uint8_t* st = base_ptr + L::kStage0 + s * L::kStage;
+      mbar_wait(bar_kf + 8 * s, parity);
+      split_tile(st + L::kK, st + L::kKlo, L::kKTile, tid);
+      fence_async_smem();
+      mbar_arrive(bar_kr + 8 * s);
+      mbar_wait(bar_vf + 8 * s, parity);
+      split_v<DV, kBlockK>(reinterpret_cast<const float*>(st + L::kV),
+                           st + L::kVhi, st + L::kVlo, tid);
+      fence_async_smem();
+      mbar_arrive(bar_vr + 8 * s);
     }
-    const float mn = fmaxf(m, group8_max(mx));
-    const float corr = expf(m - mn);
-    m = mn;
-    float psum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = expf(s[j] - mn);
-      psum += p;
-      sP[r * kWideP + g + 8 * j] = p;
-    }
-    l = l * corr + psum;
-#pragma unroll
-    for (int i = 0; i < kWideD / 8; ++i) o[i] *= corr;
-    __syncthreads();
-
-    const float* pr = sP + r * kWideP;
-    for (int c = 0; c < kWideK; ++c) {
-      const float p = pr[c];
-      const float* vr = sV + c * kWideRow + 4 * g;
-#pragma unroll
-      for (int j = 0; j < kWideD / 32; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(vr + 32 * j);
-        o[4 * j] = fmaf(p, b.x, o[4 * j]);
-        o[4 * j + 1] = fmaf(p, b.y, o[4 * j + 1]);
-        o[4 * j + 2] = fmaf(p, b.z, o[4 * j + 2]);
-        o[4 * j + 3] = fmaf(p, b.w, o[4 * j + 3]);
-      }
-    }
+    return;
   }
 
-  const float den = fmaxf(group8_sum(l), 1e-30f);
-  const int row = i0 + r;
-  if (row >= S) return;
-  float* dst = out + (static_cast<size_t>(bh) * S + row) * kWideD + 4 * g;
-#pragma unroll
-  for (int j = 0; j < kWideD / 32; ++j)
-    *reinterpret_cast<float4*>(dst + 32 * j) =
-        make_float4(o[4 * j] / den, o[4 * j + 1] / den, o[4 * j + 2] / den,
-                    o[4 * j + 3] / den);
-}
+  // a consumer: warp w holds query rows 16 w .. 16 w + 15 of the tile; this
+  // thread holds rows r and r + 8 and, of each 8-column block, columns
+  // 2 (lane % 4) and the next; of Q's 8-column steps it reads columns
+  // lane % 4 and lane % 4 + 4 of rows r and r + 8 (the A fragment), word
+  // lane % 4 of 16-byte chunk (2 e or 2 e + 1) ^ swz of a row's 64 bytes
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int row = i0 + r0;
+  const int qpos[2] = {row + off, row + 8 + off};
+  const int col = 2 * (lane % 4);
+  const int swz = (r0 >> 1) & 3;
+  const float* q_words = reinterpret_cast<const float*>(base_ptr) + r0 * 16 + lane % 4;
 
-int launch_wide(const void* q, const void* k, const void* v, void* out, int B,
-                int H, int Hkv, int S, int Tk, int causal, int window, float scale,
-                cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_wide_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kWideBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(B) * H, (S + kWideQ - 1) / kWideQ);
-  flash_attention_wide_kernel<<<grid, kWideThreads, kWideBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, Hkv, S, Tk,
-      causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  // O in 128-column chunks, each the accumulator of one m64n128k8
+  float o[DV / 128][64];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < DV / 128; ++c)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[c][i] = 0.0f;
+  mbar_wait(bar_q, 0);
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int it = t - t_lo, s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const uint32_t st = sStage + s * L::kStage;
+    const int j0 = t * kBlockK;
+
+    // S = Qlo Khi + Qhi Klo + Qhi Khi, kGroup 8-column steps of D at a
+    // time, into four accumulators: the small terms and the large, the even
+    // steps and the odd apart, so no accumulator takes more than D / 8 of
+    // the sums (each wgmma rounds its sum into the accumulator) and four
+    // products are in flight.  A wgmma reads its A registers until it is
+    // waited for, so each group's products are waited for before the next
+    // group's Q is split into registers.
+    float small[2][kBlockK / 2], large[2][kBlockK / 2];
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i)
+      small[0][i] = small[1][i] = large[0][i] = large[1][i] = 0.0f;
+    mbar_wait(bar_kr + 8 * s, parity);
+    for (int k0 = 0; k0 < D / 8; k0 += kGroup) {
+      uint32_t hi[kGroup][4], lo[kGroup][4];
+#pragma unroll
+      for (int e = 0; e < kGroup; ++e) {
+        const int k8 = k0 + e;                       // columns 8 k8 ..
+        const float* qp = q_words + (k8 / 2) * (L::kQPanel / 4);
+        const int w0 = ((2 * (k8 % 2)) ^ swz) * 4, w1 = ((2 * (k8 % 2) + 1) ^ swz) * 4;
+        split(qp[w0], hi[e][0], lo[e][0]);          // row r, column c
+        split(qp[128 + w0], hi[e][1], lo[e][1]);    // row r + 8
+        split(qp[w1], hi[e][2], lo[e][2]);          // row r, column c + 4
+        split(qp[128 + w1], hi[e][3], lo[e][3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int e = 0; e < kGroup; ++e) {
+        const int k8 = k0 + e;
+        const uint32_t kb = st + L::kK + (k8 / 2) * L::kKPanel + (k8 % 2) * 32;
+        wgmma_rs(small[e % 2], lo[e], sw64_desc(kb));
+        wgmma_rs(large[e % 2], hi[e], sw64_desc(kb));
+        wgmma_rs(small[e % 2], hi[e], sw64_desc(kb + (L::kKlo - L::kK)));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+    }
+    float sc[kBlockK / 2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      fence_regs(small[e]);
+      fence_regs(large[e]);
+    }
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i)
+      sc[i] = (small[0][i] + small[1][i]) + (large[0][i] + large[1][i]);
+    mbar_arrive(bar_ke + 8 * s);
+
+    const bool edge = j0 + kBlockK > Tk || (causal && j0 + kBlockK - 1 > i0 + off) ||
+                      (window > 0 && j0 <= last + off - window);
+    float corr[2];
+    uint32_t phi[kBlockK / 8][4], plo[kBlockK / 8][4];
+    softmax_tile<kBlockK>(sc, edge, j0, qpos, col, Tk, causal, window, scale_log2,
+                          m, l, corr, phi, plo);
+#pragma unroll
+    for (int c = 0; c < DV / 128; ++c)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[c][i] *= corr[(i >> 1) & 1];
+
+    // O += Plo Vhi + Phi Vlo + Phi Vhi over the tile's kBlockK / 8 steps, a
+    // 128-column chunk (128 rows of V^T, 64 bytes each) at a time
+    mbar_wait(bar_vr + 8 * s, parity);
+#pragma unroll
+    for (int c = 0; c < DV / 128; ++c) fence_regs(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int term = 0; term < 3; ++term) {
+      const uint32_t vb = st + (term == 1 ? L::kVlo : L::kVhi);
+#pragma unroll
+      for (int c = 0; c < DV / 128; ++c)
+#pragma unroll
+        for (int j = 0; j < kBlockK / 8; ++j)
+          wgmma_rs(o[c], term == 0 ? plo[j] : phi[j],
+                   sw64_desc(vb + c * 128 * 64 + (j / 2) * L::kVPanel + (j % 2) * 32));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DV / 128; ++c) fence_regs(o[c]);
+    mbar_arrive(bar_ve + 8 * s);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) den[h] = fmaxf(quad_sum(l[h]), 1e-30f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= S) continue;
+    float* dst = out + (static_cast<size_t>(bh) * S + r) * D + c0 + col;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const float* oc = o[n / 16];
+      const int j = 4 * (n % 16) + 2 * h;
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(oc[j] / den[h],
+                                                            oc[j + 1] / den[h]);
+    }
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -803,13 +946,36 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int DV>
+int launch_slice(const void* q, const void* k, const void* v, void* out, int B,
+                 int H, int Hkv, int S, int Tk, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  using L = Slice<D, DV>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, D, S, B * H, kPanel, kBlockQ, true) ||
+      !make_map(&tk, k, D, Tk, B * Hkv, kPanel, L::kBlockK, true) ||
+      !make_map(&tv, v, D, Tk, B * Hkv, DV, L::kBlockK, false))
+    return kEncodeFailed;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_slice_kernel<D, DV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       L::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // a (head, column slice) pair per x, the slices of a head side by side
+  const dim3 grid(static_cast<unsigned>(B) * H * L::kSlices, (S + kBlockQ - 1) / kBlockQ);
+  flash_attention_slice_kernel<D, DV><<<grid, kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), H, Hkv, S, Tk, causal, window,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int H, int Hkv, int S,
                                       int Tk, int D, int causal, int window,
                                       float scale, cudaStream_t stream) {
-  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 80 && D != 128 && D != 256))
+  if (Hkv < 1 || H % Hkv != 0 ||
+      (D != 64 && D != 80 && D != 128 && D != 256 && D != 384 && D != 512))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   if (Tk == 0)        // no key: every row is 0 / max(0, 1e-30)
@@ -820,10 +986,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
       return launch<64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
     case 80:
       return launch<80>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
-    case 256:
-      return launch_wide(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
-    default:
+    case 128:
       return launch<128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale, stream);
+    case 256:
+      return launch_slice<256, 256>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale,
+                               stream);
+    case 384:
+      return launch_slice<384, 128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale,
+                               stream);
+    default:
+      return launch_slice<512, 128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window, scale,
+                               stream);
   }
 }
 

@@ -13,12 +13,13 @@
 // The two differ in the order of the float32 sums only.
 //
 // q (B, H, S, D), k and v (B, Hkv, T, D), all bfloat16 or all float16; out
-// (B, H, S, D) in their type; D in {64, 128, 256}; H a multiple of Hkv.
+// (B, H, S, D) in their type; D in {64, 128, 256, 384, 512}; H a multiple of
+// Hkv.
 // Query row i sits at position qpos = i + T - S; key kpos is seen when
 // kpos < T, kpos <= qpos (causal) and kpos > qpos - window (window > 0).
 //
-// Design.  One block per (b * H + h, 128-row query tile), heaviest tiles
-// first: two consumer warpgroups of 64 query rows each and one producer
+// Design.  One block per (b * H + h, slice of DV output columns, 128-row
+// query tile), heaviest tiles first: two consumer warpgroups of 64 query rows each and one producer
 // warpgroup, which hands its registers to the consumers (setmaxnreg: 40
 // a thread there, 232 in a consumer).  The producer's first thread loads
 // the query tile once and streams K
@@ -27,25 +28,43 @@
 // reads zeros and never the next head), 128-byte swizzled in 64-column
 // panels; each stage has a K barrier, a V barrier and an "empty" barrier
 // that every consumer thread arrives on once it is done with the stage.
-// A consumer warpgroup computes S = Q K^T with wgmma m64n{kBlockK}k16 (Q
-// and K read from shared memory, K-major), keeps S in registers, applies
+// A consumer warpgroup computes S = Q K^T over the whole of D with wgmma
+// m64n{kBlockK}k16 (Q and K read from shared memory, K-major, a 64-column
+// panel at a time), keeps S in registers, applies
 // the mask only on tiles that cross the band's edge or T, runs the online
 // softmax in the exp2 domain with the scale folded into the exponent (q is
 // never rounded after scaling), rounds P to the input's type in registers
 // (the accumulator's fragment is the A operand's register fragment) and
 // accumulates O += P V with wgmma m64nNk16 over 128-column (or 64-column)
-// chunks of D, V read from shared memory MN-major through the transpose
-// bit.  m and l stay in registers; l is the sum of the float32 p.  The
+// chunks of its DV columns, V read from shared memory MN-major through the
+// transpose bit.  m and l stay in registers; l is the sum of the float32 p.  The
 // epilogue writes acc / max(l, 1e-30) for rows < S.  KV tiles wholly
 // outside the causal/window band are skipped, which is exact (see
 // csrc/flash_attention.cu).
 //
-// Shared memory (227 KB a block at most): Q 128 x D x 2 bytes; a stage
-// holds a K and a V tile of kBlockK x D x 2 bytes.  D <= 128: kBlockK 128,
-// 2 stages (D = 128: 32 + 2 x 64 = 160 KB).  D = 256: kBlockK 64, 2
-// stages: 64 + 2 x 64 = 192 KB (128 keys would need 64 + 2 x 128); S is
-// then m64n64k16 (32 registers a thread) beside the 64 x 256 float32 O
-// accumulator of each warpgroup (128 registers a thread).
+// Past D = 256 the output columns are split over blocks (DV = D / 2: 192
+// at 384, 256 at 512): a 64 x DV float32 O accumulator takes DV / 2
+// registers a consumer thread, and 64 x 384 (192 registers) beside S and P
+// would not fit the 232 a consumer has.  Each block of a (head, query tile)
+// computes the same S over the whole of D and accumulates P V over its own
+// columns only, so S is computed D / DV = 2 times: 6 D FLOPs a (query, key)
+// pair against the 4 D of the function.  (The other design, one block whose
+// two warpgroups each own half of O's columns and share P through shared
+// memory, computes S once, but its 64 query rows a block would halve the
+// reuse of every K and V tile, and the two warpgroups would wait on each
+// other every tile.)
+//
+// Shared memory (227 KB, 232,448 bytes, a block at most): Q 128 x D x 2
+// bytes; a stage holds a K tile of kBlockK x D and a V tile of kBlockK x DV,
+// 2 bytes each.  D <= 128: kBlockK 128, 2 stages (D = 128: 32 + 2 x 64 =
+// 160 KB).  D = 256: kBlockK 64, 2 stages: 64 + 2 x 64 = 192 KB (128 keys
+// would need 64 + 2 x 128); S is then m64n64k16 (32 registers a thread)
+// beside the 64 x 256 float32 O accumulator of each warpgroup (128
+// registers a thread).  D = 512: Q alone is 128 KB, so kBlockK 32: a stage
+// is 32 KB of K and 16 KB of V, and 128 + 2 x 48 = 224 KB (229,376 bytes,
+// 230,456 with the barriers and the 1,024-byte alignment); 64 keys would
+// need 128 + 2 x 96.  D = 384: kBlockK 32, 96 + 2 x 36 = 168 KB.  S is
+// m64n32k16 there (16 registers a thread).
 //
 // Bound on this card: operations, 4 D FLOPs per unmasked (query, key) pair
 // at the dense 16-bit tensor-core rate.  What this first tensor-core
@@ -76,18 +95,22 @@ constexpr int kPanel = 64;                // 16-bit columns of a 128-byte panel
 constexpr float kNegInf = -1e30f;
 constexpr int kEncodeFailed = -1;         // returned when a tensor map fails
 
-template <int D>
+// D: the head dim, the depth of S; DV: the output columns of one block.
+template <int D, int DV>
 struct Smem {
-  static constexpr int kBlockK = D > 128 ? 64 : 128;  // keys per K/V tile
-  static constexpr int kPanels = D / kPanel;
+  static_assert(D % DV == 0 && DV % kPanel == 0 && DV <= 256, "column slices");
+  static constexpr int kBlockK = D > 256 ? 32 : D > 128 ? 64 : 128;  // keys a tile
+  static constexpr int kPanels = D / kPanel;          // of Q and of K
+  static constexpr int kVPanels = DV / kPanel;        // of V: the block's columns
   static constexpr int kQPanel = kBlockQ * 128;       // bytes of a Q panel
   static constexpr int kKPanel = kBlockK * 128;       // bytes of a K or V panel
   static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kTile = kPanels * kKPanel;     // one K or V tile
+  static constexpr int kKTile = kPanels * kKPanel;    // one K tile
+  static constexpr int kVTile = kVPanels * kKPanel;   // one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBar = kV + kStages * kVTile;
   // barriers: Q, K full x kStages, V full x kStages, empty x kStages; and
   // room to round the dynamic base up to 1024 bytes (the swizzle's period)
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
@@ -169,8 +192,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define D8(i)                                                                 \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D32 D8(0), D8(8), D8(16), D8(24)
+#define D16 D8(0), D8(8)
+#define D32 D16, D8(16), D8(24)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
@@ -205,6 +230,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
                    : D32                                                       \
                    : "l"(da), "l"(db), "r"(accumulate));                       \
     }                                                                          \
+    /* S (64 x 32) (+)= A (64 x 16) B (16 x 32), as above */                   \
+    static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,     \
+                                              uint64_t db, int accumulate) {   \
+      asm volatile("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"         \
+                   "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY " " R16    \
+                   ", %16, %17, p, 1, 1, 0, 0;\n\t}"                            \
+                   : D16                                                       \
+                   : "l"(da), "l"(db), "r"(accumulate));                       \
+    }                                                                          \
     /* O (64 x 128, f32) += A (64 x 16, registers) B (16 x 128): B from        \
        shared memory, MN-major (the transpose bit) */                          \
     static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t* a, \
@@ -233,8 +267,10 @@ FLASH_WGMMA(WgmmaF16, "f16.f16")
 #undef FLASH_WGMMA
 
 #undef D8
+#undef D16
 #undef D32
 #undef D64
+#undef R16
 #undef R32
 #undef R64
 
@@ -273,17 +309,18 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             T* __restrict__ out, int H, int Hkv, int S, int Tk,
                             int causal, int window, float scale_log2) {
-  using L = Smem<D>;
+  using L = Smem<D, DV>;
   using Mma = typename Elem<T>::Mma;
   constexpr int kBlockK = L::kBlockK;
-  constexpr int kChunk = D < 128 ? D : 128;   // O columns of one P V wgmma
+  // O columns of one P V wgmma
+  constexpr int kChunk = DV < 128 ? DV : DV % 128 == 0 ? 128 : 64;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -291,7 +328,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages,
                  bar_e = bar_v + 8 * kStages;     // + 8 * stage
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / (D / DV);
+  const int c0 = (blockIdx.x % (D / DV)) * DV;   // the block's first column
   const int kvh = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int i0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
   const int warp = threadIdx.x / 32;
@@ -324,14 +362,14 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = t_lo; t < t_hi; ++t) {
         const int it = t - t_lo, s = it % kStages;
         if (it >= kStages) mbar_wait(bar_e + 8 * s, (it / kStages - 1) & 1);
-        mbar_expect_tx(bar_k + 8 * s, L::kTile);
+        mbar_expect_tx(bar_k + 8 * s, L::kKTile);
         for (int p = 0; p < L::kPanels; ++p)
-          tma_load(sK + s * L::kTile + p * L::kKPanel, &tm_k, bar_k + 8 * s,
+          tma_load(sK + s * L::kKTile + p * L::kKPanel, &tm_k, bar_k + 8 * s,
                    p * kPanel, t * kBlockK, kvh);
-        mbar_expect_tx(bar_v + 8 * s, L::kTile);
-        for (int p = 0; p < L::kPanels; ++p)
-          tma_load(sV + s * L::kTile + p * L::kKPanel, &tm_v, bar_v + 8 * s,
-                   p * kPanel, t * kBlockK, kvh);
+        mbar_expect_tx(bar_v + 8 * s, L::kVTile);
+        for (int p = 0; p < L::kVPanels; ++p)
+          tma_load(sV + s * L::kVTile + p * L::kKPanel, &tm_v, bar_v + 8 * s,
+                   c0 + p * kPanel, t * kBlockK, kvh);
       }
     }
     return;
@@ -349,11 +387,11 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_rows = sQ + wg * 64 * 128;
 
   // O in chunks of kChunk columns: chunk c is the accumulator of the c-th
-  // P V wgmma, and its fragment order is that of one m64nDk16 accumulator
-  float o[D / kChunk][kChunk / 2];
+  // P V wgmma, and its fragment order is that of one m64n{DV}k16 accumulator
+  float o[DV / kChunk][kChunk / 2];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int c = 0; c < D / kChunk; ++c)
+  for (int c = 0; c < DV / kChunk; ++c)
 #pragma unroll
     for (int i = 0; i < kChunk / 2; ++i) o[c][i] = 0.0f;
 
@@ -372,7 +410,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t step = (kk % 4) * 32;   // 16 columns into the panel
       const uint64_t da = sw128_desc(q_rows + (kk / 4) * L::kQPanel + step, 16, 1024);
       const uint64_t db =
-          sw128_desc(sK + s * L::kTile + (kk / 4) * L::kKPanel + step, 16, 1024);
+          sw128_desc(sK + s * L::kKTile + (kk / 4) * L::kKPanel + step, 16, 1024);
       Mma::ss(sc, da, db, kk > 0);
     }
     wgmma_commit();
@@ -420,20 +458,20 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + psum[h];
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c)
+    for (int c = 0; c < DV / kChunk; ++c)
 #pragma unroll
       for (int i = 0; i < kChunk / 2; ++i) o[c][i] *= corr[(i >> 1) & 1];
 
     // O += P V over kBlockK / 16 steps of 16 keys, a chunk of D at a time
     mbar_wait(bar_v + 8 * s, parity);
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c) fence_regs(o[c]);
+    for (int c = 0; c < DV / kChunk; ++c) fence_regs(o[c]);
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c)
+    for (int c = 0; c < DV / kChunk; ++c)
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        const uint64_t db = sw128_desc(sV + s * L::kTile +
+        const uint64_t db = sw128_desc(sV + s * L::kVTile +
                                            c * (kChunk / kPanel) * L::kKPanel +
                                            kk * 16 * 128,
                                        L::kKPanel, 1024);
@@ -442,7 +480,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int c = 0; c < D / kChunk; ++c) fence_regs(o[c]);
+    for (int c = 0; c < DV / kChunk; ++c) fence_regs(o[c]);
     mbar_arrive(bar_e + 8 * s);
   }
 
@@ -453,9 +491,9 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
     if (r >= S) continue;
-    T* dst = out + (static_cast<size_t>(bh) * S + r) * D + col;
+    T* dst = out + (static_cast<size_t>(bh) * S + r) * D + c0 + col;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int c = n / (kChunk / 8), j = 4 * (n % (kChunk / 8)) + 2 * h;
       *reinterpret_cast<uint32_t*>(dst + 8 * n) =
           Elem<T>::pack(o[c][j] / den[h], o[c][j + 1] / den[h]);
@@ -508,24 +546,26 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int D
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
            int Hkv, int S, int Tk, int causal, int window, float scale_log2,
            cudaStream_t stream) {
   constexpr CUtensorMapDataType type = Elem<T>::kMap;
-  constexpr int kBlockK = Smem<D>::kBlockK;
+  constexpr int kBlockK = Smem<D, DV>::kBlockK;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, type, q, D, S, B * H, kBlockQ) ||
       !make_map(&tk, type, k, D, Tk, B * Hkv, kBlockK) ||
       !make_map(&tv, type, v, D, Tk, B * Hkv, kBlockK))
     return kEncodeFailed;
-  const size_t shmem = Smem<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_sm90_kernel<T, D>,
+  const size_t shmem = Smem<D, DV>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_sm90_kernel<T, D, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(shmem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(B) * H, (S + kBlockQ - 1) / kBlockQ);
-  flash_attention_sm90_kernel<T, D><<<grid, kThreads, shmem, stream>>>(
+  // a (head, column slice) pair per x, the slices of a head side by side
+  const dim3 grid(static_cast<unsigned>(B) * H * (D / DV),
+                  (S + kBlockQ - 1) / kBlockQ);
+  flash_attention_sm90_kernel<T, D, DV><<<grid, kThreads, shmem, stream>>>(
       tq, tk, tv, static_cast<T*>(out), H, Hkv, S, Tk, causal, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -536,14 +576,20 @@ int launch_width(const void* q, const void* k, const void* v, void* out, int B,
                  float scale_log2, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
-                           scale_log2, stream);
+      return launch<T, 64, 64>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                               scale_log2, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
-                            scale_log2, stream);
+      return launch<T, 128, 128>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                                 scale_log2, stream);
+    case 256:
+      return launch<T, 256, 256>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                                 scale_log2, stream);
+    case 384:
+      return launch<T, 384, 192>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                                 scale_log2, stream);
     default:
-      return launch<T, 256>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
-                            scale_log2, stream);
+      return launch<T, 512, 256>(q, k, v, out, B, H, Hkv, S, Tk, causal, window,
+                                 scale_log2, stream);
   }
 }
 
@@ -555,7 +601,8 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            int Hkv, int S, int Tk, int D, int f16,
                                            int causal, int window,
                                            float scale_log2, cudaStream_t stream) {
-  if (Hkv < 1 || H % Hkv != 0 || (D != 64 && D != 128 && D != 256))
+  if (Hkv < 1 || H % Hkv != 0 ||
+      (D != 64 && D != 128 && D != 256 && D != 384 && D != 512))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || S == 0) return static_cast<int>(cudaGetLastError());
   if (Tk == 0)        // no key: every row is 0 / max(0, 1e-30)

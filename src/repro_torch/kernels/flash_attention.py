@@ -19,23 +19,24 @@ and, with ``window > 0``, fewer than ``window`` positions before it.
 - ``flash_attention_ref``: the plain version of the kernel of the input's
   type: ``flash_attention_ref32`` in q's type for float32, and for
   bfloat16 and float16 the tensor-core kernel's roundings (``_plain16``):
-  KV tiles of 128 keys up to D = 128 and of 64 above (the kernel's
-  ``kBlockK`` at the width D runs at), scores as float32 sums of the
+  KV tiles of 128 keys up to D = 128, of 64 up to 256 and of 32 above (the
+  kernel's ``kBlockK`` at the width D runs at), scores as float32 sums of the
   16-bit products, the scale folded into an exp2, l summed from the
   float32 p, P rounded to the input's type before P V, which sums in
   float32.
 - ``flash_attention``: the wrapper.  CPU tensors run
   ``flash_attention_ref``; CUDA tensors launch ``csrc/flash_attention.cu``
-  (float32: three TF32 products on the tensor cores at D = 64, 80 and
-  128, the CUDA cores at 256; counted in ``flash_attention.launches``) or
+  (float32: three TF32 products on the tensor cores at D = 64, 80, 128,
+  256, 384 and 512; counted in ``flash_attention.launches``) or
   ``csrc/flash_attention_sm90.cu`` (bfloat16 and float16, wgmma, D = 64,
-  128 and 256; counted in ``flash_attention_sm90.launches``).  Any
-  D ≤ 256 runs zero-padded to the next width of its route
-  (``kernel_head_dim``, ``pad_head_dim``), and the card declines D > 256
-  and other types (``check_kernel_inputs``).  The float32 kernel agrees
-  with its plain version entry by entry within 2e-5; a 16-bit output is
-  held row by row against ``flash_attention_ref32`` (the limit is
-  ``chip_smoke.py``'s ``flash_row_excess``).
+  128, 256, 384 and 512; counted in ``flash_attention_sm90.launches``);
+  past D = 256 a block owns a slice of the output columns and computes S
+  over the whole of D.  Any D ≤ 512 runs zero-padded to the next width of
+  its route (``kernel_head_dim``, ``pad_head_dim``), and the card declines
+  D > 512 and other types (``check_kernel_inputs``).  The float32 kernel
+  agrees with its plain version entry by entry within 2e-5; a 16-bit
+  output is held row by row against ``flash_attention_ref32`` (the limit
+  is ``chip_smoke.py``'s ``flash_row_excess``).
 """
 
 from __future__ import annotations
@@ -49,29 +50,33 @@ from repro_torch.kernels import _build
 
 __all__ = ["attention_ref", "attention_ref_chunked", "flash_attention_ref32",
            "flash_attention_ref", "kernel_head_dim", "check_kernel_inputs",
-           "pad_head_dim", "flash_attention"]
+           "pad_head_dim", "flash_attention", "MAX_HEAD_DIM"]
 
 _BLOCK_K = 64                # KV tile of ref32
 _NEG_INF = -1e30
 _MAX_Q_TILES = 65535         # the kernels' grid height, in query tiles
 _16BIT = (torch.bfloat16, torch.float16)
-_WIDTHS = {torch.float32: (64, 80, 128, 256), torch.bfloat16: (64, 128, 256),
-           torch.float16: (64, 128, 256)}
+# the widths each route is built for; above 256 only multiples of 128,
+# which split into column slices of equal width (16 bits: two of D / 2;
+# float32 at 384 and 512: D / 128 of 128)
+_WIDTHS = {torch.float32: (64, 80, 128, 256, 384, 512),
+           torch.bfloat16: (64, 128, 256, 384, 512),
+           torch.float16: (64, 128, 256, 384, 512)}
+MAX_HEAD_DIM = 512
 
 
 def _block_k16(D: int) -> int:
     """The 16-bit kernel's KV tile at the width a head dim D runs at: 128
-    keys up to 128, 64 above (csrc/flash_attention_sm90.cu's kBlockK)."""
-    return 64 if D > 128 else 128
+    keys up to 128, 64 up to 256, 32 above (csrc/flash_attention_sm90.cu's
+    kBlockK: past 256 the query tile alone is 96 or 128 KB of shared
+    memory)."""
+    return 128 if D <= 128 else 64 if D <= 256 else 32
 
 
-def _block_q(dtype, width: int) -> int:
-    """Query rows of one block of the kernel that runs ``dtype`` at
-    ``width``: 128 in 16 bits, 64 in float32 (32 at 256, its CUDA-core
-    kernel)."""
-    if dtype in _16BIT:
-        return 128
-    return 32 if width == 256 else 64
+def _block_q(dtype) -> int:
+    """Query rows of one block of the kernel that runs ``dtype``: 128 in
+    16 bits, 64 in float32."""
+    return 128 if dtype in _16BIT else 64
 
 
 def _mask(S: int, T: int, q_offset: int, causal: bool, window: int,
@@ -215,15 +220,16 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
 
 def kernel_head_dim(D: int, dtype=torch.bfloat16) -> int:
     """The width the card's kernel for ``dtype`` runs a head dim ``D`` at:
-    the least width it is built for that holds D, 64, 128 or 256 in 16
-    bits, 64, 80, 128 or 256 in float32 (hubert-xlarge's D = 80 runs
-    unpadded there).  Raises ``ValueError`` above 256: no kernel is built
-    that wide (the 16-bit kernel's 64 x 256 float32 O accumulator takes
-    128 registers a thread already; a wider head needs D split over
-    blocks)."""
-    if not 1 <= D <= 256:
-        raise ValueError(f"flash_attention: head dim {D} is outside 1..256, "
-                         "the widths the card's kernels take")
+    the least width it is built for that holds D, 64, 128, 256, 384 or 512
+    in 16 bits, 64, 80, 128, 256, 384 or 512 in float32 (hubert-xlarge's
+    D = 80 runs unpadded there).  Raises ``ValueError`` above
+    ``MAX_HEAD_DIM`` (512): no kernel is built that wide (at 512 the
+    16-bit query tile alone takes 128 of a block's 227 KB of shared
+    memory, the float32 one 128 KB as loaded)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} is outside "
+                         f"1..{MAX_HEAD_DIM}, the widths the card's kernels "
+                         "take")
     return next(w for w in _WIDTHS.get(dtype, _WIDTHS[torch.bfloat16])
                 if D <= w)
 
@@ -231,15 +237,15 @@ def kernel_head_dim(D: int, dtype=torch.bfloat16) -> int:
 def check_kernel_inputs(q, k, v) -> None:
     """Raise ``ValueError`` unless the card's kernels take q (B, H, S, D),
     k and v (B, Hkv, T, D): one type, float32, bfloat16 or float16;
-    D ≤ 256; H a multiple of Hkv; S within the grid."""
+    D ≤ ``MAX_HEAD_DIM``; H a multiple of Hkv; S within the grid."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if q.dtype not in _WIDTHS:
         raise ValueError(f"flash_attention: no kernel for {q.dtype}")
-    width = kernel_head_dim(D, q.dtype)
+    kernel_head_dim(D, q.dtype)
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads over {Hkv} KV heads")
-    if -(-S // _block_q(q.dtype, width)) > _MAX_Q_TILES:
+    if -(-S // _block_q(q.dtype)) > _MAX_Q_TILES:
         raise ValueError(f"flash_attention: {S} query rows exceed the grid")
     _build.check("k", k, q.dtype, (B, Hkv, T, D))
     _build.check("v", v, q.dtype, (B, Hkv, T, D))
@@ -268,9 +274,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Attention forward, dispatched by the device and type of ``q``.
 
     q (B, H, S, D), k and v (B, Hkv, T, D), contiguous, one type (float32,
-    bfloat16 or float16 on the card), D ≤ 256 on the card (run zero-padded
-    to the route's next width, ``pad_head_dim``).  Returns (B, H, S, D) in
-    q's type.
+    bfloat16 or float16 on the card), D ≤ ``MAX_HEAD_DIM`` on the card (run
+    zero-padded to the route's next width, ``pad_head_dim``).  Returns
+    (B, H, S, D) in q's type.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -293,8 +299,8 @@ def _aligned(q, k, v) -> None:
 
 def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
     """Launch ``csrc/flash_attention.cu`` on float32 CUDA tensors of width
-    64, 80, 128 or 256 that ``flash_attention`` has checked; counted in
-    ``flash_attention.launches``."""
+    64, 80, 128, 256, 384 or 512 that ``flash_attention`` has checked;
+    counted in ``flash_attention.launches``."""
     _aligned(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
@@ -313,8 +319,8 @@ def flash_attention_f32(q, k, v, *, causal: bool, window: int, scale: float):
 
 def flash_attention_sm90(q, k, v, *, causal: bool, window: int, scale: float):
     """Launch ``csrc/flash_attention_sm90.cu`` on bfloat16 or float16 CUDA
-    tensors of width 64, 128 or 256 that ``flash_attention`` has checked;
-    the 16-bit route's launch count."""
+    tensors of width 64, 128, 256, 384 or 512 that ``flash_attention`` has
+    checked; the 16-bit route's launch count."""
     _aligned(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]

@@ -14,12 +14,14 @@ step at 1).  JAX's
 reference is the oracle, as it is for the JAX package's own kernel test.
 The cases are that test's (MHA, GQA 4:1, S < T, D = 128, windows 32 and
 128, non-causal) plus a ragged S = T = 200, the wide heads the card
-takes up to 256 (D = 160, run zero-padded to 256, and 256 itself, as
-Gemma 2's 256-wide heads; causal, windowed and non-causal, in all three
-types), and the head dims the card runs zero-padded (``pad_head_dim``):
-hubert-xlarge's D = 80, D = 200 and the SMOKE configs' D = 16 and 8.  In
-bfloat16 and float16 the plain version is the tensor-core kernel's
-algorithm (``_plain16``, its KV tile 64 keys above D = 128); the
+takes up to 512 (D = 160, run zero-padded to 256, and 256 itself, as
+Gemma 2's 256-wide heads; D = 320, run zero-padded to 384, and 512, where
+the card splits the output columns over blocks; causal, windowed,
+non-causal and S < T, in all three types), and the head dims the card
+runs zero-padded (``pad_head_dim``): hubert-xlarge's D = 80, D = 200,
+300 and 400 and the SMOKE configs' D = 16 and 8.  In bfloat16 and
+float16 the plain version is the tensor-core kernel's algorithm
+(``_plain16``, its KV tile 64 keys above D = 128, 32 above 256); the
 all-float32 ``flash_attention_ref32`` is held at 2e-5 in float32, and
 ``chip_smoke.py``'s row-wise bfloat16 limit must pass the plain bfloat16
 algorithm and reject it one KV tile off at the band's edge.  The float32
@@ -43,7 +45,8 @@ import torch
 
 from repro.kernels import ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
+                                                 attention_ref,
                                                  attention_ref_chunked,
                                                  check_kernel_inputs,
                                                  flash_attention_ref,
@@ -56,7 +59,8 @@ from chip_smoke import flash_row_excess, shifted_window  # noqa: E402
 
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 1e-2}
 DTYPES = ["float32", "bfloat16", "float16"]
-WIDE = (160, 256)          # head dims above 128 (160 runs padded to 256)
+# head dims above 128 (160 runs padded to 256, 320 to 384)
+WIDE = (160, 256, 320, 512)
 
 
 def _inputs(shape_q, shape_kv, dtype, seed):
@@ -161,13 +165,17 @@ PLAIN_CASES = [   # (B, H, Hkv, S, T, D, causal, window): the file's cases
 @pytest.mark.parametrize("case", PLAIN_CASES + [
     (1, 4, 2, 200, 200, 256, True, 0),       # 256 wide: KV tiles of 64
     (1, 2, 2, 256, 256, 256, True, 96),
-    (1, 2, 2, 128, 128, 256, False, 0)], ids=lambda c: "-".join(
+    (1, 2, 2, 128, 128, 256, False, 0),
+    (1, 4, 2, 200, 200, 320, True, 0),       # past 256: KV tiles of 32
+    (1, 2, 2, 256, 256, 320, True, 96),
+    (1, 2, 2, 128, 128, 512, False, 0),
+    (1, 4, 2, 96, 200, 512, True, 64)], ids=lambda c: "-".join(
         str(x) for x in c))
 def test_plain_versions_match_jax(case, dtype):
     """Against JAX's dense reference at the file's atol: in bf16 and f16
     the tensor-core kernel's plain version (P rounded to the input's type
     before P V, the scale folded into exp2, KV tiles of 128, or 64 above
-    D = 128); in f32 the all-f32 ``flash_attention_ref32``, the reference
+    D = 128, 32 above 256); in f32 the all-f32 ``flash_attention_ref32``, the reference
     a 16-bit output is held against."""
     B, H, Hkv, S, T, D, causal, window = case
     jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, S + T + H)
@@ -197,6 +205,14 @@ def test_16bit_limit_rejects_a_tile_shift_at_256(causal, window, dtype):
     _limit_rejects_a_tile_shift(causal, window, 256, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 0)])
+def test_16bit_limit_rejects_a_tile_shift_at_512(causal, window, dtype):
+    """The same limit at D = 512 (KV tiles of 32) in both 16-bit types."""
+    _limit_rejects_a_tile_shift(causal, window, 512, dtype)
+
+
 def _limit_rejects_a_tile_shift(causal, window, D, dtype):
     B, H, Hkv, S, T = 1, 4 if D <= 128 else 2, 2 if D <= 128 else 1, 256, 256
     _, (q, k, v) = _inputs((B, H, S, D), (B, Hkv, T, D), dtype, 7)
@@ -214,6 +230,8 @@ PAD_CASES = [   # (B, H, Hkv, S, T, D, causal, window): widths run padded
     (2, 8, 8, 128, 128, 8, True, 32),        # the SMOKE configs: 64/8
     (1, 4, 2, 200, 200, 200, True, 64),      # 200: padded to 256
     (1, 2, 1, 128, 160, 136, False, 0),      # 136: padded to 256
+    (1, 4, 2, 200, 200, 300, True, 64),      # 300: padded to 384
+    (1, 2, 1, 96, 160, 400, False, 0),       # 400: padded to 512, S < T
 ]
 
 
@@ -236,37 +254,40 @@ def test_padded_head_dims_match_jax(case, dtype):
 
 
 def test_kernel_head_dims_and_declined_inputs():
-    """The card's domain: every D ≤ 256 in float32, bfloat16 and float16,
-    run at 64, 128 or 256 in 16 bits and at 64, 80, 128 or 256 in
-    float32; D outside 1..256 and other types (float64) raise
-    ``ValueError``; float16 and D = 256 are taken."""
-    dims = (1, 8, 16, 63, 64, 65, 80, 81, 128, 129, 160, 200, 256)
-    wide = [256] * 4
+    """The card's domain: every D ≤ 512 in float32, bfloat16 and float16,
+    run at 64, 128, 256, 384 or 512 in 16 bits and at 64, 80, 128, 256,
+    384 or 512 in float32; D outside 1..512 and other types (float64)
+    raise ``ValueError`` naming the limit; float16 and D = 256, 320 and
+    512 are taken."""
+    assert MAX_HEAD_DIM == 512
+    dims = (1, 8, 16, 63, 64, 65, 80, 81, 128, 129, 160, 200, 256, 257, 320,
+            384, 385, 500, 512)
+    wide = [256] * 4 + [384] * 3 + [512] * 3
     assert [kernel_head_dim(D) for D in dims] == [64] * 5 + [128] * 4 + wide
     for dt in (torch.bfloat16, torch.float16):
         assert [kernel_head_dim(D, dt) for D in dims] \
             == [64] * 5 + [128] * 4 + wide
     assert [kernel_head_dim(D, torch.float32) for D in dims] \
         == [64] * 5 + [80] * 2 + [128] * 2 + wide
-    for D in (0, 257, 512):
-        with pytest.raises(ValueError, match="head dim"):
+    for D in (0, 513, 1024):
+        with pytest.raises(ValueError, match="head dim .* 1..512"):
             kernel_head_dim(D)
 
     def qkv(D, dtype):
         return (torch.zeros((1, 2, 8, D), dtype=dtype),
                 torch.zeros((1, 1, 8, D), dtype=dtype),
                 torch.zeros((1, 1, 8, D), dtype=dtype))
-    for D in (0, 257, 512):
+    for D in (0, 513, 1024):
         with pytest.raises(ValueError, match="head dim"):
             check_kernel_inputs(*qkv(D, torch.float32))
     with pytest.raises(ValueError, match="float64"):
         check_kernel_inputs(*qkv(64, torch.float64))
     with pytest.raises(ValueError, match="head dim"):
-        pad_head_dim(flash_attention_ref, *qkv(257, torch.float32))
-    # taken: float16, and D = 256 in every type (the shape and type
+        pad_head_dim(flash_attention_ref, *qkv(513, torch.float32))
+    # taken: float16, and D up to 512 in every type (the shape and type
     # checks that need a CUDA tensor are the card's)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
-        for D in (64, 200, 256):
+        for D in (64, 200, 256, 320, 512):
             with pytest.raises(ValueError, match="CUDA"):
                 check_kernel_inputs(*qkv(D, dt))
 
@@ -294,13 +315,13 @@ def _tf32_product(eq, a, b, terms):
 
 def _flash_tf32(q, k, v, *, causal, window, terms=3):
     """The float32 kernel's algorithm on the CPU: KV tiles of 64 keys (D =
-    64) or 32 (D = 80, 128), scores and P V as TF32 products
+    64), 32 (D = 80, 128) or 16 (above 128), scores and P V as TF32 products
     (``_tf32_product``), the scale folded into an exp2, l the sum of the
     float32 p, masked scores at -1e30."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     rep = H // Hkv
-    block = 64 if D <= 64 else 32
+    block = 64 if D <= 64 else 32 if D <= 128 else 16
     c = torch.tensor(D ** -0.5 * math.log2(math.e), dtype=torch.float32)
     qf = q.reshape(B, Hkv, rep, S, D)
     m = torch.full((B, Hkv, rep, S, 1), -1e30)
@@ -342,11 +363,13 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 
 @pytest.mark.parametrize("case", PLAIN_CASES + [
-    (1, 16, 16, 128, 128, 80, False, 0)], ids=lambda c: "-".join(
+    (1, 16, 16, 128, 128, 80, False, 0),
+    (1, 2, 1, 128, 160, 512, True, 0),
+    (1, 4, 2, 200, 200, 320, True, 64)], ids=lambda c: "-".join(
         str(x) for x in c))
 def test_three_tf32_products_meet_the_f32_limit(case):
     """The float32 kernel's arithmetic (3xTF32 over its KV tiles, D = 80
-    at its own width) against JAX's dense reference in float32, within
+    at its own width, D = 320 and 512 over tiles of 16) against JAX's dense reference in float32, within
     2e-5."""
     B, H, Hkv, S, T, D, causal, window = case
     jx, tx = _inputs((B, H, S, D), (B, Hkv, T, D), "float32", S + T + H)

@@ -35,10 +35,10 @@ batched alias tables (``chip_smoke.ALIAS_KS``: K 1 to 64 over the warp
 layouts, on ``alias_weights``' all-zero, single-entry, equal and
 near-1e-30 rows), bit for bit; flash attention at ``chip_smoke.py``'s
 phase-2 cases and limits (``FLASH_CASES``, head dims 8, 16, 64, 80,
-128, 136, 200 and 256, in float32, bfloat16 and float16; ``flash_limit``:
-``FLASH_TOL`` in f32, the row-wise ``FLASH_ROW`` in 16 bits), which must
-also reject the kernel one tile off at the band's edge, and the inputs
-the card declines (D > 256, float64).  The segment
+128, 136, 200, 256, 320, 384 and 512, in float32, bfloat16 and float16;
+``flash_limit``: ``FLASH_TOL`` in f32, the row-wise ``FLASH_ROW`` in 16
+bits), which must also reject the kernel one tile off at the band's
+edge, and the inputs the card declines (D > 512, float64).  The segment
 entry runs at four occupancies of its slots (mixed, all free, about 5 %
 live, all live), and on each vertex shard of a (2, 2) vertex × walker
 layout, its slots carrying the walker group's global ids (``wid_base``
@@ -895,10 +895,10 @@ def test_flash_attention_limit_rejects_a_tile_shift(case):
 
 
 def test_flash_attention_declines_what_the_card_has_no_kernel_for():
-    """D > 256 and types other than float32, bfloat16 and float16 raise
-    ``ValueError``."""
-    q = torch.zeros((1, 2, 64, 257), device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
+    """D > 512 and types other than float32, bfloat16 and float16 raise
+    ``ValueError`` naming the limit."""
+    q = torch.zeros((1, 2, 64, 513), device="cuda")
+    with pytest.raises(ValueError, match="head dim .* 1..512"):
         ops.flash_attention(q, q, q)
     q = torch.zeros((1, 2, 64, 64), device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="float64"):

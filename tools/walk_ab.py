@@ -31,10 +31,11 @@ scratch argument (``work``) is called without it.  With ``--flash``,
 each tree whose
 ``flash_attention.cu`` has the 80-wide float32 instantiation
 (``Geometry<80>``) is built too, and its float32 attention is timed in the
-same turns at hubert-xlarge's widths (16 heads, D = 80, non-causal) and
-Mixtral 8x7B's (32 heads over 8 KV heads, D = 128, window 4096) over
-8,192 tokens, each tree's output within ``chip_smoke.FLASH_TOL`` of the
-plain version.  With ``--update``, each tree's own ``repro_torch``
+same turns at hubert-xlarge's widths (16 heads, D = 80, non-causal),
+Mixtral 8x7B's (32 heads over 8 KV heads, D = 128, window 4096) and
+Gemma 2 9B's (16 heads over 8 KV heads, D = 256, window 4096) over 8,192
+tokens, each tree's output within ``chip_smoke.FLASH_TOL`` of the plain
+version.  With ``--update``, each tree's own ``repro_torch``
 package (the ``src`` directory above its ``csrc``, imported beside this
 tree's, each building its own sources) runs the main path's round 10 on
 a copy of the state after round 9 in the same turns: the whole round
@@ -474,7 +475,8 @@ def main():
         from repro_torch.kernels.flash_attention import flash_attention_f32
         for case, (H, Hkv, D, causal, window) in (
                 ("flash f32 hubert 8k", (16, 16, 80, False, 0)),
-                ("flash f32 window 8k", (32, 8, 128, True, 4096))):
+                ("flash f32 window 8k", (32, 8, 128, True, 4096)),
+                ("flash f32 gemma window 8k", (16, 8, 256, True, 4096))):
             flash[case] = tuple(torch.randn(
                 (1, h, 8192, D), generator=g, device="cuda")
                 for h in (H, Hkv, Hkv)) + (causal, window)
